@@ -1,0 +1,290 @@
+"""Serving telemetry: per-engine `ServeStats` and the process-wide
+engine registry behind `serving_stats()` (counterpart of
+`paddle_tpu/serving/stats.py`).
+
+Counters are lifetime totals; every latency/occupancy distribution is a
+bounded sliding window (deque maxlen) so a long-lived engine's
+telemetry stays O(1) memory and O(window) to summarize.
+"""
+import collections
+import itertools
+import weakref
+from dataclasses import dataclass, field
+
+import numpy as np
+
+__all__ = ["ServeStats", "serving_stats"]
+
+# monotone per-process id: ServeStats instances (and therefore engines)
+# get a stable creation-order identity, so `serving_stats()` output is
+# deterministically ordered across runs (the WeakSet iterates in hash
+# order, which is not)
+_STATS_SEQ = itertools.count()
+
+
+# every live engine, for debug.serving_stats() (mirrors the prefetcher
+# registry in io/prefetch.py: observability without plumbing handles)
+_ENGINES = weakref.WeakSet()
+
+
+# sample window of the per-token / queue-wait / occupancy percentiles:
+# counters run forever, distributions cover the most recent samples so
+# a long-lived engine's telemetry stays O(1) memory and O(window) to
+# summarize
+_STATS_WINDOW = 4096
+
+
+def _window():
+    return collections.deque(maxlen=_STATS_WINDOW)
+
+
+@dataclass
+class ServeStats:
+    """Serving telemetry of one engine: how often the host interposes
+    on the decode loop and what the client observes. `decode_syncs` is
+    the number under optimization — the per-tick engine pays one host
+    sync per generated token; the multi-step engine one per K.
+    Counters are lifetime totals; the latency/occupancy distributions
+    are bounded sliding windows (last `_STATS_WINDOW` samples).
+
+    The `prefix_*` counters are the prefix-cache ledger (block = one KV
+    page of tokens): `prefix_hits`/`prefix_misses` count block lookups
+    at admission, `prefix_tokens_saved` the prompt positions whose
+    prefill was skipped entirely (pages mounted host-side),
+    `prefix_bytes_saved` the KV bytes those positions would have
+    written, `prefix_cow` copy-on-write page copies (a request about to
+    write into a page it mounted shared), `prefix_evictions` refcount-0
+    pages reclaimed from the cache under pool pressure."""
+    engine: str = ""
+    engine_id: int = -1          # creation order (set in __post_init__)
+    # fleet position (serving.fleet.FleetRouter stamps it; -1 = not a
+    # fleet member). `engine_id` alone orders engines within ONE
+    # process — across processes the per-process counters collide, so
+    # the merge/ordering contract is (engine, replica, engine_id):
+    # the replica id is the cross-process leg of the identity
+    replica: int = -1
+    k_max: int = 1
+    requests: int = 0            # submitted
+    completed: int = 0           # retired with output
+    tokens: int = 0              # generated tokens (prefill's included)
+    ticks: int = 0               # device decode ticks dispatched
+    decode_syncs: int = 0        # host fetches of decode results
+    prefill_syncs: int = 0       # host-blocking prefill rounds
+    prefill_stall_syncs: int = 0  # blocking prefills with decode slots
+    # live at dispatch time — the stall the ragged path eliminates
+    prefill_chunks: int = 0      # prompt chunks consumed inside horizons
+    prefill_chunk_tokens: int = 0  # prompt tokens streamed via chunks
+    # pad ledger (lifetime counters, every engine's HORIZON/TICK
+    # dispatch paths — per-tick, fused, ragged, speculative): how many
+    # token POSITIONS the dispatched layouts computed vs how many of
+    # them were padding (window columns of decode rows on the dense
+    # [S, w] layout, frozen/empty rows' filler, packed-bucket slack).
+    # Blocking-path prefill dispatches (ragged=False admission) are
+    # NOT in the ledger — the ragged default has none. pad_fraction =
+    # padded/dispatched is the packed-ragged-layout headline: pay for
+    # tokens, not windows.
+    tokens_dispatched: int = 0   # token positions computed by dispatches
+    tokens_padded: int = 0       # of those, padding (discarded work)
+    prefix_hits: int = 0         # cached full blocks mounted at admission
+    prefix_misses: int = 0       # cacheable blocks that had to prefill
+    prefix_evictions: int = 0    # refcount-0 pages evicted under pressure
+    prefix_cow: int = 0          # copy-on-write page copies
+    prefix_tokens_saved: int = 0  # prompt positions whose prefill was skipped
+    prefix_bytes_saved: int = 0  # KV bytes not recomputed (mounted pages)
+    # tiered-KV ledger (serving.kv_tier): the host-RAM spill tier
+    # behind the prefix cache. Counters are lifetime; host_tier_bytes
+    # is a gauge (current host residency). tier_restores/tier_
+    # recomputes make the priced restore-vs-recompute decision
+    # OBSERVABLE: blocks found host-resident at admission either
+    # re-mounted over the wire (restore) or re-prefilled because the
+    # MXU beat the PCIe leg (recompute — the host entry is refreshed,
+    # its bytes stay valid by write-time determinism).
+    tier_spills: int = 0         # pages demoted to the host tier
+    tier_restores: int = 0       # host blocks re-mounted via H2D
+    tier_recomputes: int = 0     # host blocks re-prefilled (wire lost)
+    host_tier_bytes: int = 0     # current host-tier residency (gauge)
+    # tenancy ledger (serving.tenancy.TenantEngine): preemption by
+    # page-spill. A preemption parks the victim's full KV blocks in
+    # the prefix cache (whence pool pressure spills them through the
+    # host tier) and requeues the request; a resume re-admits it with
+    # its generated prefix as prompt — streams stay byte-identical
+    # preempt-on vs preempt-off (the (request, position) write-time
+    # discipline; fuzz-pinned in tests/test_tenancy.py).
+    preemptions: int = 0         # victims preempted by page-spill
+    resumes: int = 0             # preempted requests re-admitted
+    # capacity ledger (set once at engine construction from the
+    # decoder's pool layout; scale-plane metadata included for int8
+    # pools): the observable side of the KV-quant capacity claim —
+    # halve kv_bytes_per_token and the same pool feeds ~2x the slots
+    kv_pool_bytes: int = 0       # whole paged pool, all layers
+    kv_bytes_per_token: int = 0  # KV bytes one context token costs
+    max_resident_slots: int = 0  # peak concurrently-occupied slots
+    queue_wait_s: collections.deque = field(      # submit -> admit
+        default_factory=_window)
+    occupancy: collections.deque = field(         # active/slots per block
+        default_factory=_window)
+    ttft_s: collections.deque = field(            # submit -> first token
+        default_factory=_window)
+    token_time_s: collections.deque = field(
+        # wall per token, steady-state decode syncs only (syncs that
+        # contained a prefill are excluded, or p99 becomes a prefill
+        # number)
+        default_factory=_window)
+
+    def __post_init__(self):
+        if self.engine_id < 0:
+            self.engine_id = next(_STATS_SEQ)
+
+    # ordering contract of every multi-engine view (live_engines,
+    # merge, the fleet's summaries): name, then fleet replica, then
+    # per-process creation id. engine_id alone is only unique within
+    # one process — the replica id disambiguates across them
+    def order_key(self):
+        return (self.engine, self.replica, self.engine_id)
+
+    @classmethod
+    def merge(cls, stats_list):
+        """One fleet-wide ServeStats from N engines' (possibly
+        N processes') ledgers: counters sum, the sliding windows pool
+        in `order_key` order into windows of the SAME bound (oldest
+        samples fall off exactly like a single long-lived engine's
+        would — the merged view stays O(window)), and percentile math
+        on a 1-engine merge reproduces the single engine's numbers
+        bit-for-bit (same samples, same deque).
+
+        Gauges need care: `host_tier_bytes` merges by MAX, not sum —
+        the fleet's replicas share ONE host tier
+        (serving.fleet.SharedHostKVTier), so every replica's gauge
+        reads the same store and summing would count one warm set N
+        times. `kv_pool_bytes`/`max_resident_slots` DO sum (each
+        replica owns its device pool and slots); `kv_bytes_per_token`
+        and `k_max` merge by max (homogeneous fleets agree on them
+        anyway)."""
+        stats = sorted(stats_list, key=lambda s: s.order_key())
+        if not stats:
+            return cls(engine="fleet[0]")
+        names = sorted({s.engine for s in stats})
+        out = cls(engine=(names[0] if len(names) == 1
+                          else "+".join(names)))
+        # a merge is a pure function of the stats SET: the fresh
+        # per-process engine_id the ctor drew would make two merges of
+        # the same set compare unequal — inherit the smallest input id
+        out.engine_id = min(s.engine_id for s in stats)
+        for f in ("requests", "completed", "tokens", "ticks",
+                  "decode_syncs", "prefill_syncs", "prefill_stall_syncs",
+                  "prefill_chunks", "prefill_chunk_tokens",
+                  "tokens_dispatched", "tokens_padded", "prefix_hits",
+                  "prefix_misses", "prefix_evictions", "prefix_cow",
+                  "prefix_tokens_saved", "prefix_bytes_saved",
+                  "tier_spills", "tier_restores", "tier_recomputes",
+                  "preemptions", "resumes", "kv_pool_bytes",
+                  "max_resident_slots"):
+            setattr(out, f, sum(getattr(s, f) for s in stats))
+        for f in ("k_max", "kv_bytes_per_token", "host_tier_bytes"):
+            setattr(out, f, max(getattr(s, f) for s in stats))
+        for f in ("queue_wait_s", "occupancy", "ttft_s",
+                  "token_time_s"):
+            win = getattr(out, f)
+            for s in stats:
+                win.extend(getattr(s, f))
+        return out
+
+    @property
+    def host_syncs_per_token(self):
+        return self.decode_syncs / self.tokens if self.tokens else 0.0
+
+    @property
+    def prefix_hit_rate(self):
+        """Fraction of cacheable prompt blocks served from the cache."""
+        n = self.prefix_hits + self.prefix_misses
+        return self.prefix_hits / n if n else 0.0
+
+    @property
+    def pad_fraction(self):
+        """Fraction of dispatched token positions that were padding."""
+        return self.tokens_padded / self.tokens_dispatched \
+            if self.tokens_dispatched else 0.0
+
+    def summary(self):
+        d = {"engine": self.engine, "engine_id": self.engine_id,
+             **({"replica": self.replica} if self.replica >= 0 else {}),
+             "k_max": self.k_max,
+             "requests": self.requests, "completed": self.completed,
+             "tokens": self.tokens, "ticks": self.ticks,
+             "decode_syncs": self.decode_syncs,
+             "prefill_syncs": self.prefill_syncs,
+             "host_syncs_per_token": round(self.host_syncs_per_token, 4)}
+        if self.prefill_stall_syncs:
+            d["prefill_stall_syncs"] = self.prefill_stall_syncs
+        if self.prefill_chunks:
+            d["prefill_chunks"] = self.prefill_chunks
+            d["prefill_chunk_tokens"] = self.prefill_chunk_tokens
+        if self.tokens_dispatched:
+            d["tokens_dispatched"] = self.tokens_dispatched
+            d["tokens_padded"] = self.tokens_padded
+            d["pad_fraction"] = round(self.pad_fraction, 4)
+        if self.prefix_hits or self.prefix_misses:
+            d["prefix_hit_rate"] = round(self.prefix_hit_rate, 4)
+            d["prefix_hits"] = self.prefix_hits
+            d["prefix_misses"] = self.prefix_misses
+            d["prefix_evictions"] = self.prefix_evictions
+            d["prefix_cow"] = self.prefix_cow
+            d["prefix_tokens_saved"] = self.prefix_tokens_saved
+            d["prefix_bytes_saved"] = self.prefix_bytes_saved
+        if self.tier_spills or self.tier_restores or \
+                self.tier_recomputes or self.host_tier_bytes:
+            d["tier_spills"] = self.tier_spills
+            d["tier_restores"] = self.tier_restores
+            d["tier_recomputes"] = self.tier_recomputes
+            d["host_tier_bytes"] = self.host_tier_bytes
+        if self.preemptions or self.resumes:
+            d["preemptions"] = self.preemptions
+            d["resumes"] = self.resumes
+        if self.kv_pool_bytes:
+            d["kv_pool_bytes"] = self.kv_pool_bytes
+            d["kv_bytes_per_token"] = self.kv_bytes_per_token
+        if self.max_resident_slots:
+            d["max_resident_slots"] = self.max_resident_slots
+        if self.occupancy:
+            d["mean_slot_occupancy"] = round(
+                float(np.mean(self.occupancy)), 4)
+        # queue wait and TTFT report p50 AND p99: tail TTFT is the
+        # latency-tier SLO number (a mean-friendly p50 hides exactly
+        # the admission stalls an SLO class must bound)
+        if self.queue_wait_s:
+            d["queue_wait_p50_ms"] = round(
+                float(np.percentile(self.queue_wait_s, 50)) * 1e3, 3)
+            d["queue_wait_p99_ms"] = round(
+                float(np.percentile(self.queue_wait_s, 99)) * 1e3, 3)
+        if self.ttft_s:
+            d["ttft_p50_ms"] = round(
+                float(np.percentile(self.ttft_s, 50)) * 1e3, 3)
+            d["ttft_p99_ms"] = round(
+                float(np.percentile(self.ttft_s, 99)) * 1e3, 3)
+        if self.token_time_s:
+            tot = float(np.sum(self.token_time_s))
+            d["tokens_per_sec"] = round(len(self.token_time_s) / tot, 1) \
+                if tot else 0.0
+            d["token_p50_ms"] = round(
+                float(np.percentile(self.token_time_s, 50)) * 1e3, 3)
+            d["token_p99_ms"] = round(
+                float(np.percentile(self.token_time_s, 99)) * 1e3, 3)
+        return d
+
+
+def live_engines():
+    """Every live engine, deterministically ordered by (engine name,
+    fleet replica, creation id) — THE ordering contract for serving
+    telemetry front doors (`serving_stats`, `debug.serving_report`,
+    `ServeStats.merge`): the WeakSet iterates in hash order, which
+    would make logs and doctests flap across runs, and `engine_id`
+    alone is only unique within one process — the replica id
+    (`serving.fleet.FleetRouter` stamps it) is the cross-process leg
+    of the identity."""
+    return sorted(_ENGINES, key=lambda e: e.stats.order_key())
+
+
+def serving_stats():
+    """ServeStats summaries of every live engine (debug.serving_stats
+    front door), deterministically ordered (`live_engines`)."""
+    return [e.stats.summary() for e in live_engines()]
