@@ -1,9 +1,12 @@
 """Carry a JAX model's weights into the port.
 
 `state_dict_from_numpy` takes the dict `{name: numpy array}` exactly as
-the JAX `PagedGPTDecoder` reads its model (`{k: np.asarray(v._value)}`)
+the JAX package hands out a model's state
+(`{k: np.asarray(v._value) for k, v in model.state_dict().items()}`)
 and returns torch tensors under the same names, so the same weights
-compute the same thing in both packages.
+compute the same thing in both packages: a port `GPT` takes them with
+`model.load_state_dict(state_dict_from_numpy(np_state))`, each cast to
+its parameter's dtype.
 """
 import numpy as np
 import torch
@@ -13,9 +16,17 @@ from ..device import get_device
 __all__ = ["state_dict_from_numpy"]
 
 
+def _tensor(arr):
+    """A CPU tensor of `arr`; numpy's bfloat16 extension type (which
+    torch cannot read) goes through float32, exactly."""
+    arr = np.array(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).bfloat16()
+    return torch.from_numpy(arr)
+
+
 def state_dict_from_numpy(np_state, device=None, dtype=None):
     """{name: array} -> {name: tensor} on `device`; `dtype` (a torch
     dtype) casts every tensor, None keeps each array's own dtype."""
     dev = get_device(device)
-    return {k: torch.from_numpy(np.array(v)).to(dev, dtype)
-            for k, v in np_state.items()}
+    return {k: _tensor(v).to(dev, dtype) for k, v in np_state.items()}

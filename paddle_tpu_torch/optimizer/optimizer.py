@@ -1,0 +1,132 @@
+"""Optimizers (counterpart of `paddle_tpu/optimizer/optimizer.py`).
+
+The update follows the JAX `Optimizer.apply_gradients_pytree`: the step
+count starts at 1; the gradient clip runs first, over all gradients;
+each parameter's update is computed in f32 from `p.float()` (or from its
+f32 `master` copy when `multi_precision` is set and the parameter is
+bf16/fp16); moment slots are stored in `accumulator_dtype` (default
+f32); AdamW's decay is decoupled (`new_p -= lr * wd * p`); the result is
+cast back to the parameter's dtype and written in place. The learning
+rate is a constant (schedulers are not ported).
+"""
+import numpy as np
+import torch
+
+__all__ = ["Optimizer", "Adam", "AdamW"]
+
+_LOW = (torch.bfloat16, torch.float16)
+
+
+def _dtype(name):
+    if name is None or isinstance(name, torch.dtype):
+        return name
+    return getattr(torch, str(name))
+
+
+class Optimizer:
+    _slot_names = ()
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=False,
+                 accumulator_dtype=None):
+        if not isinstance(learning_rate, (int, float)):
+            raise NotImplementedError(
+                "learning-rate schedulers are not ported: pass a float")
+        self._parameter_list = (list(parameters) if parameters is not None
+                                else None)
+        self._learning_rate = float(learning_rate)
+        self._grad_clip = grad_clip
+        self._multi_precision = multi_precision
+        self._acc_dtype = _dtype(accumulator_dtype)
+        self._wd = float(weight_decay or 0.0)
+        self._state = {}              # param -> {slot: tensor}
+        self._step_count = 0
+
+    def get_lr(self):
+        return self._learning_rate
+
+    def bind(self, parameters):
+        """Set the parameters this optimizer updates (the Trainer binds
+        the model's when the optimizer was built without any)."""
+        self._parameter_list = list(parameters)
+
+    def _slots(self, p):
+        st = self._state.get(p)
+        if st is None:
+            st = {n: torch.zeros(p.shape, device=p.device,
+                                 dtype=self._acc_dtype or torch.float32)
+                  for n in self._slot_names}
+            if self._multi_precision and p.dtype in _LOW:
+                st["master"] = p.detach().float()
+            self._state[p] = st
+        return st
+
+    def _update_rule(self, p, g, slots, lr, step):
+        """(new_p, new_slots) from f32 p, g and slots."""
+        raise NotImplementedError
+
+    def _decoupled_wd(self):
+        return False
+
+    @torch.no_grad()
+    def apply_gradients(self, params, grads, lr=None):
+        """One update of `params` (in place) from `grads`, in the same
+        order."""
+        lr = self.get_lr() if lr is None else float(lr)
+        self._step_count += 1
+        step = self._step_count
+        params, grads = list(params), list(grads)
+        if self._grad_clip is not None:
+            grads = self._grad_clip(grads)
+        for p, g in zip(params, grads):
+            slots = self._slots(p)
+            master = slots.get("master")
+            pv = master if master is not None else p.float()
+            gv = g.float()
+            if self._wd and not self._decoupled_wd():
+                gv = gv + self._wd * pv
+            f32 = {n: slots[n].float() for n in self._slot_names}
+            new_p, new_slots = self._update_rule(pv, gv, f32, lr, step)
+            if self._wd and self._decoupled_wd():
+                new_p = new_p - lr * self._wd * pv
+            for n, v in new_slots.items():
+                slots[n] = v.to(slots[n].dtype)
+            if master is not None:
+                slots["master"] = new_p
+            p.copy_(new_p.to(p.dtype))
+
+
+class Adam(Optimizer):
+    _slot_names = ("moment1", "moment2")
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, multi_precision=False,
+                 accumulator_dtype=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, accumulator_dtype)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _update_rule(self, p, g, slots, lr, step):
+        b1, b2 = self._beta1, self._beta2
+        m = b1 * slots["moment1"] + (1 - b1) * g
+        v = b2 * slots["moment2"] + (1 - b2) * g.square()
+        # bias corrections in f32, as the JAX rule raises f32 betas to an
+        # f32 step
+        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(step))
+        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(step))
+        new_p = p - lr * (m / bc1) / (torch.sqrt(v / bc2) + self._epsilon)
+        return new_p, {"moment1": m, "moment2": v}
+
+
+class AdamW(Adam):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=0.01,
+                 grad_clip=None, multi_precision=False,
+                 accumulator_dtype=None):
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         weight_decay, grad_clip, multi_precision,
+                         accumulator_dtype)
+
+    def _decoupled_wd(self):
+        return True
