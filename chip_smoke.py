@@ -5,12 +5,16 @@
 
 Builds every hand-written kernel from the sources in the checkout, holds
 each against its plain PyTorch version at the shapes of the path that
-runs it (serving: ragged paged attention; training: flash attention
-forward/dQ/dK-dV, LayerNorm, streaming cross-entropy forward/backward)
-and times it beside its bound and a library yardstick; serves GPT-1.3B
-(gpt_1p3b at full width, random weights from seed 0) through the port's
-default engine, profiles a short serving window and checks the streams
-against the port's per-tick decoder; trains gpt_1p3b (full depth, bf16,
+runs it (serving: ragged paged attention over bf16, int8 and int4 pools,
+the W4A16 matmul; training: flash attention forward/dQ/dK-dV, LayerNorm,
+streaming cross-entropy forward/backward) and times it beside its bound
+and a library yardstick; serves GPT-1.3B (gpt_1p3b at full width, random
+weights from seed 0) through the port's default engine, profiles a short
+serving window and checks the streams against the port's per-tick
+decoder; serves it again from an int8 pool, an int4 pool and int4
+(W4A16) weights, each checked against its per-tick engine and, by the
+teacher-forced NLL of the bf16 run's streams, against the bf16 pool;
+trains gpt_1p3b (full depth, bf16,
 remat 'full', batch 8 x 1024, AdamW + global-norm clip) for 2 warm-up
 and 8 timed steps, counts each kernel's launches a step, profiles one
 step; and checks serving and training on gpt_tiny against the port's
@@ -125,18 +129,19 @@ def _table(rng, n, P):
     return torch.from_numpy(t).cuda()
 
 
-def _check_close(name, got, plain, plain32):
-    """f32: within atol=rtol=1e-5 of the plain version (both accumulate
-    in f32; only summation order differs). bf16: within one bf16 ulp of
-    the plain version's f32 result on the same inputs (the kernel rounds
-    its f32 result once; the rounding step is half an ulp) plus the f32
-    allowance 1e-5 (an output near zero is a sum whose terms cancel, so
-    the f32 summation-order error is absolute, not relative to it)."""
+def _check_close(name, got, plain, plain32, tol=1e-5):
+    """f32: within atol=rtol=tol (1e-5 by default) of the plain version
+    (both accumulate in f32; only summation order differs). bf16: within
+    one bf16 ulp of the plain version's f32 result on the same inputs (the
+    kernel rounds its f32 result once; the rounding step is half an ulp)
+    plus the f32 allowance `tol` (an output near zero is a sum whose terms
+    cancel, so the f32 summation-order error is absolute, not relative to
+    it)."""
     if got.dtype == torch.float32:
-        torch.testing.assert_close(got, plain, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(got, plain, atol=tol, rtol=tol)
         return float((got - plain).abs().max())
     err = (got.float() - plain32).abs()
-    if not bool((err <= bf16_ulp(plain32) + 1e-5).all()):
+    if not bool((err <= bf16_ulp(plain32) + tol).all()):
         raise AssertionError(f"{name}: bf16 kernel output off by more "
                              "than one ulp of the f32 plain result")
     if not torch.isfinite(got).all():
@@ -144,14 +149,55 @@ def _check_close(name, got, plain, plain32):
     return float((got.float() - plain.float()).abs().max())
 
 
-def phase_kernel_checks(rpa):
+def _quant_pool(gen, P, layout, layers=1):
+    """K and V pools of `layers` layers in a quantized layout ("int8" or
+    "int4"): random values quantized by the serving decoder's own write-
+    time quantizers, one layer at a time. Returns two (pages, scales)
+    tuples."""
+    from paddle_tpu_torch.serving.decoder import (_quantize_kv,
+                                                  _quantize_kv_int4)
+    quantize = _quantize_kv_int4 if layout == "int4" else _quantize_kv
+    pools = []
+    for _ in range(2):
+        parts = [quantize(torch.randn((P, PS, H, D), generator=gen,
+                                      device="cuda"))
+                 for _ in range(layers)]
+        pools.append(tuple(torch.stack(x) for x in zip(*parts)))
+    return pools
+
+
+def _layer_pool(pool, l):
+    return tuple(x[l] for x in pool) if isinstance(pool, tuple) else pool[l]
+
+
+def _ref(rpa, q, kpool, vpool, table, start, scale):
+    """The plain version on a pool of any layout (not counted: a check's
+    call, not the main path's)."""
+    kp, vp, ks, vs, int4 = rpa._split_pool(kpool, vpool)
+    return rpa._ragged_ref(q, kp, vp, table, start, scale, k_scale=ks,
+                           v_scale=vs, int4=int4)
+
+
+def phase_kernel_checks(rpa, layout="bf16"):
+    """The ragged kernel against its plain version on one pool layout
+    (bf16: f32 and bf16 pools of q's dtype; int8/int4: quantized pools
+    under f32 and bf16 queries), dense windows W = 1, 16, 64 and a packed
+    T = 64 chunk mix, and bit-identity across W = 1, a W = 16 window and a
+    shuffled packed stream."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.RandomState(SEED)
     P = 16 * MP + 1
     max_err = 0.0
+    qpools = None if layout == "bf16" else \
+        [_layer_pool(x, 0) for x in _quant_pool(gen, P, layout)]
     for dtype in (torch.float32, torch.bfloat16):
-        kp, vp = (x[0] for x in _pool(gen, P, dtype))
-        kp32, vp32 = kp.float(), vp.float()
+        if qpools is None:
+            kp, vp = (x[0] for x in _pool(gen, P, dtype))
+            kp32, vp32 = kp.float(), vp.float()
+        else:
+            (kp, vp), (kp32, vp32) = qpools, qpools
+        pool = {"pool": layout if qpools else str(dtype)[6:],
+                "dtype": str(dtype)[6:]}
         n = 16
         table = _table(rng, n, P)
         scale = 1.0 / D ** 0.5
@@ -162,12 +208,11 @@ def phase_kernel_checks(rpa):
             q = torch.randn((n, W, H, D), generator=gen,
                             device="cuda").to(dtype)
             got = rpa.ragged_paged_attention(q, kp, vp, table, start)
-            plain = rpa._ragged_ref(q, kp, vp, table, start, scale)
-            plain32 = rpa._ragged_ref(q.float(), kp32, vp32, table, start,
-                                      scale)
+            plain = _ref(rpa, q, kp, vp, table, start, scale)
+            plain32 = _ref(rpa, q.float(), kp32, vp32, table, start, scale)
             err = _check_close(f"dense W={W}", got, plain, plain32)
             max_err = max(max_err, err)
-            log("kernel", form="dense", dtype=str(dtype)[6:], W=W,
+            log("kernel", form="dense", **pool, W=W,
                 max_abs_err=f"{err:.3e}")
             if W == 16:
                 # bit-identity: each query alone (W=1), inside the W=16
@@ -188,10 +233,10 @@ def phase_kernel_checks(rpa):
                 if not (torch.equal(alone, got) and
                         torch.equal(unperm.reshape(n, W, H, D), got)):
                     raise AssertionError(
-                        f"{dtype}: a query's output differs between W=1, "
+                        f"{pool}: a query's output differs between W=1, "
                         "a W=16 window and a packed stream")
                 log("kernel", check="bit-identical W=1 == W=16 window == "
-                    "shuffled packed stream", dtype=str(dtype)[6:])
+                    "shuffled packed stream", **pool)
         # packed T=64: 3 rows prefilling 16-token chunks + 16 decode rows
         rows = np.concatenate([np.repeat([2, 5, 9], 16),
                                np.arange(16)]).astype(np.int32)
@@ -204,28 +249,50 @@ def phase_kernel_checks(rpa):
         got = rpa.ragged_paged_attention_packed(q, kp, vp, table, rows_t,
                                                 pos_t)
         ref_args = (table[rows_t.long()], pos_t, scale)
-        plain = rpa._ragged_ref(q[:, None], kp, vp, *ref_args)[:, 0]
-        plain32 = rpa._ragged_ref(q[:, None].float(), kp32, vp32,
-                                  *ref_args)[:, 0]
+        plain = _ref(rpa, q[:, None], kp, vp, *ref_args)[:, 0]
+        plain32 = _ref(rpa, q[:, None].float(), kp32, vp32, *ref_args)[:, 0]
         err = _check_close("packed T=64", got, plain, plain32)
         max_err = max(max_err, err)
-        log("kernel", form="packed", dtype=str(dtype)[6:], T=64,
-            max_abs_err=f"{err:.3e}")
+        log("kernel", form="packed", **pool, T=64, max_abs_err=f"{err:.3e}")
     torch.cuda.synchronize()
     return max_err
 
 
-def phase_kernel_timing(rpa, layers=24):
+def _pool_token_read_bytes(layout):
+    """Bytes one context token's K and V cost a query of all H heads."""
+    if layout == "int8":
+        return 2 * (H * D + 4)
+    if layout == "int4":
+        return 2 * (H * D // 2 + 4 * (H * D // 32))
+    return 2 * H * D * 2
+
+
+def _dequantized(rpa, pool, l, table):
+    """Layer l's pages of `table` gathered and dequantized to bf16
+    [T, MP * PS, H, D] (for the library yardstick only)."""
+    if not isinstance(pool, tuple):
+        g = pool[l][table.long()]
+    elif pool[0].dtype == torch.uint8:
+        g = rpa._dequant_page_int4(pool[0][l][table.long()],
+                                   pool[1][l][table.long()], (H, D))
+    else:
+        g = (pool[0][l][table.long()].float()
+             * pool[1][l][table.long()][..., None, None])
+    return g.to(torch.bfloat16).reshape(table.shape[0], MP * PS, H, D)
+
+
+def phase_kernel_timing(rpa, layout="bf16", layers=24):
     """Time the kernel at the serving path's decode shape: one packed
     decode token per slot (T=16), context positions drawn like the
-    served requests', bf16 pools of all 24 layers (each launch reads the
-    next layer's pool, as a serving tick does, so the 50 MB L2 does not
-    hold the pages between launches)."""
+    served requests', bf16 queries over pools of all 24 layers in
+    `layout` (each launch reads the next layer's pool, as a serving tick
+    does, so the 50 MB L2 does not hold the pages between launches)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rng = np.random.RandomState(SEED + 1)
     P = 16 * MP + 1
     T = 16
-    kp, vp = _pool(gen, P, torch.bfloat16, layers=layers)
+    kp, vp = _pool(gen, P, torch.bfloat16, layers=layers) \
+        if layout == "bf16" else _quant_pool(gen, P, layout, layers=layers)
     table = torch.from_numpy(
         rng.permutation(P - 1)[:T * MP].reshape(T, MP).astype(np.int32)
     ).cuda()
@@ -238,18 +305,18 @@ def phase_kernel_timing(rpa, layers=24):
 
     def kern(i=0):
         return rpa.ragged_paged_attention_packed(
-            q[i % layers], kp[i % layers], vp[i % layers], table, rows, pos)
+            q[i % layers], _layer_pool(kp, i % layers),
+            _layer_pool(vp, i % layers), table, rows, pos)
 
     def plain(i=0):
-        return rpa._ragged_ref(q[i % layers][:, None], kp[i % layers],
-                               vp[i % layers], table, pos, scale)
+        return _ref(rpa, q[i % layers][:, None], _layer_pool(kp, i % layers),
+                    _layer_pool(vp, i % layers), table, pos, scale)
 
     # yardstick only, never called by the port: one SDPA call over K/V
-    # gathered to dense [T, H, MP*PS, D] with a causal key mask
-    kd = [kp[l][table.long()].reshape(T, MP * PS, H, D).transpose(1, 2)
-          for l in range(2)]
-    vd = [vp[l][table.long()].reshape(T, MP * PS, H, D).transpose(1, 2)
-          for l in range(2)]
+    # gathered (and dequantized) to dense bf16 [T, H, MP*PS, D] with a
+    # causal key mask
+    kd = [_dequantized(rpa, kp, l, table).transpose(1, 2) for l in range(2)]
+    vd = [_dequantized(rpa, vp, l, table).transpose(1, 2) for l in range(2)]
     mask = (torch.arange(MP * PS, device="cuda")[None, :]
             <= pos[:, None].long())[:, None, None, :]
 
@@ -262,20 +329,138 @@ def phase_kernel_timing(rpa, layers=24):
     plain_ms = cuda_ms(plain, 24)
     library_ms = cuda_ms(library, 240)
     keys = pos_np.astype(np.int64) + 1
-    kv_bytes = int(keys.sum()) * H * D * 2 * 2           # K and V, bf16
+    kv_bytes = int(keys.sum()) * _pool_token_read_bytes(layout)
     io_bytes = 2 * T * H * D * 2 + 4 * (2 * T + int((keys + PS - 1).sum()
                                                     // PS))
     flops = int(keys.sum()) * H * 4 * D                  # q.k and p.v
     bytes_ms = (kv_bytes + io_bytes) / H100_HBM_BYTES_PER_S * 1e3
     ops_ms = flops / H100_F32_FLOPS * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
-    log("kernel_time", shape=f"packed T={T} H={H} D={D} ps={PS} MP={MP} "
-        f"bf16 mean_ctx={keys.mean():.1f}", ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+    log("kernel_time", pool=layout, shape=f"packed T={T} H={H} D={D} "
+        f"ps={PS} MP={MP} bf16 q mean_ctx={keys.mean():.1f}",
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by,
         achieved_GBps=f"{(kv_bytes + io_bytes) / ms / 1e6:.1f}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
+
+
+# W4A16 matmul: the four products of a gpt_1p3b layer (K, N), and edge
+# shapes (S, K, N): one vocab-wide row of odd N, odd K with S off any tile
+W4_SHAPES = (("qkv", 2048, 6144), ("proj", 2048, 2048), ("fc1", 2048, 8192),
+             ("fc2", 8192, 2048))
+W4_EDGES = ((1, 2048, 50257), (37, 97, 50), (130, 2049, 33))
+
+
+def _w4_weight(gen, w4, K, N, with_float=False):
+    """A random [K, N] weight like the model's (std 0.02), int4-packed;
+    with `with_float`, also the f32 weight it was quantized from."""
+    w = torch.randn((K, N), generator=gen, device="cuda") * 0.02
+    packed, scale = w4.quantize_w4(w)
+    return (packed, scale, w) if with_float else (packed, scale)
+
+
+def phase_w4_checks(w4):
+    """The W4 kernel against its plain version `_w4_ref`, f32 and bf16 x,
+    at the path's four (K, N) with S = 16 (a decode tick) and S = 2048 (a
+    prefill chunk), and at the edge shapes; a decode row gives the same
+    bits alone as inside the 2048-row chunk (the kernel's tiles differ by
+    S, its per-output order does not). Tolerance: `_check_close` with the
+    f32 allowance 1e-5 * sqrt(K / 128). The kernel sums an output's K
+    products in one sequential f32 chain, cuBLAS (the plain version) in
+    blocks; the chain's rounding error grows like a random walk, as the
+    square root of K, so the allowance of the JAX package's kernel test
+    (1e-5 at K = 64..128) grows with it: 8e-5 at K = 8192. And the JAX
+    package's accuracy rule for int4 weights (tests/test_w4_quant.py):
+    the f32 product tracks the unquantized product within a mean relative
+    error of 0.2 (a weight's error is ~scale/sqrt(12), ~12% of its
+    spread, and so is the output's)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    max_err = 0.0
+    cases = [(name, S, K, N) for name, K, N in W4_SHAPES
+             for S in (16, 2048)] + [("edge", *e) for e in W4_EDGES]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, S, K, N in cases:
+            packed, scale, w = _w4_weight(gen, w4, K, N, with_float=True)
+            x = _rand(gen, (S, K), dtype)
+            got = w4.w4_matmul(x, packed, scale, K)
+            fp = x.float() @ w
+            rel = float((got.float() - fp).abs().mean() / fp.abs().mean())
+            if rel >= 0.2:
+                raise AssertionError(f"w4 {name}: relative error {rel:.3f} "
+                                     "against the unquantized product")
+            plain32 = w4._w4_ref(x.float(), packed, scale, K)
+            err = _check_close(f"w4 {name} S={S}", got, plain32.to(dtype),
+                               plain32, tol=1e-5 * max(1.0, (K / 128) ** 0.5))
+            max_err = max(max_err, err)
+            if S == 2048 and not torch.equal(
+                    w4.w4_matmul(x[:16].contiguous(), packed, scale, K),
+                    got[:16]):
+                raise AssertionError(f"w4 {name}: decode rows differ alone "
+                                     "and inside a prefill chunk")
+            log("kernel", form=f"w4_matmul {name} S={S} K={K} N={N}",
+                dtype=str(dtype)[6:], max_abs_err=f"{err:.3e}",
+                rel_err_vs_unquantized=f"{rel:.4f}")
+            del packed, scale, w, x, got, plain32, fp
+    torch.cuda.synchronize()
+    return max_err
+
+
+def phase_w4_timing(w4):
+    """The W4 kernel at each product of a layer, bf16 x, S = 16 and 2048,
+    against its plain version and cuBLAS on the dequantized bf16 weight
+    (`x @ w`, a yardstick the port never calls). Each call reads the next
+    of enough weight copies to exceed the 50 MB L2, as a tick's 96
+    products do. Bound: bytes (x, the packed weight and scales, out) over
+    3.35 TB/s or 2*S*K*N over 989 TFLOP/s, the larger. Returns the rows
+    and their sum over one layer's four products at S = 16 (a decode
+    tick's share of one layer)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    bf = torch.bfloat16
+    rows = {}
+    for name, K, N in W4_SHAPES:
+        copies = max(2, -(-120 * 2 ** 20 // (K * N // 2)))
+        ws = [_w4_weight(gen, w4, K, N) for _ in range(copies)]
+        deq = [(w4._unpack_w4(p, K).float() * s).to(bf) for p, s in ws[:2]]
+        for S in (16, 2048):
+            x = _rand(gen, (S, K), bf)
+            iters = 96 if S == 16 else 10
+
+            def kern(i=0):
+                p, s = ws[i % copies]
+                return w4.w4_matmul(x, p, s, K)
+
+            def plain(i=0):
+                p, s = ws[i % copies]
+                return w4._w4_ref(x, p, s, K)
+
+            ms = cuda_ms(kern, iters)
+            plain_ms = cuda_ms(plain, 3)
+            library_ms = cuda_ms(lambda i=0: x @ deq[i % 2], iters)
+            nbytes = S * K * 2 + K * N // 2 + 4 * N + S * N * 2
+            flops = 2 * S * K * N
+            bound_ms, bound_by = _bound(nbytes, flops)
+            rows[(name, S)] = {"ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by,
+                               "library_ms": library_ms}
+            log("kernel_time", kernel="w4_matmul", shape=f"{name} S={S} "
+                f"K={K} N={N} bf16", ms=f"{ms:.4f}",
+                plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+                bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+                achieved_TFLOPs=f"{flops / ms / 1e9:.2f}",
+                achieved_GBps=f"{nbytes / ms / 1e6:.1f}")
+        del ws, deq
+    layer = {k: sum(rows[(n, 16)][k] for n, _, _ in W4_SHAPES)
+             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    layer["bound_by"] = max(
+        ("bytes", "operations"), key=lambda by: sum(
+            r["bound_ms"] for (_, S), r in rows.items()
+            if S == 16 and r["bound_by"] == by))
+    log("kernel_time", kernel="w4_matmul", shape="one layer's 4 products, "
+        "S=16", **{k: f"{v:.4f}" for k, v in layer.items() if k !=
+                   "bound_by"})
+    return layer
 
 
 # ---------------------------------------------------------------- phase 3
@@ -283,66 +468,90 @@ def phase_kernel_timing(rpa, layers=24):
 N_REQ, MAX_NEW, K_MAX = 32, 64, 8
 
 
+def _serve_run(dec, prompts, mods):
+    """The main serving run: a warm-up request, then the 32 prompts x 64
+    new tokens through the default (ragged, packed) engine with k_max 8.
+    Every kernel count of `mods` is set to 0 just before the run and read
+    just after. Returns (engine, streams, wall seconds, {module: (kernel
+    launches, plain launches)})."""
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+    # warm-up (cuBLAS handles, allocator): one short request
+    warm = ContinuousBatchingEngine(dec, max_new_tokens=4, k_max=K_MAX)
+    warm.submit(prompts[0][:64])
+    warm.run()
+    eng = ContinuousBatchingEngine(dec, max_new_tokens=MAX_NEW, k_max=K_MAX)
+    rids = [eng.submit(p) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods:
+        mod.reset_counts()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {mod.__name__.rsplit(".", 1)[1]: (mod.kernel_launches,
+                                                 mod.plain_launches)
+                for mod in mods}
+    streams = [out[r] for r in rids]
+    if any(len(s) != MAX_NEW for s in streams):
+        raise AssertionError("a request did not return 64 tokens")
+    if not all(0 <= t < dec.cfg.vocab_size for s in streams for t in s):
+        raise AssertionError("a token id is out of the vocabulary")
+    return eng, streams, wall, launches
+
+
+def _serve_fields(eng, wall):
+    st = eng.stats.summary()
+    return dict(
+        wall_s=f"{wall:.3f}", gen_tok_per_s=f"{N_REQ * MAX_NEW / wall:.1f}",
+        ttft_p50_ms=st.get("ttft_p50_ms"), ttft_p99_ms=st.get("ttft_p99_ms"),
+        token_p50_ms=st.get("token_p50_ms"),
+        token_p99_ms=st.get("token_p99_ms"), horizons=st["decode_syncs"],
+        ticks=st["ticks"], pad_fraction=st.get("pad_fraction"))
+
+
 def phase_serving(rpa):
     from paddle_tpu_torch.models import gpt_1p3b, init_state_dict
-    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
-                                          PagedGPTDecoder)
+    from paddle_tpu_torch.serving import PagedGPTDecoder
     from paddle_tpu_torch.serving.scheduler import RaggedScheduler
     cfg = gpt_1p3b()
     t0 = time.perf_counter()
     sd = init_state_dict(cfg, seed=SEED)
     dec = PagedGPTDecoder(cfg, sd, num_pages=16 * MP + 1, page_size=PS,
                           max_batch=16)
-    del sd
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    # the quantized runs build their decoders from the same weights; they
+    # wait in host memory, so this run's peak device memory holds only
+    # its own decoder
+    sd = {k: v.cpu() for k, v in sd.items()}
     rng = np.random.RandomState(SEED)
     lengths = rng.randint(64, 769, N_REQ)
     prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in lengths]
-    # warm-up (cuBLAS handles, allocator): one short request
-    warm = ContinuousBatchingEngine(dec, max_new_tokens=4, k_max=K_MAX)
-    warm.submit(prompts[0][:64])
-    warm.run()
     priced_k = RaggedScheduler(dec).k_max
-    eng = ContinuousBatchingEngine(dec, max_new_tokens=MAX_NEW, k_max=K_MAX)
-    rids = [eng.submit(p) for p in prompts]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    rpa.reset_counts()
-    t0 = time.perf_counter()
-    out = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"kernel": rpa.kernel_launches, "plain": rpa.plain_launches}
-    streams = [out[r] for r in rids]
-    if any(len(s) != MAX_NEW for s in streams):
-        raise AssertionError("a request did not return 64 tokens")
-    if not all(0 <= t < cfg.vocab_size for s in streams for t in s):
-        raise AssertionError("a token id is out of the vocabulary")
+    eng, streams, wall, counts = _serve_run(dec, prompts, (rpa,))
+    launches = dict(zip(("kernel", "plain"),
+                        counts["ragged_paged_attention"]))
     if launches["kernel"] <= 0 or launches["plain"] != 0:
         raise AssertionError(f"attention launches on the card: {launches}")
-    st = eng.stats.summary()
     log("serve", model="gpt_1p3b", layers=cfg.num_layers,
         hidden=cfg.hidden_size, requests=N_REQ, max_new=MAX_NEW,
         max_batch=16, k_max=K_MAX, priced_k_max=priced_k,
         chunk_tokens=eng.scheduler.chunk_tokens, setup_s=f"{setup_s:.2f}",
-        wall_s=f"{wall:.3f}", gen_tok_per_s=f"{N_REQ * MAX_NEW / wall:.1f}",
-        ttft_p50_ms=st.get("ttft_p50_ms"), ttft_p99_ms=st.get("ttft_p99_ms"),
-        token_p50_ms=st.get("token_p50_ms"),
-        token_p99_ms=st.get("token_p99_ms"), horizons=st["decode_syncs"],
-        ticks=st["ticks"], pad_fraction=st.get("pad_fraction"),
+        **_serve_fields(eng, wall),
         kernel_launches=launches["kernel"],
         plain_launches=launches["plain"],
         peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
-    return dec, prompts, streams, launches
+    return sd, dec, prompts, streams, launches
 
 
-def phase_profile(dec, prompts):
+def phase_profile(dec, prompts, **tags):
     """Where a serving window's time goes: 16 requests (128-token
     prompts, 32 new tokens) through the default engine under
     torch.profiler. Device time is summed by kernel family; the busy
     share is device kernel time over the window's wall time (one stream,
-    so kernels do not overlap)."""
+    so kernels do not overlap). Also counts the window's device kernels
+    a tick, the host's dispatch load."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.serving import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(dec, max_new_tokens=32, k_max=K_MAX)
@@ -355,8 +564,9 @@ def phase_profile(dec, prompts):
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    fam = {"attention": 0.0, "gemm": 0.0, "other": 0.0}
+    fam = {"attention": 0.0, "w4_matmul": 0.0, "gemm": 0.0, "other": 0.0}
     kernels = []
+    n_launch = 0
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
@@ -367,8 +577,11 @@ def phase_profile(dec, prompts):
             continue
         name = ev.key
         kernels.append((us, name))
+        n_launch += ev.count
         if "ragged_paged_attention" in name:
             fam["attention"] += us
+        elif "w4_matmul" in name:
+            fam["w4_matmul"] += us
         elif any(t in name.lower() for t in ("gemm", "nvjet", "cutlass",
                                              "xmma")):
             fam["gemm"] += us                # cuBLAS / cuBLASLt kernels
@@ -377,17 +590,18 @@ def phase_profile(dec, prompts):
     ticks = eng.stats.ticks
     busy = sum(fam.values()) / 1e6
     if busy <= 0:
-        log("profile", device_time="not measured (the profiler saw no "
-            "device kernels)", wall_s=f"{wall:.3f}", ticks=ticks)
+        log("profile", **tags, device_time="not measured (the profiler "
+            "saw no device kernels)", wall_s=f"{wall:.3f}", ticks=ticks)
         return
-    log("profile", window="16 req x (128 prompt + 32 new)", ticks=ticks,
-        wall_ms_per_tick=f"{wall / ticks * 1e3:.3f}",
+    log("profile", **tags, window="16 req x (128 prompt + 32 new)",
+        ticks=ticks, wall_ms_per_tick=f"{wall / ticks * 1e3:.3f}",
         device_ms_per_tick=f"{busy / ticks * 1e3:.3f}",
         device_busy_share=f"{busy / wall:.3f}",
+        device_kernels_per_tick=f"{n_launch / ticks:.0f}",
         **{f"{k}_ms_per_tick": f"{v / 1e3 / ticks:.3f}"
            for k, v in fam.items()})
     for us, name in sorted(kernels, reverse=True)[:6]:
-        log("profile_top", kernel=repr(name[:90]),
+        log("profile_top", **tags, kernel=repr(name[:90]),
             ms_per_tick=f"{us / 1e3 / ticks:.3f}")
 
 
@@ -405,7 +619,44 @@ N_ORACLE = 4
 LOGIT_TOL = 0.1
 
 
-def phase_oracle(dec, prompts, streams):
+def _teacher_force(dec, prompts, streams):
+    """Teacher-force the per-tick decoder (`_decode_step`) with each
+    request's prompt and then `streams`. Returns (the largest gap between
+    a tick's best logit and the stream token's, the mean NLL of the
+    stream tokens)."""
+    n = len(streams)
+    ps = dec.page_size
+    tbl = np.full((n, dec.max_pages), dec.num_pages - 1, np.int32)
+    nxt_page = 0
+    for r in range(n):
+        need = (len(prompts[r]) + MAX_NEW + ps - 1) // ps
+        tbl[r, :need] = np.arange(nxt_page, nxt_page + need)
+        nxt_page += need
+    dec.prefill_batch([(prompts[r][:-1], tbl[r][tbl[r] < dec.num_pages - 1]
+                        .tolist()) for r in range(n)])
+    table = dec._as_i32(tbl)
+    gap, nll = 0.0, []
+    for i in range(MAX_NEW):
+        toks = [prompts[r][-1] if i == 0 else streams[r][i - 1]
+                for r in range(n)]
+        lens = [len(prompts[r]) - 1 + i for r in range(n)]
+        _, logits = dec._decode_step(dec._as_i32(toks), dec._as_i32(lens),
+                                     table)
+        if not torch.isfinite(logits).all():
+            raise AssertionError("non-finite per-tick logits")
+        chosen = logits[torch.arange(n, device=logits.device),
+                        torch.as_tensor([s[i] for s in streams],
+                                        device=logits.device)]
+        gap = max(gap, float((logits.max(-1).values - chosen).max()))
+        nll.append(torch.logsumexp(logits, -1) - chosen)
+    return gap, float(torch.stack(nll).mean())
+
+
+def phase_oracle(dec, prompts, streams, label="oracle", **tags):
+    """The first 4 requests through the per-tick engine (k_max 1) against
+    the ragged engine's streams; then the per-tick decoder teacher-forced
+    on the ragged engine's tokens, each within LOGIT_TOL of its tick's best
+    logit. Returns the mean NLL of those tokens."""
     from paddle_tpu_torch.serving import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(dec, max_new_tokens=MAX_NEW, k_max=1)
     rids = [eng.submit(p) for p in prompts[:N_ORACLE]]
@@ -415,44 +666,90 @@ def phase_oracle(dec, prompts, streams):
     for i, (a, b) in enumerate(zip(per_tick, streams)):
         if a != b:
             j = next(t for t, (x, y) in enumerate(zip(a, b)) if x != y)
-            log("oracle", request=i, first_divergence=j,
+            log(label, **tags, request=i, first_divergence=j,
                 prompt_len=len(prompts[i]), per_tick_token=a[j],
                 engine_token=b[j])
-    # teacher-force the per-tick decoder with the engine's tokens
-    ps = dec.page_size
-    tbl = np.full((N_ORACLE, dec.max_pages), dec.num_pages - 1, np.int32)
-    nxt_page = 0
-    for r in range(N_ORACLE):
-        need = (len(prompts[r]) + MAX_NEW + ps - 1) // ps
-        tbl[r, :need] = np.arange(nxt_page, nxt_page + need)
-        nxt_page += need
-    dec.prefill_batch([(prompts[r][:-1], tbl[r][tbl[r] < dec.num_pages - 1]
-                        .tolist()) for r in range(N_ORACLE)])
-    table = dec._as_i32(tbl)
-    gap = 0.0
-    for i in range(MAX_NEW):
-        toks = [prompts[r][-1] if i == 0 else streams[r][i - 1]
-                for r in range(N_ORACLE)]
-        lens = [len(prompts[r]) - 1 + i for r in range(N_ORACLE)]
-        _, logits = dec._decode_step(dec._as_i32(toks), dec._as_i32(lens),
-                                     table)
-        if not torch.isfinite(logits).all():
-            raise AssertionError("non-finite per-tick logits")
-        chosen = logits[torch.arange(N_ORACLE, device=logits.device),
-                        torch.as_tensor([s[i] for s in streams[:N_ORACLE]],
-                                        device=logits.device)]
-        gap = max(gap, float((logits.max(-1).values - chosen).max()))
+    gap, nll = _teacher_force(dec, prompts[:N_ORACLE], streams[:N_ORACLE])
     if gap > LOGIT_TOL:
         raise AssertionError(f"an engine token scores {gap:.4f} below the "
                              f"per-tick best logit (tolerance {LOGIT_TOL})")
-    log("oracle", streams_agree=f"{agree}/{N_ORACLE}",
-        max_logit_gap=f"{gap:.5f}", tolerance=LOGIT_TOL)
+    log(label, **tags, streams_agree=f"{agree}/{N_ORACLE}",
+        max_logit_gap=f"{gap:.5f}", tolerance=LOGIT_TOL,
+        mean_nll=f"{nll:.5f}")
+    return nll
+
+
+# ---------------------------------------------------------------- phase 4b
+# Quantized serving: gpt_1p3b from an int8 pool, an int4 pool and int4
+# weights (on a bf16 pool), each with the bf16 run's traffic.
+
+QUANT_MODES = (("int8", {"kv_quant": "int8"}), ("int4", {"kv_quant": "int4"}),
+               ("w4a16", {"quant": "w4a16"}))
+# The JAX package's accuracy gate for quantized KV pools
+# (tests/test_kv_quant.py): an int8 or int4 pool may move the mean
+# teacher-forced NLL of the bf16 run's streams by at most 0.05 nats
+# against the bf16 pool. It commits no such bound for int4 weights: its
+# W4 rule is the product's relative error (tests/test_w4_quant.py), which
+# phase_w4_checks holds; w4a16's NLL delta is measured and reported.
+NLL_TOL = 0.05
+
+
+def phase_serve_quant(sd, prompts, ref_streams, nll_bf16, rpa, w4):
+    """Each quantized configuration served with the bf16 run's traffic:
+    tok/s, TTFT, per-token latency, peak memory, KV bytes per token,
+    launches of each kernel (plain 0; the W4 kernel runs only under w4a16), a
+    profiled window, the 4 oracle streams against its per-tick engine,
+    and the NLL delta of the bf16 streams (gated at NLL_TOL for the
+    pools). Returns {mode: {kernel: launches}}."""
+    from paddle_tpu_torch.models import gpt_1p3b
+    from paddle_tpu_torch.serving import PagedGPTDecoder
+    cfg = gpt_1p3b()
+    out = {}
+    for name, mode in QUANT_MODES:
+        t0 = time.perf_counter()
+        dec = PagedGPTDecoder(cfg, sd, num_pages=16 * MP + 1, page_size=PS,
+                              max_batch=16, **mode)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        eng, streams, wall, counts = _serve_run(dec, prompts, (rpa, w4))
+        kern = {k: v[0] for k, v in counts.items()}
+        plain = sum(v[1] for v in counts.values())
+        if kern["ragged_paged_attention"] <= 0 or plain or \
+                (kern["w4_matmul"] > 0) != (name == "w4a16"):
+            raise AssertionError(f"{name}: launches on the card {counts}")
+        log("serve_quant", mode=name, model="gpt_1p3b",
+            layers=cfg.num_layers, hidden=cfg.hidden_size, requests=N_REQ,
+            max_new=MAX_NEW, max_batch=16, k_max=K_MAX,
+            chunk_tokens=eng.scheduler.chunk_tokens, setup_s=f"{setup_s:.2f}",
+            **_serve_fields(eng, wall),
+            kv_bytes_per_token=eng.stats.kv_bytes_per_token,
+            rpa_launches=kern["ragged_paged_attention"],
+            w4_launches=kern["w4_matmul"], plain_launches=plain,
+            peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        phase_profile(dec, prompts, mode=name)
+        phase_oracle(dec, prompts, streams, label="serve_quant_oracle",
+                     mode=name)
+        _, nll = _teacher_force(dec, prompts[:N_ORACLE],
+                                ref_streams[:N_ORACLE])
+        delta = nll - nll_bf16
+        gated = "kv_quant" in mode
+        log("serve_quant_nll", mode=name, nll=f"{nll:.5f}",
+            nll_bf16=f"{nll_bf16:.5f}", delta=f"{delta:.5f}",
+            tolerance=NLL_TOL if gated else "none (int4 weights)")
+        if gated and abs(delta) > NLL_TOL:
+            raise AssertionError(f"{name}: mean NLL moved {delta:.4f} nats "
+                                 f"from the bf16 pool's (bound {NLL_TOL})")
+        out[name] = kern
+        del dec, eng
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_small_reference():
-    """gpt_tiny in f32: the card's path (kernel) against the port's CPU
-    path (plain version) on the same weights — decode logits within
-    1e-4, ragged engine streams equal."""
+    """gpt_tiny in f32: the card's path (kernels) against the port's CPU
+    path (plain versions) on the same weights, for the bf16-path pool and
+    each quantized mode — decode logits within 1e-4, ragged engine
+    streams equal."""
     from paddle_tpu_torch.models import gpt_tiny, init_state_dict
     from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                           PagedGPTDecoder)
@@ -461,25 +758,29 @@ def phase_small_reference():
     rng = np.random.RandomState(SEED + 2)
     prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
                for n in (5, 40, 17, 90, 1, 33)]
-    outs, logits = [], []
-    for device in ("cuda", "cpu"):
-        dec = PagedGPTDecoder(cfg, {k: v.to(device) for k, v in sd.items()},
-                              num_pages=48, page_size=16, max_batch=4,
-                              device=device)
-        eng = ContinuousBatchingEngine(dec, max_new_tokens=12, k_max=4,
-                                       chunk_tokens=16)
-        rids = [eng.submit(p) for p in prompts]
-        res = eng.run()
-        outs.append([res[r] for r in rids])
-        first = dec.prefill_batch([(prompts[1], [0, 1, 2])])
-        _, lg = dec._decode_step(dec._as_i32(first), dec._as_i32([40]),
-                                 dec._as_i32([[0, 1, 2] + [47] * 5]))
-        logits.append(lg.cpu())
-    torch.testing.assert_close(logits[0], logits[1], atol=1e-4, rtol=0)
-    if outs[0] != outs[1]:
-        raise AssertionError("gpt_tiny f32 streams differ card vs CPU")
-    log("small_ref", model="gpt_tiny f32", streams="equal card vs cpu",
-        logit_max_abs_err=f"{float((logits[0] - logits[1]).abs().max()):.3e}")
+    for name, mode in (("plain", {}),) + QUANT_MODES:
+        outs, logits = [], []
+        for device in ("cuda", "cpu"):
+            dec = PagedGPTDecoder(cfg, {k: v.to(device)
+                                        for k, v in sd.items()},
+                                  num_pages=48, page_size=16, max_batch=4,
+                                  device=device, **mode)
+            eng = ContinuousBatchingEngine(dec, max_new_tokens=12, k_max=4,
+                                           chunk_tokens=16)
+            rids = [eng.submit(p) for p in prompts]
+            res = eng.run()
+            outs.append([res[r] for r in rids])
+            first = dec.prefill_batch([(prompts[1], [0, 1, 2])])
+            _, lg = dec._decode_step(dec._as_i32(first), dec._as_i32([40]),
+                                     dec._as_i32([[0, 1, 2] + [47] * 5]))
+            logits.append(lg.cpu())
+        torch.testing.assert_close(logits[0], logits[1], atol=1e-4, rtol=0)
+        if outs[0] != outs[1]:
+            raise AssertionError(f"gpt_tiny f32 {name}: streams differ card "
+                                 "vs CPU")
+        err = float((logits[0] - logits[1]).abs().max())
+        log("small_ref", model="gpt_tiny f32", mode=name,
+            streams="equal card vs cpu", logit_max_abs_err=f"{err:.3e}")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -876,6 +1177,17 @@ def phase_train_small_reference():
         param_max_abs_err=f"{param_err:.3e}", tolerance=TRAIN_REF_TOL)
 
 
+SERVE_KERNELS = {   # name: (source, TPU kernel it replaces, pool layout)
+    "ragged_paged_attention": (
+        "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
+        "paddle_tpu/ops/ragged_paged_attention.py:229", "bf16"),
+    "ragged_paged_attention_int8": (
+        "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
+        "paddle_tpu/ops/ragged_paged_attention.py:229", "int8"),
+    "ragged_paged_attention_int4": (
+        "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
+        "paddle_tpu/ops/ragged_paged_attention.py:229", "int4"),
+}
 TRAIN_KERNELS = {   # name: (source, TPU kernel it replaces)
     "flash_fwd": ("paddle_tpu_torch/ops/csrc/flash_attention.cu",
                   "paddle_tpu/ops/attention.py:193"),
@@ -900,14 +1212,23 @@ def main():
     from paddle_tpu_torch.ops import fused_ops as X
     from paddle_tpu_torch.ops import layer_norm as LN
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.ops import w4_matmul as w4
     t_start = time.perf_counter()
     smi = phase_environment()
-    max_err = phase_kernel_checks(rpa)
-    timing = phase_kernel_timing(rpa)
-    dec, prompts, streams, launches = phase_serving(rpa)
+    layouts = [v[2] for v in SERVE_KERNELS.values()]
+    serve_err = {lay: phase_kernel_checks(rpa, lay) for lay in layouts}
+    w4_err = phase_w4_checks(w4)
+    serve_timing = {lay: phase_kernel_timing(rpa, lay) for lay in layouts}
+    w4_timing = phase_w4_timing(w4)
+    sd, dec, prompts, streams, launches = phase_serving(rpa)
     phase_profile(dec, prompts)
-    phase_oracle(dec, prompts, streams)
+    nll_bf16 = phase_oracle(dec, prompts, streams)
     del dec
+    torch.cuda.empty_cache()
+    quant_launches = phase_serve_quant(sd, prompts, streams, nll_bf16, rpa,
+                                       w4)
+    del sd
+    torch.cuda.empty_cache()
     phase_small_reference()
     train_err = phase_train_kernel_checks(A, LN, X)
     train_timing = phase_train_kernel_timing(A, LN, X)
@@ -917,11 +1238,20 @@ def main():
     del trainer, batch
     phase_train_small_reference()
     log("done", total_s=f"{time.perf_counter() - t_start:.1f}")
-    kernels = [{
-        "name": "ragged_paged_attention", "route": "cuda",
-        "source": "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
-        "replaces": "paddle_tpu/ops/ragged_paged_attention.py:229",
-        "launches": launches["kernel"], "max_abs_err": max_err, **timing}]
+    serve_launches = {"bf16": launches["kernel"],
+                      "int8": quant_launches["int8"]["ragged_paged_attention"],
+                      "int4": quant_launches["int4"]["ragged_paged_attention"]}
+    kernels = []
+    for name, (source, replaces, lay) in SERVE_KERNELS.items():
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": serve_launches[lay],
+                        "max_abs_err": serve_err[lay], **serve_timing[lay]})
+    kernels.append({"name": "w4_matmul", "route": "cuda",
+                    "source": "paddle_tpu_torch/ops/csrc/w4_matmul.cu",
+                    "replaces": "paddle_tpu/ops/w4_matmul.py:59",
+                    "launches": quant_launches["w4a16"]["w4_matmul"],
+                    "max_abs_err": w4_err, **w4_timing})
     for name, (source, replaces) in TRAIN_KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,

@@ -1,6 +1,6 @@
 """Ragged paged attention: one causal attention primitive for mixed
 chunked-prefill + decode batches over the paged KV pool (counterpart of
-`paddle_tpu/ops/ragged_paged_attention.py`, f32/bf16 pools).
+`paddle_tpu/ops/ragged_paged_attention.py`).
 
 Query j of row i sits at absolute position ``start[i] + j`` and attends
 causally (kpos <= qpos) over the row's own pages, so a token's output
@@ -11,7 +11,14 @@ byte-identical stream guarantees ride on.
 
 Shapes:
   q               : (n, W, H, D) dense windows, or (T, H, D) packed
-  k_pages/v_pages : (P, page_size, H, D) one layer's page pool
+  k_pages/v_pages : one layer's page pool, in one of three layouts:
+                    f32/bf16 (P, page_size, H, D) in q's dtype;
+                    int8 as the tuple (pages int8 (P, page_size, H, D),
+                    per-token scales f32 (P, page_size));
+                    int4 as the tuple (nibble-packed uint8
+                    (P, page_size, PB), per-group scales f32
+                    (P, page_size, G)) — the serving decoder's
+                    kv_quant="int8" / "int4" pools
   page_table      : (n, max_pages) int32 page ids per row
   start           : (n,) already-cached length per row (dense)
   row_ids, pos    : (T,) each packed token's table row and position
@@ -19,8 +26,13 @@ Shapes:
 Two implementations of the same math:
   * `_ragged_ref`, the plain PyTorch version: the JAX reference's
     per-page online softmax (`_page_update`), with its -1e30 mask and
-    1e-30 denominator floor, in f32;
-  * the hand-written CUDA kernel `csrc/ragged_paged_attention.cu`.
+    1e-30 denominator floor, in f32. An int8 page's key scale multiplies
+    the finished logits and its value scale the values before the PV
+    dot; an int4 page dequantizes through `_dequant_page_int4` before
+    both dots. One page dequantizes at a time; the f32 pool never
+    exists;
+  * the hand-written CUDA kernel `csrc/ragged_paged_attention.cu`, one
+    template per pool layout around the same page walk.
 A wrapper takes the plain version only for tensors on the CPU. On CUDA
 tensors it launches the kernel or raises — there is no fallback.
 `kernel_launches` / `plain_launches` count the calls of each.
@@ -49,28 +61,70 @@ def reset_counts():
     plain_launches = 0
 
 
-def _page_update(m, s, acc, logits, v, kpos, qpos):
+def _page_update(m, s, acc, logits, v, kpos, qpos, k_scale=None,
+                 v_scale=None):
     """ONE page's online-softmax update (the JAX `_page_update`).
     m/s/acc: running max [..., W, 1], denominator [..., W, 1], value
     accumulator [..., W, D]; logits [..., W, ps] this page's scores;
-    v [..., ps, D]; kpos [ps] the page's key positions; qpos [..., W]."""
+    v [..., ps, D]; kpos [ps] the page's key positions; qpos [..., W].
+    k_scale/v_scale (int8 pools): the page's per-token scales,
+    broadcastable to [..., ps]; the key scale multiplies the finished
+    logits (q.(k*s) == (q.k)*s) and V dequantizes before the PV dot."""
+    if k_scale is not None:
+        logits = logits * k_scale[..., None, :]
+    if v_scale is not None:
+        v = v * v_scale[..., :, None]
     mask = kpos[..., None, :] <= qpos[..., :, None]       # [..., W, ps]
     logits = torch.where(mask, logits, _MASK)
     m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
     p = torch.exp(logits - m_new)
     corr = torch.exp(m - m_new)
     s_new = s * corr + p.sum(-1, keepdim=True)
-    acc_new = acc * corr + p @ v
+    acc_new = acc * corr + (p[..., None] * v[..., None, :, :]).sum(-2)
     return m_new, s_new, acc_new
 
 
-def _ragged_ref(q, k_pages, v_pages, page_table, start, scale):
+def _dequant_page_int4(packed, gscale, heads):
+    """ONE int4 page's dequant (the JAX `_dequant_page_int4`): packed
+    [..., ps, PB] uint8 nibble pairs (element 2i in the low nibble),
+    gscale [..., ps, G] f32 per-group scales, heads = (H, D). Element e
+    of the flattened H*D axis is nibble e of the payload times the scale
+    of group e // (2*PB // G). Returns f32 [..., ps, H, D]. Exact in f32
+    (an integer times a scale), so it rounds as the kernel does."""
+    H, D = int(heads[0]), int(heads[1])
+    PB = packed.shape[-1]
+    G = gscale.shape[-1]
+    lo = (packed & 0xF).to(torch.int8)
+    hi = ((packed >> 4) & 0xF).to(torch.int8)
+    lo = torch.where(lo >= 8, lo - 16, lo)
+    hi = torch.where(hi >= 8, hi - 16, hi)
+    q = torch.stack([lo, hi], dim=-1).reshape(
+        packed.shape[:-1] + (2 * PB,)).float()
+    group = (2 * PB) // G
+    g = q.reshape(packed.shape[:-1] + (G, group)) * gscale[..., None]
+    flat = g.reshape(packed.shape[:-1] + (G * group,))[..., :H * D]
+    return flat.reshape(packed.shape[:-1] + (H, D))
+
+
+def _ragged_ref(q, k_pages, v_pages, page_table, start, scale,
+                k_scale=None, v_scale=None, int4=False):
     """Plain version: the kernel's page walk as a loop over the table's
-    pages, each through `_page_update`. q [n, W, H, D] -> [n, W, H, D]."""
+    pages, each through `_page_update`. q [n, W, H, D] -> [n, W, H, D].
+    int8 pools pass their [P, ps] per-token scales as k_scale/v_scale;
+    int4 pools (`int4=True`) their packed [P, ps, PB] pages and [P, ps, G]
+    group scales. The gather stays quantized and one page dequantizes per
+    step, as in the JAX reference (which also pins an XLA
+    `optimization_barrier` there; eager PyTorch needs none). The dots are
+    products summed with `sum` over the head dim and over the page's keys,
+    not batched matmuls: a CPU matmul picks its blocking, and so its
+    summation order, by shape, while a reduction's order depends only on
+    its own length — so this version, like the kernel, gives a query the
+    same bits in any window width, batch or packed stream."""
     n, W, H, D = q.shape
     P, ps = k_pages.shape[:2]
     MP = page_table.shape[1]
     dev = q.device
+    int8 = k_scale is not None and not int4
     safe = page_table.long().clamp(0, P - 1)
     qf = (q.float() * scale).transpose(1, 2)                 # [n, H, W, D]
     qpos = (start.long()[:, None]
@@ -79,16 +133,41 @@ def _ragged_ref(q, k_pages, v_pages, page_table, start, scale):
     s = torch.zeros((n, H, W, 1), dtype=torch.float32, device=dev)
     acc = torch.zeros((n, H, W, D), dtype=torch.float32, device=dev)
     for j in range(MP):
-        kj = k_pages[safe[:, j]].float().transpose(1, 2)     # [n, H, ps, D]
-        vj = v_pages[safe[:, j]].float().transpose(1, 2)
-        logits = qf @ kj.transpose(-1, -2)                   # [n, H, W, ps]
+        pid = safe[:, j]
+        if int4:
+            kj = _dequant_page_int4(k_pages[pid], k_scale[pid], (H, D))
+            vj = _dequant_page_int4(v_pages[pid], v_scale[pid], (H, D))
+        else:
+            kj = k_pages[pid].float()
+            vj = v_pages[pid].float()
+        kj = kj.transpose(1, 2)                              # [n, H, ps, D]
+        vj = vj.transpose(1, 2)
+        logits = (qf[..., None, :] * kj[..., None, :, :]).sum(-1)  # [n,H,W,ps]
         kpos = j * ps + torch.arange(ps, device=dev)
-        m, s, acc = _page_update(m, s, acc, logits, vj, kpos, qpos)
+        # int8: [n, ps] -> [n, 1, ps], broadcast over the head axis
+        m, s, acc = _page_update(
+            m, s, acc, logits, vj, kpos, qpos,
+            k_scale=k_scale[pid][:, None] if int8 else None,
+            v_scale=v_scale[pid][:, None] if int8 else None)
     out = acc / s.clamp_min(_DENOM_EPS)
     return out.transpose(1, 2).to(q.dtype)
 
 
+def _split_pool(k_pages, v_pages):
+    """(k pages, v pages, k scales, v scales, int4) of a plain pool or of
+    an int8/int4 (pages, scales) tuple pool. A uint8 payload is int4."""
+    if isinstance(k_pages, tuple) != isinstance(v_pages, tuple):
+        raise TypeError("ragged_paged_attention: K and V pools must share "
+                        "one layout")
+    if isinstance(k_pages, tuple):
+        (kp, ks), (vp, vs) = k_pages, v_pages
+        return kp, vp, ks, vs, kp.dtype == torch.uint8
+    return k_pages, v_pages, None, None, False
+
+
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
+# pool layouts of the kernel's template (csrc: enum Layout)
+_PLAIN, _INT8, _INT4 = 0, 1, 2
 _lib = None
 
 
@@ -97,8 +176,9 @@ def _kernel_lib():
     if _lib is None:
         lib = _build.load("ragged_paged_attention")
         lib.rpa_forward.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_void_p])
         lib.rpa_forward.restype = ctypes.c_int
         lib.rpa_error_string.argtypes = [ctypes.c_int]
         lib.rpa_error_string.restype = ctypes.c_char_p
@@ -106,15 +186,57 @@ def _kernel_lib():
     return _lib
 
 
+def _layout(q, kp, vp, ks, vs, int4):
+    """Check the pool against q [N, W, H, D] and name its layout; returns
+    (layout, PB, G). Anything but the three layouts raises."""
+    _, _, H, D = q.shape
+    P, ps = kp.shape[:2]
+    if vp.shape != kp.shape or vp.dtype != kp.dtype:
+        raise ValueError(f"K and V pools differ: {tuple(kp.shape)} "
+                         f"{kp.dtype} vs {tuple(vp.shape)} {vp.dtype}")
+    if ks is None:
+        if kp.dtype != q.dtype:
+            raise TypeError(f"ragged_paged_attention kernel takes a plain "
+                            f"pool of q's dtype {q.dtype}, got {kp.dtype}")
+        if tuple(kp.shape) != (P, ps, H, D):
+            raise ValueError(f"pool {tuple(kp.shape)} does not match q "
+                             f"heads {H} x head_dim {D}")
+        return _PLAIN, 0, 0
+    if ks.dtype != torch.float32 or vs.dtype != torch.float32 or \
+            vs.shape != ks.shape:
+        raise TypeError(f"quantized pools carry f32 scales of one shape, "
+                        f"got {ks.dtype}/{vs.dtype}")
+    if int4:
+        if kp.dim() != 3 or ks.dim() != 3 or ks.shape[:2] != (P, ps) or \
+                ks.shape[2] < 1 or (2 * kp.shape[2]) % ks.shape[2] or \
+                2 * kp.shape[2] < H * D:
+            raise ValueError(
+                f"int4 pool: pages {tuple(kp.shape)} and group scales "
+                f"{tuple(ks.shape)} do not hold H*D = {H * D} elements in "
+                "whole groups")
+        return _INT4, kp.shape[2], ks.shape[2]
+    if kp.dtype != torch.int8:
+        raise TypeError(f"a quantized pool holds int8 or uint8 (int4) "
+                        f"pages, got {kp.dtype}")
+    if tuple(kp.shape) != (P, ps, H, D) or tuple(ks.shape) != (P, ps):
+        raise ValueError(f"int8 pool: pages {tuple(kp.shape)}, scales "
+                         f"{tuple(ks.shape)} do not match q heads {H} x "
+                         f"head_dim {D}")
+    return _INT8, 0, 0
+
+
 def _launch(q, k_pages, v_pages, page_table, row_of, start, scale):
     """Check the operands and launch the CUDA kernel on the current
-    stream. q [N, W, H, D]; row_of [N] int32 or None (row n)."""
+    stream. q [N, W, H, D]; the pools plain or (pages, scales) tuples;
+    row_of [N] int32 or None (row n)."""
     global kernel_launches
+    kp, vp, ks, vs, int4 = _split_pool(k_pages, v_pages)
     N, W, H, D = q.shape
-    P, ps = k_pages.shape[:2]
+    P, ps = kp.shape[:2]
     R, MP = page_table.shape
     ints = (page_table, start) + (() if row_of is None else (row_of,))
-    for t in (q, k_pages, v_pages) + ints:
+    scales = () if ks is None else (ks, vs)
+    for t in (q, kp, vp) + scales + ints:
         if t.device != q.device:
             raise ValueError(
                 f"ragged_paged_attention: operands on {t.device} and "
@@ -122,20 +244,13 @@ def _launch(q, k_pages, v_pages, page_table, row_of, start, scale):
         if not t.is_contiguous():
             raise ValueError("ragged_paged_attention: operands must be "
                              "contiguous")
-    if q.dtype not in _CODES or k_pages.dtype != q.dtype or \
-            v_pages.dtype != q.dtype:
-        raise TypeError(
-            f"ragged_paged_attention kernel takes float32 or bfloat16 q "
-            f"and pools of q's dtype, got q {q.dtype}, pools "
-            f"{k_pages.dtype}/{v_pages.dtype}")
+    if q.dtype not in _CODES:
+        raise TypeError(f"ragged_paged_attention kernel takes float32 or "
+                        f"bfloat16 q, got {q.dtype}")
+    layout, PB, G = _layout(q, kp, vp, ks, vs, int4)
     if any(t.dtype != torch.int32 for t in ints):
         raise TypeError("ragged_paged_attention: page table, start/pos "
                         "and row ids must be int32")
-    if tuple(k_pages.shape) != (P, ps, H, D) or \
-            v_pages.shape != k_pages.shape:
-        raise ValueError(
-            f"pools {tuple(k_pages.shape)}/{tuple(v_pages.shape)} do not "
-            f"match q heads {H} x head_dim {D}")
     if start.shape != (N,) or (row_of is not None and row_of.shape != (N,)):
         raise ValueError("start/pos and row ids must be [N] vectors")
     if D not in (32, 64, 128, 256) or not 1 <= ps <= 32:
@@ -146,11 +261,12 @@ def _launch(q, k_pages, v_pages, page_table, row_of, start, scale):
         return out
     lib = _kernel_lib()
     rc = lib.rpa_forward(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(),
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+        None if ks is None else ks.data_ptr(),
+        None if vs is None else vs.data_ptr(), page_table.data_ptr(),
         None if row_of is None else row_of.data_ptr(),
-        start.data_ptr(), out.data_ptr(), N, W, H, D, ps, MP, P, R,
-        float(scale), _CODES[q.dtype], q.device.index or 0,
+        start.data_ptr(), out.data_ptr(), N, W, H, D, ps, MP, P, R, PB, G,
+        float(scale), _CODES[q.dtype], layout, q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(
@@ -160,19 +276,26 @@ def _launch(q, k_pages, v_pages, page_table, row_of, start, scale):
     return out
 
 
+def _plain(q, k_pages, v_pages, table, start, scale):
+    global plain_launches
+    plain_launches += 1
+    kp, vp, ks, vs, int4 = _split_pool(k_pages, v_pages)
+    return _ragged_ref(q, kp, vp, table, start, scale, k_scale=ks,
+                       v_scale=vs, int4=int4)
+
+
 def ragged_paged_attention(q, k_pages, v_pages, page_table, start,
                            scale=None):
     """Causal attention of ragged new-token windows over paged KV.
     q (n, W, H, D): row i's new tokens at positions start[i]..start[i]+
     W-1 (padded queries past a row's true length produce row-local
-    garbage the caller discards). Decode rows are W=1. Returns
-    (n, W, H, D) in q's dtype."""
-    global plain_launches
+    garbage the caller discards). Decode rows are W=1. The pools are
+    plain, or int8/int4 (pages, scales) tuples (module docstring).
+    Returns (n, W, H, D) in q's dtype."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        plain_launches += 1
-        return _ragged_ref(q, k_pages, v_pages, page_table, start, scale)
+        return _plain(q, k_pages, v_pages, page_table, start, scale)
     return _launch(q, k_pages, v_pages, page_table, None, start, scale)
 
 
@@ -184,15 +307,13 @@ def ragged_paged_attention_packed(q, k_pages, v_pages, page_table,
     the dense form's exactly, so a token's output is bit-identical to
     the dense form computing the same position in any window. Unlike
     the JAX wrapper, nothing pads the stream to a 2-wide window (that
-    padding works around XLA-CPU rounding and changes no output).
-    Returns [T, H, D]."""
-    global plain_launches
+    padding works around XLA-CPU rounding and changes no output). The
+    pools take the dense form's layouts. Returns [T, H, D]."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        plain_launches += 1
         rows = row_ids.long().clamp(0, page_table.shape[0] - 1)
-        return _ragged_ref(q[:, None], k_pages, v_pages, page_table[rows],
-                           pos, scale)[:, 0]
+        return _plain(q[:, None], k_pages, v_pages, page_table[rows], pos,
+                      scale)[:, 0]
     return _launch(q[:, None], k_pages, v_pages, page_table, row_ids, pos,
                    scale)[:, 0]

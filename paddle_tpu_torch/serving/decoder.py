@@ -12,10 +12,16 @@ fixed-size tensors — no `.item()`, no boolean-mask indexing, no branch
 on a device value — so a horizon enqueues without waiting for the card;
 the engine fetches results at block boundaries only.
 
-Every attention call goes through `ops.ragged_paged_attention`: the
-hand-written CUDA kernel on the card, its plain version on the CPU.
-Ported: a float32 or bfloat16 pool, no weight or KV quantization,
-greedy decoding, the packed layout, one device.
+Every attention call goes through `ops.ragged_paged_attention`, and with
+`quant="w4a16"` every qkv/proj/fc1/fc2 product through `ops.w4_matmul`:
+the hand-written CUDA kernels on the card, their plain versions on the
+CPU. Ported: float32/bfloat16, int8 (`kv_quant="int8"`, per-token
+scales) and int4 (`kv_quant="int4"`, nibbles with per-group scales)
+pools, int4 weights (`quant="w4a16"`), greedy decoding, the packed
+layout, one device. A quantized pool is a (pages, scales) tuple per K and
+V; `_kv_set` quantizes each token from its own values as it writes it
+(plain PyTorch, as the JAX decoder's jnp), so stored bytes depend only on
+(request, position).
 """
 import collections
 
@@ -25,9 +31,10 @@ import torch.nn.functional as F
 
 from ..device import get_device
 from ..ops import ragged_paged_attention as rpa
+from ..ops import w4_matmul as w4
 
 __all__ = ["PagedGPTDecoder", "MultiDecodeOut", "RaggedMultiOut",
-           "pow2_at_least", "pool_token_bytes"]
+           "pow2_at_least", "pool_token_bytes", "INT4_GROUP"]
 
 # decode_multi's result bundle (device tensors): a caller feeds
 # tokens/lens/done/remaining into the next horizon and fetches
@@ -51,9 +58,9 @@ _NO_LIMIT = np.iinfo(np.int32).max // 2
 
 def _not_ported(what):
     return NotImplementedError(
-        f"{what} is not ported to paddle_tpu_torch yet (slice 1 serves a "
-        "float32/bfloat16 pool, greedy, packed, on one device; later "
-        "slices add it)")
+        f"{what} is not ported to paddle_tpu_torch yet (the port serves "
+        "float32/bfloat16/int8/int4 pools and W4A16 weights, greedy, "
+        "packed, on one device; later slices add it)")
 
 
 def pow2_at_least(n):
@@ -74,24 +81,135 @@ def _ln(x, w, b):
     return ((x32 - mu) * torch.rsqrt(var + 1e-5) * w + b).to(x.dtype)
 
 
+def _at(v, l):
+    """Layer l of a stacked tensor or of a (payload, scales) tuple."""
+    return tuple(x[l] for x in v) if isinstance(v, tuple) else v[l]
+
+
 def _mm(x, w, b):
-    """x [..., in] @ w [in, out] + b, in x's dtype."""
+    """x [..., in] @ w [in, out] + b, in x's dtype; a (packed, scale)
+    tuple w is an int4 weight (W4A16, `ops.w4_matmul`)."""
+    if isinstance(w, tuple):
+        return w4.w4_matmul(x, w[0], w[1], x.shape[-1]) + b
     return x @ w + b
 
 
-def pool_token_bytes(cfg, itemsize=2):
-    """KV bytes one context token costs PER LAYER in a plain pool of
-    `itemsize`-byte elements (K and V together) — the byte model behind
-    `kv_token_bytes` and `step_hbm_bytes`. The quantized layouts' pricing
-    arrives with their pools."""
-    return int(2 * cfg.num_heads * cfg.head_dim * itemsize)
+def _quantize_kv(val):
+    """Write-time per-token int8 quantization of K (or V) vectors (the
+    JAX `_quantize_kv`): one symmetric scale per token from its own
+    [H, D] amax, scale = max(amax / 127, 1e-8). val [..., H, D] ->
+    (int8 [..., H, D], f32 scale [...])."""
+    v32 = val.float()
+    amax = v32.abs().amax(dim=(-2, -1))
+    scale = torch.clamp_min(amax / 127.0, 1e-8)
+    q = torch.clamp(torch.round(v32 / scale[..., None, None]), -127,
+                    127).to(torch.int8)
+    return q, scale
+
+
+# int4 KV quantization group: one f32 scale per GROUP of flattened
+# head*dim elements (the JAX `INT4_GROUP`)
+INT4_GROUP = 32
+
+
+def _pack_int4(q):
+    """int4 values (int8 in [-8, 7], even last dim) -> uint8 nibble pairs:
+    element 2i in the LOW nibble of byte i, 2i+1 in the high."""
+    lo = q[..., 0::2].to(torch.uint8) & 0xF
+    hi = q[..., 1::2].to(torch.uint8) & 0xF
+    return lo | (hi << 4)
+
+
+def _unpack_int4(packed):
+    """Inverse of `_pack_int4`: uint8 nibble pairs -> int8 values in
+    [-8, 7], last dim doubled."""
+    lo = (packed & 0xF).to(torch.int8)
+    hi = ((packed >> 4) & 0xF).to(torch.int8)
+    lo = torch.where(lo >= 8, lo - 16, lo)
+    hi = torch.where(hi >= 8, hi - 16, hi)
+    return torch.stack([lo, hi], dim=-1).reshape(
+        packed.shape[:-1] + (packed.shape[-1] * 2,))
+
+
+def _quantize_kv_int4(val, group=INT4_GROUP):
+    """Write-time int4 KV quantization with per-group scales (the JAX
+    `_quantize_kv_int4`): the token's [H, D] vector flattens to H*D
+    elements, zero-padded to whole groups; each group shares one scale
+    max(amax / 7, 1e-8); values clip to [-7, 7] and pack two a byte (one
+    spare zero nibble for an odd count). val [..., H, D] -> (uint8
+    [..., ceil(G*group / 2)], f32 scales [..., G])."""
+    v32 = val.float()
+    hd = v32.shape[-2] * v32.shape[-1]
+    group = min(int(group), hd)
+    flat = v32.reshape(v32.shape[:-2] + (hd,))
+    n_groups = (hd + group - 1) // group
+    pad = n_groups * group - hd
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(flat.shape[:-1] + (pad,))],
+                         dim=-1)
+    g = flat.reshape(flat.shape[:-1] + (n_groups, group))
+    scale = torch.clamp_min(g.abs().amax(-1) / 7.0, 1e-8)
+    q = torch.clamp(torch.round(g / scale[..., None]), -7, 7).to(
+        torch.int8).reshape(flat.shape)
+    if q.shape[-1] % 2:
+        q = torch.cat([q, q.new_zeros(q.shape[:-1] + (1,))], dim=-1)
+    return _pack_int4(q), scale
+
+
+def _dequantize_kv_int4(packed, scale, heads_shape, group=INT4_GROUP):
+    """Inverse of `_quantize_kv_int4` up to quantization error: unpack,
+    multiply each group by its scale, reshape to [..., H, D]."""
+    q = _unpack_int4(packed).float()
+    hd = int(heads_shape[0]) * int(heads_shape[1])
+    group = min(int(group), hd)
+    n_groups = scale.shape[-1]
+    q = q[..., :n_groups * group]             # drop the pack-parity pad
+    g = q.reshape(q.shape[:-1] + (n_groups, group)) * scale[..., None]
+    flat = g.reshape(q.shape[:-1] + (n_groups * group,))[..., :hd]
+    return flat.reshape(q.shape[:-1] + tuple(heads_shape))
+
+
+def pool_token_bytes(cfg, kv_quant=None, itemsize=2):
+    """KV bytes one context token costs PER LAYER under a pool layout (K
+    and V together): `itemsize` bytes an element unquantized; int8 one
+    byte an element plus one f32 scale a token; int4 the stored nibbles
+    (ceil-padded to whole groups and an even count) plus one f32 scale a
+    group — the byte model behind `kv_token_bytes` and `step_hbm_bytes`.
+    An unknown `kv_quant` raises."""
+    if kv_quant not in (None, "int8", "int4"):
+        raise ValueError(
+            f"kv_quant must be None, 'int8' or 'int4', got {kv_quant!r} "
+            "(an unquantized pool is kv_quant=None priced at `itemsize` "
+            "bytes/elem — there is no 'bf16' spelling)")
+    hd = cfg.num_heads * cfg.head_dim
+    if kv_quant == "int4":
+        group = min(INT4_GROUP, hd)
+        n_groups = (hd + group - 1) // group
+        per_tensor = (n_groups * group + 1) // 2 + 4 * n_groups
+    elif kv_quant == "int8":
+        per_tensor = hd + 4
+    else:
+        per_tensor = hd * itemsize
+    return int(2 * per_tensor)
 
 
 def _kv_set(pool, pids, offs, val):
     """Write `val` [..., H, D] at (pids, offs) of ONE layer's page pool,
     in place — the single KV write primitive of every serving path
-    (scratch routing is the caller's pids)."""
-    pool[pids.long(), offs.long()] = val.to(pool.dtype)
+    (scratch routing is the caller's pids). A quantized (pages, scales)
+    pool quantizes each token from its own values and stores payload and
+    scales together: int8 pages per token (`_quantize_kv`), uint8 (int4)
+    pages per group (`_quantize_kv_int4`)."""
+    idx = (pids.long(), offs.long())
+    if isinstance(pool, tuple):
+        pages, scales = pool
+        quantize = _quantize_kv_int4 if pages.dtype == torch.uint8 \
+            else _quantize_kv
+        q, s = quantize(val)
+        pages[idx] = q
+        scales[idx] = s
+        return
+    pool[idx] = val.to(pool.dtype)
 
 
 class PagedGPTDecoder:
@@ -101,16 +219,23 @@ class PagedGPTDecoder:
     layout (`models.init_state_dict`, or `models.state_dict_from_numpy`
     of a JAX model). The last page of the pool (`num_pages - 1`) is the
     reserved scratch page that absorbs every write of a padded, frozen
-    or inactive position."""
+    or inactive position. `kv_quant` ("int8" | "int4") quantizes the KV
+    pool; `quant="w4a16"` stores the qkv/proj/fc1/fc2 weights as int4
+    (`lm_head` stays unquantized, as in the JAX decoder)."""
 
     def __init__(self, cfg, state_dict, num_pages=128, page_size=16,
                  max_batch=8, max_pages_per_seq=None, quant=None,
                  kv_quant=None, dtype=None, temperature=0.0, mesh=None,
                  packed=True, device=None):
-        if quant is not None:
-            raise _not_ported(f"weight quantization quant={quant!r}")
-        if kv_quant is not None:
-            raise _not_ported(f"KV quantization kv_quant={kv_quant!r}")
+        if quant == "a8w8":
+            raise _not_ported("int8 weights with int8 activations "
+                              "(quant='a8w8')")
+        if quant not in (None, "w4a16"):
+            raise ValueError(f"quant must be None, 'a8w8' or 'w4a16', got "
+                             f"{quant!r}")
+        if kv_quant not in (None, "int8", "int4"):
+            raise ValueError(f"kv_quant must be None, 'int8' or 'int4', "
+                             f"got {kv_quant!r}")
         if temperature:
             raise _not_ported("sampled decoding (temperature > 0)")
         if mesh is not None:
@@ -124,6 +249,8 @@ class PagedGPTDecoder:
         self.max_batch = max_batch
         self.max_pages = max_pages_per_seq or \
             (cfg.max_seq_len + page_size - 1) // page_size
+        self.quant = quant
+        self.kv_quant = kv_quant
         dtype = dtype or cfg.dtype
         self.compute_dtype = _DTYPES[dtype] if isinstance(dtype, str) \
             else dtype
@@ -135,23 +262,36 @@ class PagedGPTDecoder:
             return torch.stack([sd[fmt.format(i)] for i in range(L)]).to(
                 dev, dtype)
 
-        # matmul weights and biases in the compute dtype (the JAX decoder
-        # casts them at each use: `x @ w.astype(x.dtype)`); LayerNorm
-        # affine in f32, as `_ln` promotes it. The qkv weight keeps the
-        # JAX decoder's head-major column order: [L, h, 3*H*D] is the
-        # same memory as its [L, h, 3, H, D].
+        def linear(name):
+            """Stacked [L, in, out] weight in the compute dtype (the JAX
+            decoder casts at each use: `x @ w.astype(x.dtype)`), or under
+            w4a16 the stacked (packed, scale) int4 pair, quantized once on
+            the device from the state dict's own values taken to f32 (what
+            the JAX `quantize_weight` sees; a compute-dtype copy would move
+            the scales)."""
+            if quant != "w4a16":
+                return stack(f"blocks.{{}}.{name}.weight", cd)
+            per_layer = [w4.quantize_w4(
+                sd[f"blocks.{i}.{name}.weight"].to(dev, torch.float32))
+                for i in range(L)]
+            return tuple(torch.stack(part) for part in zip(*per_layer))
+
+        # biases in the compute dtype; LayerNorm affine in f32, as `_ln`
+        # promotes it. The qkv weight keeps the JAX decoder's head-major
+        # column order: [L, h, 3*H*D] is the same memory as its
+        # [L, h, 3, H, D].
         self.weights = {
             "ln1_w": stack("blocks.{}.ln1.weight", torch.float32),
             "ln1_b": stack("blocks.{}.ln1.bias", torch.float32),
-            "qkv_w": stack("blocks.{}.qkv.weight", cd),
+            "qkv_w": linear("qkv"),
             "qkv_b": stack("blocks.{}.qkv.bias", cd),
-            "proj_w": stack("blocks.{}.proj.weight", cd),
+            "proj_w": linear("proj"),
             "proj_b": stack("blocks.{}.proj.bias", cd),
             "ln2_w": stack("blocks.{}.ln2.weight", torch.float32),
             "ln2_b": stack("blocks.{}.ln2.bias", torch.float32),
-            "fc1_w": stack("blocks.{}.fc1.weight", cd),
+            "fc1_w": linear("fc1"),
             "fc1_b": stack("blocks.{}.fc1.bias", cd),
-            "fc2_w": stack("blocks.{}.fc2.weight", cd),
+            "fc2_w": linear("fc2"),
             "fc2_b": stack("blocks.{}.fc2.bias", cd),
         }
         # embeddings stay in their stored dtype: the JAX decoder adds
@@ -164,9 +304,29 @@ class PagedGPTDecoder:
         head = sd["lm_head.weight"] if "lm_head.weight" in sd \
             else sd["wte.weight"].t()
         self.lm_head = head.to(dev, torch.float32)
-        self.k_pages = torch.zeros((L, num_pages, page_size, H, D),
-                                   dtype=cd, device=dev)
-        self.v_pages = torch.zeros_like(self.k_pages)
+        self.k_pages = self._new_pool(L, num_pages, page_size, H, D)
+        self.v_pages = self._new_pool(L, num_pages, page_size, H, D)
+
+    def _new_pool(self, L, P, ps, H, D):
+        """One zeroed K (or V) pool: [L, P, ps, H, D] in the compute
+        dtype; int8 pages + per-token f32 scales [L, P, ps]; or int4
+        nibble pages [L, P, ps, PB] + per-group f32 scales [L, P, ps, G]
+        (H*D packed two a byte, padded to whole groups)."""
+        dev = self.device
+        if self.kv_quant == "int4":
+            hd = H * D
+            grp = min(INT4_GROUP, hd)
+            G = (hd + grp - 1) // grp
+            PB = (G * grp + 1) // 2
+            return (torch.zeros((L, P, ps, PB), dtype=torch.uint8,
+                                device=dev),
+                    torch.zeros((L, P, ps, G), device=dev))
+        if self.kv_quant == "int8":
+            return (torch.zeros((L, P, ps, H, D), dtype=torch.int8,
+                                device=dev),
+                    torch.zeros((L, P, ps), device=dev))
+        return torch.zeros((L, P, ps, H, D), dtype=self.compute_dtype,
+                           device=dev)
 
     # -- forward bodies ----------------------------------------------------
 
@@ -186,19 +346,19 @@ class PagedGPTDecoder:
         Per-token math is row-local, so a token's bytes do not depend on
         what else is in the batch (up to the matmul library's choice of
         algorithm for the batch size)."""
-        w = self.weights
+        w = {k: _at(v, l) for k, v in self.weights.items()}
         H, D = self.cfg.num_heads, self.cfg.head_dim
         T = x.shape[0]
-        y = _ln(x, w["ln1_w"][l], w["ln1_b"][l])
-        qkv = _mm(y, w["qkv_w"][l], w["qkv_b"][l]).view(T, 3, H, D)
-        kp, vp = self.k_pages[l], self.v_pages[l]
+        y = _ln(x, w["ln1_w"], w["ln1_b"])
+        qkv = _mm(y, w["qkv_w"], w["qkv_b"]).view(T, 3, H, D)
+        kp, vp = _at(self.k_pages, l), _at(self.v_pages, l)
         _kv_set(kp, pids, offs, qkv[:, 1])
         _kv_set(vp, pids, offs, qkv[:, 2])
         attn = attend(qkv[:, 0].contiguous(), kp, vp).to(x.dtype)
-        x = x + _mm(attn.reshape(T, H * D), w["proj_w"][l], w["proj_b"][l])
-        y = _ln(x, w["ln2_w"][l], w["ln2_b"][l])
-        h = F.gelu(_mm(y, w["fc1_w"][l], w["fc1_b"][l]), approximate="tanh")
-        return x + _mm(h, w["fc2_w"][l], w["fc2_b"][l])
+        x = x + _mm(attn.reshape(T, H * D), w["proj_w"], w["proj_b"])
+        y = _ln(x, w["ln2_w"], w["ln2_b"])
+        h = F.gelu(_mm(y, w["fc1_w"], w["fc1_b"]), approximate="tanh")
+        return x + _mm(h, w["fc2_w"], w["fc2_b"])
 
     def _logits(self, x):
         x = _ln(x, self.ln_f_w, self.ln_f_b)
@@ -472,10 +632,18 @@ class PagedGPTDecoder:
     # -- byte model --------------------------------------------------------
 
     @property
+    def _pool_itemsize(self):
+        """Bytes one stored K (or V) element costs in the pool."""
+        leaf = self.k_pages[0] if isinstance(self.k_pages, tuple) \
+            else self.k_pages
+        return leaf.element_size()
+
+    @property
     def kv_token_bytes(self):
-        """KV bytes ONE token costs per layer (K and V together)."""
-        return pool_token_bytes(self.cfg,
-                                itemsize=self.k_pages.element_size())
+        """KV bytes ONE token costs per layer (K and V together, scale
+        planes included for a quantized pool)."""
+        return pool_token_bytes(self.cfg, kv_quant=self.kv_quant,
+                                itemsize=self._pool_itemsize)
 
     def kv_token_bytes_by_layer(self):
         """Per-LAYER KV bytes one token costs (every layer stores the same
@@ -484,19 +652,38 @@ class PagedGPTDecoder:
 
     @property
     def kv_page_bytes(self):
-        """KV bytes one page holds across all layers (K and V)."""
+        """KV bytes one page holds across all layers (K and V, scale
+        planes included)."""
         return int(self.cfg.num_layers * self.page_size *
                    self.kv_token_bytes)
 
-    def step_hbm_bytes(self, avg_ctx=None, batch=None):
-        """HBM bytes ONE decode tick moves: every weight byte (priced at 2
-        bytes per parameter) plus each slot's KV prefix at `avg_ctx`
-        (default: half the model's max sequence) — the numerator of the
-        decode tick roofline the scheduler prices K and w from."""
+    def step_hbm_bytes(self, avg_ctx=None, batch=None, kv_quant="pool"):
+        """HBM bytes ONE decode tick moves: every weight byte (2 a
+        parameter; 0.5 for the int4 linears under w4a16) plus each slot's
+        KV prefix at `avg_ctx` (default: half the model's max sequence) —
+        the numerator of the decode tick roofline the scheduler prices K
+        and w from. `kv_quant` prices another pool layout for a what-if
+        (None prices the compute dtype's width); "pool" is the live
+        pool's."""
         cfg = self.cfg
+        n = cfg.num_params()
+        if self.quant == "w4a16":
+            h, f = cfg.hidden_size, cfg.ffn_hidden
+            lin = cfg.num_layers * (4 * h * h + 2 * h * f)
+            w_bytes = lin * 0.5 + (n - lin) * 2
+        else:
+            w_bytes = n * 2
         if avg_ctx is None:
             avg_ctx = max(cfg.max_seq_len // 2, 1)
         if batch is None:
             batch = self.max_batch
-        return int(cfg.num_params() * 2 +
-                   batch * avg_ctx * sum(self.kv_token_bytes_by_layer()))
+        if kv_quant == "pool":
+            return int(w_bytes +
+                       batch * avg_ctx * sum(self.kv_token_bytes_by_layer()))
+        # an unquantized what-if prices the compute dtype's width, not the
+        # live pool's leaf (1 byte on an int8 pool)
+        itemsize = self._pool_itemsize if self.kv_quant is None \
+            else self.compute_dtype.itemsize
+        tok_bytes = pool_token_bytes(cfg, kv_quant=kv_quant,
+                                     itemsize=itemsize)
+        return int(w_bytes + batch * cfg.num_layers * avg_ctx * tok_bytes)

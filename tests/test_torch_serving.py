@@ -145,7 +145,7 @@ def test_ragged_engine_equals_per_tick_engine(models):
 
 def test_unported_options_raise(models):
     with pytest.raises(NotImplementedError):
-        _decoder(models, kv_quant="int8")
+        _decoder(models, quant="a8w8")
     with pytest.raises(NotImplementedError):
         _decoder(models, temperature=0.7)
     with pytest.raises(NotImplementedError):
@@ -164,6 +164,7 @@ import torch
 import paddle_tpu_torch
 import paddle_tpu_torch.cost_model, paddle_tpu_torch.models
 import paddle_tpu_torch.ops.ragged_paged_attention
+import paddle_tpu_torch.ops.w4_matmul, paddle_tpu_torch.quantization
 import paddle_tpu_torch.serving
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))
