@@ -17,8 +17,15 @@ teacher-forced NLL of the bf16 run's streams, against the bf16 pool;
 trains gpt_1p3b (full depth, bf16,
 remat 'full', batch 8 x 1024, AdamW + global-norm clip) for 2 warm-up
 and 8 timed steps, counts each kernel's launches a step, profiles one
-step; and checks serving and training on gpt_tiny against the port's
-CPU path. Every phase raises on failure. The output
+step; checks serving and training on gpt_tiny against the port's CPU
+path; holds the flash kernels' per-key bias, full bias and hash-dropout
+branches and their keep-mask against the plain versions and times them
+at BERT's shape; trains bert_base (MLM + NSP, full width and depth,
+bf16, batch 32 x 512 with padding masks, dropout 0.1, AdamW, bench.py's
+recipe) for 2 warm-up and 8 timed steps, counts launches by kernel and
+branch, splits one profiled step by family, and checks a small BERT's
+training with dropout on against the port's CPU path. Every phase
+raises on failure. The output
 is one line per phase, then one JSON line with the kernels' numbers, the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the package next
@@ -967,9 +974,11 @@ def _ok(rc):
         raise RuntimeError(f"kernel launch failed ({rc})")
 
 
-def _flash_ptrs(q, k, v, do, lse, delta):
+def _flash_ptrs(q, k, v, do, lse, delta, kvb=None, fb=None):
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr())
+            lse.data_ptr(), delta.data_ptr(),
+            None if kvb is None else kvb.data_ptr(),
+            None if fb is None else fb.data_ptr())
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1177,6 +1186,444 @@ def phase_train_small_reference():
         param_max_abs_err=f"{param_err:.3e}", tolerance=TRAIN_REF_TOL)
 
 
+# ---------------------------------------------------------------- phase 8
+
+# bert_base (bench.py's run_bert_base): batch 32 x 512, 12 heads of 64,
+# hidden 768, padding lengths 384-512, dropout 0.1 on the hidden states
+# and the attention probabilities
+BB, BL, BH, BD, BHID, BV = 32, 512, 12, 64, 768, 30522
+BERT_RATE = 0.1
+MASKED = "kvb+dropout"           # the branch every BERT attention call takes
+# (name, B, L, Hq, Hkv, D, causal, mask kind): the BERT shape with its
+# padding bias, a full bias per (batch, head), a bool mask, GQA with a
+# per-key bias, a ragged length
+MASKED_CASES = [("bert", BB, BL, BH, BH, BD, False, "kvb"),
+                ("fb", 2, 256, 4, 4, 64, False, "fb"),
+                ("bool", 2, 256, 2, 2, 64, False, "bool"),
+                ("gqa", 2, 256, 4, 2, 128, True, "kvb"),
+                ("ragged", 2, 500, 4, 4, 64, False, "kvb")]
+KEEP_FRACTION_TOL = 0.005
+
+
+def _padding_bias(rng, B, L):
+    """BERT's additive padding bias (1 - m) * -1e4 [B, 1, 1, L] from
+    bench.py's lengths, 3/4 L to L."""
+    lengths = rng.randint(int(L * 0.75), L + 1, (B,))
+    m = (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32)
+    return torch.from_numpy((1.0 - m) * -1e4)[:, None, None, :].cuda()
+
+
+def _masked_mask(kind, gen, rng, B, L, Hq):
+    if kind == "kvb":
+        return _padding_bias(rng, B, L)
+    if kind == "fb":
+        return torch.randn((B, Hq, L, L), generator=gen, device="cuda") * 2
+    return torch.rand((B, 1, 1, L), generator=gen, device="cuda") > 0.25
+
+
+def phase_bert_kernel_checks(A, LN):
+    """The kvb, fb and dropout branches of the three flash kernels against
+    their plain versions (the same inputs, biases and seeds; f32 and
+    bf16; rates 0 and 0.1), the card's keep-mask against the plain
+    version's (exact) and its kept fraction at the BERT shape, and
+    LayerNorm at the BERT width with both of BERT's epsilons. Tolerance:
+    `_check_close`."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rng = np.random.RandomState(SEED + 6)
+    err = {k: 0.0 for k in A.KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        for rate in (0.0, BERT_RATE):
+            for case, B, L, Hq, Hkv, D, causal, kind in MASKED_CASES:
+                q = _rand(gen, (B, L, Hq, D), dtype)
+                k = _rand(gen, (B, L, Hkv, D), dtype)
+                v = _rand(gen, (B, L, Hkv, D), dtype)
+                do = _rand(gen, (B, L, Hq, D), dtype)
+                kvb, fb = A._normalize_mask(
+                    _masked_mask(kind, gen, rng, B, L, Hq), B, Hq, L, L)
+                ex = A._Extras(kvb, fb, rate, int(rng.randint(1 << 24)))
+                sc = D ** -0.5
+                out, lse = A._fwd(q, k, v, causal, sc, ex)
+                p32 = A._fwd_ref(q.float(), k.float(), v.float(), causal, sc,
+                                 ex)
+                e = {"flash_fwd": max(
+                    _check_close("fwd", out, p32[0].to(dtype), p32[0]),
+                    _check_close("lse", lse, p32[1], p32[1]))}
+                grads = A._bwd(q, k, v, out, lse, do, causal, sc, ex)
+                delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+                r32 = A._bwd_ref(q.float(), k.float(), v.float(), do.float(),
+                                 lse, delta.contiguous(), causal, sc, ex)
+                e["flash_bwd_dq"] = _check_close("dq", grads[0],
+                                                 r32[0].to(dtype), r32[0])
+                e["flash_bwd_dkv"] = max(
+                    _check_close("dkv", g, r.to(dtype), r)
+                    for g, r in zip(grads[1:], r32[1:]))
+                for name, x in e.items():
+                    err[name] = max(err[name], x)
+                log("kernel", form=f"flash[{ex.branch}] {case} B={B} L={L} "
+                    f"Hq={Hq} Hkv={Hkv} D={D} causal={causal}", dtype=dt,
+                    fwd_err=f"{e['flash_fwd']:.3e}",
+                    dq_err=f"{e['flash_bwd_dq']:.3e}",
+                    dkv_err=f"{e['flash_bwd_dkv']:.3e}")
+                del q, k, v, do, out, lse, grads, r32, p32, kvb, fb
+    for seed, (B, Hq, Hkv, L) in ((SEED + 7, (BB, BH, BH, BL)),
+                                  (SEED + 8, (2, 4, 2, 500))):
+        keep = A.dropout_keep_on_card(seed, B, Hq, Hkv, L, L, BERT_RATE,
+                                      torch.device("cuda"))
+        plain = A._keep_mask(seed, B, Hq, Hkv, L, 0, L, BERT_RATE, "cuda")
+        if not torch.equal(keep.bool(), plain):
+            raise AssertionError(f"card keep-mask differs from the plain "
+                                 f"version's at {(B, Hq, Hkv, L)}")
+        kept = float(keep.float().mean())
+        if (B, L) == (BB, BL) and abs(kept - (1 - BERT_RATE)) > \
+                KEEP_FRACTION_TOL:
+            raise AssertionError(f"kept fraction {kept} vs {1 - BERT_RATE}")
+        log("kernel", form=f"dropout keep-mask B={B} Hq={Hq} Hkv={Hkv} "
+            f"L={L} rate={BERT_RATE}", equal_to_plain=True,
+            kept_fraction=f"{kept:.6f}")
+        del keep, plain
+    ln_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _rand(gen, (BB * BL, BHID), dtype, 2.0)
+        w, b = _rand(gen, (BHID,), dtype), _rand(gen, (BHID,), dtype)
+        for eps in (1e-5, 1e-12):
+            plain32 = LN._ln_kernel_ref(x.float(), w.float(), b.float(), eps)
+            ln_err = max(ln_err, _check_close(
+                "layer_norm", LN._launch(x, w, b, eps), plain32.to(dtype),
+                plain32))
+        log("kernel", form=f"layer_norm [{BB * BL}, {BHID}] eps 1e-5, 1e-12",
+            dtype=str(dtype)[6:], ln_err=f"{ln_err:.3e}")
+    torch.cuda.synchronize()
+    return err, ln_err
+
+
+# bf16 [B, L, H, D] tensors and f32 [B, H, L] rows of the BERT shape
+_BIO = BB * BL * BH * BD * 2
+_BROWS = BB * BH * BL * 4
+_BPAIRS = BB * BH * BL * BL
+
+
+def phase_bert_kernel_timing(A, LN):
+    """Each masked branch of the three flash kernels at the BERT shape in
+    bf16 (kvb, fb, dropout, kvb+dropout — the last is BERT's), against
+    its plain version and one PyTorch call with the same additive mask
+    and rate (SDPA forward, and its backward for dQ, dK and dV together;
+    timed only, never called by the port); LayerNorm at [16384, 768].
+    Bytes: each input read once, each output written once (q, k, v, dO,
+    out, dq, dk, dv bf16; lse, delta f32 rows; the bias f32); operations:
+    4, 6 and 8 x D a (query, key) pair for the forward, dQ and dK/dV (no
+    causal skip)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    rng = np.random.RandomState(SEED + 9)
+    bf = torch.bfloat16
+    q, k, v, do = (_rand(gen, (BB, BL, BH, BD), bf) for _ in range(4))
+    sc = BD ** -0.5
+    pad = _padding_bias(rng, BB, BL)
+    full = torch.randn((BB, BH, BL, BL), generator=gen, device="cuda")
+    branches = {"kvb": (pad, 0.0), "fb": (full, 0.0),
+                "dropout": (None, BERT_RATE), MASKED: (pad, BERT_RATE)}
+    out = {}
+    for branch, (mask, rate) in branches.items():
+        kvb, fb = ((None, None) if mask is None else
+                   A._normalize_mask(mask, BB, BH, BL, BL))
+        ex = A._Extras(kvb, fb, rate, 1234)
+        bias_bytes = sum(t.numel() * 4 for t in (kvb, fb) if t is not None)
+        o, lse = A._fwd(q, k, v, False, sc, ex)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        tail = A._tail((BB, BL, BL, BH, BH, BD), False, sc, q, ex)
+        ptrs = _flash_ptrs(q, k, v, do, lse, delta, kvb, fb)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        lib_mask = None if mask is None else mask.to(bf)
+        so = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=lib_mask, dropout_p=rate)
+        sdpa_fwd = cuda_ms(lambda i=0: torch.nn.functional.
+                           scaled_dot_product_attention(
+                               qt, kt, vt, attn_mask=lib_mask,
+                               dropout_p=rate), 10)
+        dot = do.transpose(1, 2)
+        sdpa_bwd = cuda_ms(lambda i=0: torch.autograd.grad(
+            so, (qt, kt, vt), dot, retain_graph=True), 10)
+        specs = {
+            "flash_fwd": (lambda i=0: A._fwd(q, k, v, False, sc, ex),
+                          lambda i=0: A._fwd_ref(q, k, v, False, sc, ex),
+                          sdpa_fwd, 4 * _BIO + _BROWS + bias_bytes,
+                          4 * BD * _BPAIRS),
+            "flash_bwd_dq": (
+                lambda i=0: _ok(A._kernel_lib().flash_bwd_dq(
+                    *ptrs, torch.empty_like(q).data_ptr(), *tail)),
+                lambda i=0: A._bwd_ref(q, k, v, do, lse, delta, False, sc,
+                                       ex),
+                sdpa_bwd, 5 * _BIO + 2 * _BROWS + bias_bytes,
+                6 * BD * _BPAIRS),
+            "flash_bwd_dkv": (
+                lambda i=0: _ok(A._kernel_lib().flash_bwd_dkv(
+                    *ptrs, torch.empty_like(k).data_ptr(),
+                    torch.empty_like(v).data_ptr(), *tail)),
+                lambda i=0: A._bwd_ref(q, k, v, do, lse, delta, False, sc,
+                                       ex),
+                sdpa_bwd, 6 * _BIO + 2 * _BROWS + bias_bytes,
+                8 * BD * _BPAIRS),
+        }
+        for name, (kern, plain, library_ms, nbytes, flops) in specs.items():
+            ms = cuda_ms(kern, 10)
+            plain_ms = cuda_ms(plain, 2)
+            bound_ms, bound_by = _bound(nbytes, flops)
+            out[f"{name}[{branch}]"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+            log("kernel_time", kernel=f"{name}[{branch}]",
+                shape=f"B={BB} L={BL} H={BH} D={BD} bf16", ms=f"{ms:.4f}",
+                plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+                bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+                achieved_TFLOPs=f"{flops / ms / 1e9:.2f}")
+        del o, lse, delta, so, qt, kt, vt, kvb, fb
+    x = _rand(gen, (BB * BL, BHID), bf, 2.0)
+    w, b = _rand(gen, (BHID,), bf), _rand(gen, (BHID,), bf)
+    ms = cuda_ms(lambda i=0: LN._launch(x, w, b, 1e-12), 20)
+    plain_ms = cuda_ms(lambda i=0: LN._ln_kernel_ref(x, w, b, 1e-12), 5)
+    library_ms = cuda_ms(lambda i=0: torch.nn.functional.layer_norm(
+        x, (BHID,), w, b, 1e-12), 20)
+    bound_ms, bound_by = _bound(2 * x.numel() * 2 + 2 * BHID * 2,
+                                8 * x.numel())
+    out["layer_norm[h768]"] = {"ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by,
+                               "library_ms": library_ms}
+    log("kernel_time", kernel="layer_norm[h768]",
+        shape=f"[{BB * BL}, {BHID}] bf16", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+    return out
+
+
+# a bert_base training step launches, per layer, one attention forward,
+# dQ and dK/dV (kvb + dropout) and two LayerNorms, plus the embeddings'
+# and the MLM head's LayerNorm; the vocabulary (30522) has no 128-multiple
+# block, so the criterion takes F.cross_entropy, not the xent kernels
+BERT_EXPECTED_PER_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12,
+                          "flash_bwd_dkv": 12, "layer_norm": 26,
+                          "xent_fwd": 0, "xent_bwd": 0}
+
+
+def _bert_batch(cfg, seed=0):
+    """bench.py's run_bert_base batch, drawn the same way from
+    RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, cfg.vocab_size, (BB, BL))
+    labels[rng.rand(BB, BL) > 0.15] = -100
+    lengths = rng.randint(int(BL * 0.75), BL + 1, (BB,))
+    mask = np.arange(BL)[None, :] < lengths[:, None]
+    return {"input_ids": rng.randint(0, cfg.vocab_size,
+                                     (BB, BL)).astype("int32"),
+            "attention_mask": mask.astype("int32"),
+            "mlm_labels": labels.astype("int32"),
+            "nsp_labels": rng.randint(0, 2, (BB,)).astype("int64")}
+
+
+def _bert_trainer(cfg, device=None, lr=1e-4, acc_dtype="bfloat16",
+                  state=None):
+    """bench.py's recipe: BertForPretraining(cfg) (seed 0, or the weights
+    `state`), train mode, BertPretrainingCriterion, AdamW(lr,
+    weight_decay 0.01, no clip, moment slots in `acc_dtype`), Trainer."""
+    from paddle_tpu_torch.distributed import Trainer
+    from paddle_tpu_torch.models import (BertForPretraining,
+                                         BertPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+    model = BertForPretraining(cfg, device=device, seed=SEED)
+    if state is not None:
+        model.load_state_dict(state)
+    model.train()
+    crit = BertPretrainingCriterion(cfg.vocab_size)
+    opt = AdamW(learning_rate=lr, weight_decay=0.01,
+                accumulator_dtype=acc_dtype)
+
+    def loss_fn(m, b):
+        mlm, nsp = m(b["input_ids"], attention_mask=b["attention_mask"])
+        return crit(mlm, nsp, b["mlm_labels"], b["nsp_labels"])
+
+    return Trainer(model, opt, loss_fn, device=device)
+
+
+def phase_bert_training(A, LN, X, smi):
+    from paddle_tpu_torch.distributed import LossBuffer
+    from paddle_tpu_torch.models import bert_base
+    cfg = bert_base(dtype="bfloat16")
+    t0 = time.perf_counter()
+    trainer = _bert_trainer(cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _bert_batch(cfg).items()}
+    buf = LossBuffer(drain_every=TRAIN_WARMUP + TRAIN_STEPS)
+    for _ in range(TRAIN_WARMUP):
+        buf.append(trainer.step(batch))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_counts(A, LN, X)
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        buf.append(trainer.step(batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kern, plain = _train_counts(A, LN, X)
+    branches = dict(A.branch_launches)
+    losses = buf.losses
+    if len(losses) != TRAIN_WARMUP + TRAIN_STEPS or buf.fetches != 1:
+        raise AssertionError(f"losses fetched {buf.fetches} times: {losses}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"bert_base losses not finite: {losses}")
+    per_step = {k: v / TRAIN_STEPS for k, v in kern.items()}
+    masked = {k: branches.get(f"{k}[{MASKED}]", 0) for k in A.KERNELS}
+    if per_step != BERT_EXPECTED_PER_STEP or any(plain.values()) or \
+            masked != {k: kern[k] for k in A.KERNELS}:
+        raise AssertionError(f"launches a step {per_step} (expected "
+                             f"{BERT_EXPECTED_PER_STEP}), by branch "
+                             f"{branches}, plain {plain}")
+    step_ms = wall / TRAIN_STEPS * 1e3
+    seqs_s = BB / (step_ms / 1e3)
+    mfu = 6 * n_params * seqs_s * BL / H100_BF16_FLOPS
+    log("bert_train", model="bert_base", layers=cfg.num_layers,
+        hidden=cfg.hidden_size, params_M=f"{n_params / 1e6:.3f}",
+        batch=f"{BB}x{BL}", dtype="bfloat16", dropout=BERT_RATE,
+        gpu=repr(smi), setup_s=f"{setup_s:.2f}", steps=TRAIN_STEPS,
+        step_ms=f"{step_ms:.2f}", seqs_per_s=f"{seqs_s:.2f}",
+        mfu=f"{mfu:.4f}",
+        peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        loss_first=f"{losses[0]:.5f}", loss_last=f"{losses[-1]:.5f}")
+    log("bert_launches", **{f"{k}_per_step": v for k, v in
+                            per_step.items()},
+        **{f"{k}[{MASKED}]": v for k, v in masked.items()},
+        plain=sum(plain.values()))
+    return trainer, batch, kern
+
+
+_BERT_FAMILIES = ("flash_attention", "cublas", "layer_norm", "dropout_hash",
+                  "xent_logits", "optimizer", "other")
+
+
+def _bert_family(ev):
+    """The family of a CPU op's own device kernels: its range or its
+    nearest enclosing one (the optimizer's, the hash's), or the shapes it
+    read (the [16384, 30522] f32 logits and their [32, 512, 30522] view
+    are the criterion's log-softmax and gather, forward and backward)."""
+    e = ev
+    while e is not None:
+        if e.name == "bert_optimizer":
+            return "optimizer"
+        if e.name == "dropout_hash":
+            return "dropout_hash"
+        for shape in (e.input_shapes or []):
+            if list(shape)[-1:] == [BV] and len(shape) >= 2:
+                return "xent_logits"
+        e = e.cpu_parent
+    return "other"
+
+
+def phase_bert_split(trainer, batch):
+    """Where one bert_base step's device time goes, by family: kernels are
+    named for the flash kernels, cuBLAS and LayerNorm; the rest are
+    priced by the op that launched them (the hash ranges of F.dropout,
+    the optimizer's range, the ops on the [16384, 30522] f32 logits);
+    and the device's busy share (device time over the step's wall
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        _, grads = trainer._loss_and_grads(batch)
+        with torch.profiler.record_function("bert_optimizer"):
+            trainer.optimizer.apply_gradients(trainer.params, grads)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fam = dict.fromkeys(_BERT_FAMILIES, 0.0)
+    named = {"flash_attention": ("flash_fwd", "flash_dq", "flash_dkv"),
+             "layer_norm": ("layer_norm_kernel",),
+             "cublas": ("gemm", "nvjet", "cutlass", "xmma", "cublas")}
+
+    def by_name(name):
+        low = name.lower()
+        for f, keys in named.items():
+            if any(t in low for t in keys):
+                return f
+        return None
+
+    total = 0.0
+    for ev in prof.events():
+        # device-side spans of the named ranges cover kernels counted on
+        # their own
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                not ev.is_user_annotation:
+            total += ev.time_range.elapsed_us()
+            f = by_name(ev.name)
+            if f:
+                fam[f] += ev.time_range.elapsed_us()
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for kern in getattr(ev, "kernels", []):
+            if by_name(kern.name) is None:
+                fam[_bert_family(ev)] += kern.duration
+    if total <= 0:
+        raise AssertionError("the profiler saw no device kernels in a "
+                             "bert_base step")
+    fam["other"] += total - sum(fam.values())
+    log("bert_split", wall_ms=f"{wall * 1e3:.2f}",
+        device_ms=f"{total / 1e3:.2f}",
+        device_busy_share=f"{total / 1e6 / wall:.3f}",
+        **{f"{k}_ms": f"{v / 1e3:.2f}" for k, v in fam.items()})
+
+
+# bert_tiny with head_dim 64 (hidden 128, 2 heads: the flash route), f32,
+# dropout 0.1 on, padding masks; 3 steps of AdamW(1e-3, weight_decay
+# 0.01), card against CPU from the same weights, and the same salts and
+# seeds (both models draw them from CPU generators seeded alike).
+# Tolerance TRAIN_REF_TOL (1e-4), as for gpt_tiny. The key projections'
+# biases have a gradient of 0 in exact arithmetic (softmax ignores a
+# per-row shift), so Adam moves them by about lr a step in a direction
+# the rounding noise decides: they are held within 3 lr of their start.
+def phase_bert_small_reference():
+    from paddle_tpu_torch.models import BertForPretraining, bert_tiny
+    cfg = bert_tiny(hidden_size=128, num_heads=2)
+    rng = np.random.RandomState(SEED + 10)
+    B, L = 2, 128
+    lengths = rng.randint(96, L + 1, (B,))
+    labels = rng.randint(0, cfg.vocab_size, (B, L))
+    labels[rng.rand(B, L) > 0.15] = -100
+    batch = {"input_ids": rng.randint(1, cfg.vocab_size,
+                                      (B, L)).astype("int32"),
+             "attention_mask": (np.arange(L)[None] < lengths[:, None])
+             .astype("int32"),
+             "mlm_labels": labels.astype("int32"),
+             "nsp_labels": rng.randint(0, 2, (B,)).astype("int64")}
+    state = BertForPretraining(cfg, device="cpu", seed=SEED).state_dict()
+    runs = []
+    for device in ("cuda", "cpu"):
+        tr = _bert_trainer(cfg, device=device, lr=1e-3, acc_dtype=None,
+                           state=state)
+        losses = [float(tr.step(batch)) for _ in range(3)]
+        runs.append((losses, {k: v.detach().cpu() for k, v in
+                              tr.model.state_dict().items()}))
+    (lc, pc), (lh, ph) = runs
+    loss_err = max(abs(a - b) for a, b in zip(lc, lh))
+    param_err = max(float((pc[k] - ph[k]).abs().max()) for k in ph
+                    if not k.endswith("k_proj.bias"))
+    kb_move = max(float((p[k] - state[k]).abs().max()) for p in (pc, ph)
+                  for k in ph if k.endswith("k_proj.bias"))
+    if loss_err > TRAIN_REF_TOL or param_err > TRAIN_REF_TOL or \
+            kb_move > 3 * 1e-3 * 1.01 or not all(np.isfinite(lc)):
+        raise AssertionError(f"bert_tiny training card vs CPU: loss err "
+                             f"{loss_err:.3e}, param err {param_err:.3e} "
+                             f"(tolerance {TRAIN_REF_TOL}), k_proj.bias "
+                             f"moved {kb_move:.3e}")
+    log("bert_small_ref", model="bert_tiny f32 hidden=128 heads=2",
+        dropout=0.1, steps=3, losses_card=[round(x, 6) for x in lc],
+        loss_max_abs_err=f"{loss_err:.3e}",
+        param_max_abs_err=f"{param_err:.3e}",
+        k_proj_bias_max_move=f"{kb_move:.3e}", tolerance=TRAIN_REF_TOL)
+
+
 SERVE_KERNELS = {   # name: (source, TPU kernel it replaces, pool layout)
     "ragged_paged_attention": (
         "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
@@ -1237,6 +1684,15 @@ def main():
     phase_train_split(trainer, batch)
     del trainer, batch
     phase_train_small_reference()
+    torch.cuda.empty_cache()
+    masked_err, ln768_err = phase_bert_kernel_checks(A, LN)
+    bert_timing = phase_bert_kernel_timing(A, LN)
+    torch.cuda.empty_cache()
+    trainer, batch, bert_launches = phase_bert_training(A, LN, X, smi)
+    phase_bert_split(trainer, batch)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    phase_bert_small_reference()
     log("done", total_s=f"{time.perf_counter() - t_start:.1f}")
     serve_launches = {"bf16": launches["kernel"],
                       "int8": quant_launches["int8"]["ragged_paged_attention"],
@@ -1258,6 +1714,19 @@ def main():
                         "launches": train_launches[name],
                         "max_abs_err": train_err[name],
                         **train_timing[name]})
+    for name in A.KERNELS:
+        source, replaces = TRAIN_KERNELS[name]
+        kernels.append({"name": f"{name}[{MASKED}]", "route": "cuda",
+                        "source": source, "replaces": replaces,
+                        "launches": bert_launches[name],
+                        "max_abs_err": masked_err[name],
+                        **bert_timing[f"{name}[{MASKED}]"]})
+    source, replaces = TRAIN_KERNELS["layer_norm"]
+    kernels.append({"name": "layer_norm[h768]", "route": "cuda",
+                    "source": source, "replaces": replaces,
+                    "launches": bert_launches["layer_norm"],
+                    "max_abs_err": ln768_err,
+                    **bert_timing["layer_norm[h768]"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,7 @@ from .. import nn
 from ..device import get_device
 from ..nn import functional as F
 from ..nn.initializer import Normal
+from ..ops.attention import _next_seed
 from ..ops.fused_ops import can_fuse_xent, fused_softmax_cross_entropy
 
 __all__ = ["GPTConfig", "GPT", "GPTBlock", "GPTPretrainingCriterion",
@@ -100,14 +101,18 @@ class GPTBlock(tnn.Module):
         self.fc1 = nn.Linear(h, cfg.ffn_hidden, weight_init=init, **kw)
         self.fc2 = nn.Linear(cfg.ffn_hidden, h, weight_init=out_init, **kw)
 
-    def forward(self, x):
+    def forward(self, x, dropout_seed=None):
+        """`dropout_seed`: the attention dropout's seed, drawn by the
+        caller outside any recompute so the backward's rerun drops the
+        same probabilities."""
         cfg = self.cfg
         B, L = x.shape[0], x.shape[1]
         qkv = self.qkv(self.ln1(x)).reshape(B, L, 3, cfg.num_heads,
                                              cfg.head_dim)
         attn = F.scaled_dot_product_attention(
             qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], is_causal=True,
-            dropout_p=cfg.dropout, training=self.training)
+            dropout_p=cfg.dropout, training=self.training,
+            dropout_seed=dropout_seed)
         x = x + self.proj(attn.reshape(B, L, cfg.hidden_size))
         y = self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate=True))
         return x + y
@@ -152,12 +157,16 @@ class GPT(tnn.Module):
         dev = get_device(device)
         g = torch.Generator(device=dev)
         g.manual_seed(int(seed))
+        # dropout salts and seeds: a CPU generator, so a draw costs no
+        # host sync
+        self._rng = torch.Generator()
+        self._rng.manual_seed(int(seed))
         init = Normal(0.0, cfg.init_std)
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                 weight_init=init, device=dev, generator=g)
         self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size,
                                 weight_init=init, device=dev, generator=g)
-        self.drop = nn.Dropout(cfg.dropout, generator=g)
+        self.drop = nn.Dropout(cfg.dropout, generator=self._rng)
         self.blocks = nn.LayerList(
             [GPTBlock(cfg, device=dev, generator=g)
              for _ in range(cfg.num_layers)])
@@ -171,10 +180,12 @@ class GPT(tnn.Module):
         """One block; under remat 'full' its activations are recomputed
         in the backward instead of stored."""
         cfg = self.cfg
+        seed = (_next_seed(self._rng) if self.training and cfg.dropout
+                else None)
         if cfg.remat and cfg.remat_policy == "full" and \
                 torch.is_grad_enabled():
-            return checkpoint(block, x, use_reentrant=False)
-        return block(x)
+            return checkpoint(block, x, seed, use_reentrant=False)
+        return block(x, seed)
 
     def forward(self, input_ids):
         """input_ids [B, L] -> f32 logits [B, L, V]."""

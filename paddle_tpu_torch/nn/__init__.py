@@ -1,10 +1,13 @@
 """Layers, functionals, initializers and gradient clipping of the GPT
-training path (counterpart of `paddle_tpu/nn`)."""
+and BERT training paths (counterpart of `paddle_tpu/nn`)."""
 from . import functional, initializer
 from .clip import ClipGradByGlobalNorm
-from .initializer import Constant, Normal
+from .initializer import Constant, Normal, XavierUniform
 from .layer import Dropout, Embedding, LayerList, LayerNorm, Linear
+from .transformer import (MultiHeadAttention, TransformerEncoder,
+                          TransformerEncoderLayer)
 
 __all__ = ["functional", "initializer", "ClipGradByGlobalNorm", "Constant",
-           "Normal", "Dropout", "Embedding", "LayerList", "LayerNorm",
-           "Linear"]
+           "Normal", "XavierUniform", "Dropout", "Embedding", "LayerList",
+           "LayerNorm", "Linear", "MultiHeadAttention", "TransformerEncoder",
+           "TransformerEncoderLayer"]

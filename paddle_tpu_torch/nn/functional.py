@@ -1,16 +1,19 @@
-"""Functionals the GPT training path uses (counterparts of
+"""Functionals of the GPT and BERT training paths (counterparts of
 `paddle_tpu/nn/functional`): Paddle's signatures and layouts, PyTorch
 inside. `layer_norm` and `scaled_dot_product_attention` route to the
-port's kernels by the JAX package's own rules."""
+port's kernels by the JAX package's own rules; `dropout` draws its mask
+from the JAX package's counter hash, bit for bit."""
+import numpy as np
 import torch
 import torch.nn.functional as TF
 
-from ..ops.attention import (flash_attention, flash_attention_available,
-                             mha_reference)
+from ..ops.attention import (_K_COL, _K_ROW, _hash32, _mul32, _next_seed,
+                             _rate_thresh, flash_attention,
+                             flash_attention_available, mha_reference)
 from ..ops.layer_norm import fused_layer_norm
 
-__all__ = ["linear", "embedding", "gelu", "dropout", "layer_norm",
-           "scaled_dot_product_attention", "cross_entropy"]
+__all__ = ["linear", "embedding", "gelu", "tanh", "relu", "dropout",
+           "layer_norm", "scaled_dot_product_attention", "cross_entropy"]
 
 
 def linear(x, weight, bias=None):
@@ -23,8 +26,14 @@ def linear(x, weight, bias=None):
     return TF.linear(x, weight.t(), bias)
 
 
-def embedding(x, weight):
-    return TF.embedding(x, weight)
+def embedding(x, weight, padding_idx=None):
+    """Rows of `weight` at the ids `x`. With `padding_idx`, the output is
+    multiplied by (ids != padding_idx) — the JAX semantics, which also
+    zeroes that row's gradient."""
+    out = TF.embedding(x, weight)
+    if padding_idx is not None:
+        out = out * (x != padding_idx)[..., None].to(weight.dtype)
+    return out
 
 
 def gelu(x, approximate=False):
@@ -32,16 +41,44 @@ def gelu(x, approximate=False):
     return TF.gelu(x, approximate="tanh" if approximate else "none")
 
 
+def tanh(x):
+    return torch.tanh(x)
+
+
+def relu(x):
+    return torch.relu(x)
+
+
+def _hash_keep(salt, shape, p, device=None):
+    """Counter-hash bernoulli(1 - p) of `shape` for one 31-bit `salt`
+    (the JAX `_hash_keep` after its salt draw): keep element i iff
+    h32((i * 0x9E3779B1) ^ (salt * 0x85EBCA77)) >= min(int(p * 2^32),
+    2^32 - 1), all mod 2^32."""
+    n = int(np.prod(shape, dtype=np.int64))
+    idx = _mul32(torch.arange(n, dtype=torch.int64, device=device), _K_ROW)
+    h = _hash32(idx ^ ((int(salt) * _K_COL) & 0xFFFFFFFF))
+    return (h >= _rate_thresh(p)).reshape(shape)
+
+
+def _draw_salt(generator=None):
+    """One dropout salt in [0, 2^31 - 1) from a CPU generator (the JAX
+    `_hash_keep`'s `randint(key, (), 0, 2**31 - 1)`)."""
+    return int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+
+
 def dropout(x, p=0.5, training=True, generator=None):
-    """Paddle's upscale-in-train dropout: keep with probability 1 - p and
-    scale the kept values by 1 / (1 - p); the mask is drawn from
-    `generator`."""
+    """Paddle's upscale-in-train dropout with the JAX package's mask:
+    a salt in [0, 2^31 - 1) drawn per call from the CPU `generator`
+    (None: torch's default CPU generator), `_hash_keep(salt, x.shape,
+    p)`, then where(keep, x / (1 - p), 0) — divide, then select."""
     if not training or p == 0.0:
         return x
-    if p >= 1.0:
-        return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return x * keep.to(x.dtype) / (1.0 - p)
+    salt = _draw_salt(generator)
+    # a named range, so a profile can price the hash ops
+    with torch.profiler.record_function("dropout_hash"):
+        keep = _hash_keep(salt, x.shape, p, x.device)
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
@@ -67,19 +104,23 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True):
-    """[B, L, H, D] attention. Takes the flash kernel where the JAX
-    package does (head_dim 64, 128 or 256), else `mha_reference`. Masks
-    and attention dropout are not ported yet and raise."""
+                                 training=True, dropout_seed=None,
+                                 generator=None):
+    """[B, L, H, D] attention with an additive or boolean `attn_mask` and
+    dropout on the probabilities (the JAX routing): the flash kernel
+    where the JAX package takes it (head_dim 64, 128 or 256), else
+    `mha_reference`. The dropout seed, unless given, is drawn in
+    [0, 2^24) from the CPU `generator` (the JAX `_next_seed`)."""
     rate = float(dropout_p or 0.0) if training else 0.0
+    if rate and dropout_seed is None:
+        dropout_seed = _next_seed(generator)
     if flash_attention_available(query, attn_mask, rate):
         return flash_attention(query, key, value, causal=is_causal,
-                               attn_mask=attn_mask, dropout_p=rate)
-    if attn_mask is not None or rate > 0.0:
-        raise NotImplementedError(
-            "scaled_dot_product_attention: masks and dropout are not "
-            "ported yet (ROADMAP queue 2)")
-    return mha_reference(query, key, value, causal=is_causal)
+                               attn_mask=attn_mask, dropout_rate=rate,
+                               dropout_seed=dropout_seed)
+    return mha_reference(query, key, value, causal=is_causal,
+                         attn_mask=attn_mask, dropout_rate=rate,
+                         dropout_seed=dropout_seed or 0)
 
 
 def cross_entropy(input, label, ignore_index=-100):

@@ -115,11 +115,20 @@ def test_plain_matches_mha_reference():
 
 
 def test_masks_and_dropout_raise_on_kernel_route():
+    """Masks and dropout are ported (test_torch_flash_masked.py); what
+    the kernel route cannot take raises before any launch: a mask that
+    does not broadcast to [B, H, Lq, Lk], a drop rate outside [0, 1),
+    and two biases at once."""
     q = torch.zeros(1, 128, 2, 64)
-    with pytest.raises(NotImplementedError):
-        A.flash_attention(q, q, q, attn_mask=torch.zeros(128, 128))
-    with pytest.raises(NotImplementedError):
-        A.flash_attention(q, q, q, dropout_p=0.1)
+    with pytest.raises(ValueError):
+        A.flash_attention(q, q, q, attn_mask=torch.zeros(3, 1, 1, 128))
+    with pytest.raises(ValueError):
+        A.flash_attention(q, q, q, attn_mask=torch.zeros(64, 128))
+    with pytest.raises(ValueError):
+        A.flash_attention(q, q, q, dropout_rate=1.0)
+    ex = A._Extras(kvb=torch.zeros(1, 128), fb=torch.zeros(1, 1, 128, 128))
+    with pytest.raises(ValueError):
+        A._check_extras(ex, A._check(q, q, q), q.device)
 
 
 @pytest.mark.parametrize("bad,err", [
