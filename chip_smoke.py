@@ -24,7 +24,13 @@ at BERT's shape; trains bert_base (MLM + NSP, full width and depth,
 bf16, batch 32 x 512 with padding masks, dropout 0.1, AdamW, bench.py's
 recipe) for 2 warm-up and 8 timed steps, counts launches by kernel and
 branch, splits one profiled step by family, and checks a small BERT's
-training with dropout on against the port's CPU path. Every phase
+training with dropout on against the port's CPU path. Both training
+paths update every parameter with one launch of the fused AdamW kernel
+a step; that kernel (in eight variants of dtypes, master copy and clip
+scale), the RMSNorm kernel and the dropout + residual + LayerNorm kernel
+are held against their plain versions and timed at full width, and the
+two norm ops are driven through their entry points (nn.RMSNorm forward
+and backward, the dropout op in training and eval). Every phase
 raises on failure. The output
 is one line per phase, then one JSON line with the kernels' numbers, the
 card's name and power limit, and as the last line
@@ -871,9 +877,9 @@ def phase_train_kernel_checks(A, LN, X):
     return err
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, peak=H100_BF16_FLOPS):
     bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / H100_BF16_FLOPS * 1e3
+    ops_ms = flops / peak * 1e3
     return max((bytes_ms, "bytes"), (ops_ms, "operations"))
 
 
@@ -987,16 +993,24 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 # a training step of gpt_1p3b under remat 'full' launches: 24 attention
 # forwards + 24 recomputed, one dQ and one dK/dV per layer, 2 LayerNorms
 # per block twice + ln_f, one cross-entropy forward and backward
+# per step, and one AdamW update per parameter (`adamw` is set to
+# len(trainer.params) by the phase); the norm kernels of slice 5 run on
+# neither training path
 EXPECTED_PER_STEP = {"flash_fwd": 48, "flash_bwd_dq": 24,
-                     "flash_bwd_dkv": 24, "layer_norm": 97, "xent_fwd": 1,
-                     "xent_bwd": 1}
+                     "flash_bwd_dkv": 24, "layer_norm": 97, "rms_norm": 0,
+                     "xent_fwd": 1, "xent_bwd": 1,
+                     "dropout_residual_layer_norm": 0}
 
 
 def _train_counts(A, LN, X):
     k = {**A.kernel_launches, "layer_norm": LN.kernel_launches,
-         **X.kernel_launches}
+         "rms_norm": LN.rms_kernel_launches, **X.kernel_launches,
+         "adamw": X.adamw_kernel_launches,
+         "dropout_residual_layer_norm": X.drln_kernel_launches}
     p = {**A.plain_launches, "layer_norm": LN.plain_launches,
-         **X.plain_launches}
+         "rms_norm": LN.rms_plain_launches, **X.plain_launches,
+         "adamw": X.adamw_plain_launches,
+         "dropout_residual_layer_norm": X.drln_plain_launches}
     return k, p
 
 
@@ -1063,9 +1077,10 @@ def phase_training(A, LN, X, smi):
         raise AssertionError(f"training losses not finite and falling: "
                              f"{losses}")
     per_step = {k: v / TRAIN_STEPS for k, v in kern.items()}
-    if per_step != EXPECTED_PER_STEP or any(plain.values()):
+    expected = {**EXPECTED_PER_STEP, "adamw": len(trainer.params)}
+    if per_step != expected or any(plain.values()):
         raise AssertionError(f"launches a step {per_step} (expected "
-                             f"{EXPECTED_PER_STEP}), plain {plain}")
+                             f"{expected}), plain {plain}")
     step_ms = wall / TRAIN_STEPS * 1e3
     tok_s = TB * TL / (step_ms / 1e3)
     mfu = 6 * cfg.num_params() * tok_s / H100_BF16_FLOPS
@@ -1086,6 +1101,7 @@ def phase_training(A, LN, X, smi):
 _FAMILIES = (("flash_attention", ("flash_fwd", "flash_dq", "flash_dkv")),
              ("layer_norm", ("layer_norm_kernel",)),
              ("xent", ("xent_fwd", "xent_bwd")),
+             ("adamw", ("adamw_kernel",)),
              ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")))
 
 
@@ -1402,7 +1418,8 @@ def phase_bert_kernel_timing(A, LN):
 # block, so the criterion takes F.cross_entropy, not the xent kernels
 BERT_EXPECTED_PER_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12,
                           "flash_bwd_dkv": 12, "layer_norm": 26,
-                          "xent_fwd": 0, "xent_bwd": 0}
+                          "rms_norm": 0, "xent_fwd": 0, "xent_bwd": 0,
+                          "dropout_residual_layer_norm": 0}
 
 
 def _bert_batch(cfg, seed=0):
@@ -1474,11 +1491,12 @@ def phase_bert_training(A, LN, X, smi):
     if not all(np.isfinite(losses)):
         raise AssertionError(f"bert_base losses not finite: {losses}")
     per_step = {k: v / TRAIN_STEPS for k, v in kern.items()}
+    expected = {**BERT_EXPECTED_PER_STEP, "adamw": len(trainer.params)}
     masked = {k: branches.get(f"{k}[{MASKED}]", 0) for k in A.KERNELS}
-    if per_step != BERT_EXPECTED_PER_STEP or any(plain.values()) or \
+    if per_step != expected or any(plain.values()) or \
             masked != {k: kern[k] for k in A.KERNELS}:
         raise AssertionError(f"launches a step {per_step} (expected "
-                             f"{BERT_EXPECTED_PER_STEP}), by branch "
+                             f"{expected}), by branch "
                              f"{branches}, plain {plain}")
     step_ms = wall / TRAIN_STEPS * 1e3
     seqs_s = BB / (step_ms / 1e3)
@@ -1540,6 +1558,7 @@ def phase_bert_split(trainer, batch):
     fam = dict.fromkeys(_BERT_FAMILIES, 0.0)
     named = {"flash_attention": ("flash_fwd", "flash_dq", "flash_dkv"),
              "layer_norm": ("layer_norm_kernel",),
+             "optimizer": ("adamw_kernel",),
              "cublas": ("gemm", "nvjet", "cutlass", "xmma", "cublas")}
 
     def by_name(name):
@@ -1624,6 +1643,276 @@ def phase_bert_small_reference():
         k_proj_bias_max_move=f"{kb_move:.3e}", tolerance=TRAIN_REF_TOL)
 
 
+# ---------------------------------------------------------------- phase 9
+
+# The AdamW update at one gpt_1p3b fc1 weight [2048, 8192] (16.8M
+# elements) with the GPT recipe's hyper-parameters (lr 2e-4, wd 0.1) at
+# step 10; RMSNorm and dropout + residual + LayerNorm at the GPT width
+# ([8192, 2048]) and the BERT width ([16384, 768]).
+ADAMW_SHAPE = (THID, 4 * THID)
+ADAMW_HYPER = (2e-4, 0.9, 0.999, 1e-8, 0.1)       # lr, b1, b2, eps, wd
+ADAMW_STEP = 10
+NORM_SHAPES = ((TN, THID), (BB * BL, BHID))
+RMS_EPS, DRLN_RATE, DRLN_SEED = 1e-6, 0.1, 1234
+# AdamW variants: (name, p dtype, g dtype, slot dtype, f32 master, clip)
+_F32, _BF16 = torch.float32, torch.bfloat16
+ADAMW_CASES = [(f"{name}{'+clip' if clip else ''}", pd, gd, sd, ma, clip)
+               for name, pd, gd, sd, ma in (
+                   ("bf16", _BF16, _BF16, _BF16, False),
+                   ("f32", _F32, _F32, _F32, False),
+                   ("bf16+master", _BF16, _BF16, _F32, True),
+                   ("f32_grad+bf16", _BF16, _F32, _BF16, False))
+               for clip in (False, True)]
+
+
+def _adamw_bc(step):
+    """AdamW's f32 bias corrections (the port's optimizer's rule)."""
+    b1, b2 = ADAMW_HYPER[1:3]
+    return tuple(float(np.float32(1) - np.float32(b) ** np.float32(step))
+                 for b in (b1, b2))
+
+
+def _adamw_close(name, got, plain32, before=None):
+    """f32: within 1e-6 relative to |p'| + |p' - p| (the new value and,
+    for a parameter given its value `before`, the step it took: the last
+    subtraction rounds relative to both); bf16: within one bf16 ulp of the
+    plain version's f32 value."""
+    if got.dtype == torch.float32:
+        err = (got - plain32).abs()
+        bound = 1e-6 * plain32.abs()
+        if before is not None:
+            bound += 1e-6 * (plain32 - before.float()).abs()
+    else:
+        err = (got.float() - plain32).abs()
+        bound = bf16_ulp(plain32)
+    if not bool((err <= bound).all()) or not torch.isfinite(got).all():
+        raise AssertionError(f"adamw {name}: off by {float(err.max()):.3e}")
+    return float((got.float() - plain32.to(got.dtype).float()).abs().max())
+
+
+def _adamw_tensors(gen, pd, gd, sd, master, clip):
+    """A state as Adam leaves it: p ~ N(0, 0.02), g ~ N(0, 1e-3), m ~
+    N(0, 1e-4), v = 4 m^2 + N(0, 1e-4)^2 (so |m| < sqrt(v) and the step
+    is about lr at most), the master p in f32, clip scale 0.37."""
+    p32 = _rand(gen, ADAMW_SHAPE, _F32, 0.02)
+    m = _rand(gen, ADAMW_SHAPE, _F32, 1e-4)
+    v = 4 * m.square() + _rand(gen, ADAMW_SHAPE, _F32, 1e-4).square()
+    return (p32.to(pd), _rand(gen, ADAMW_SHAPE, gd, 1e-3), m.to(sd),
+            v.to(sd), p32.clone() if master else None,
+            torch.full((), 0.37, device="cuda") if clip else None)
+
+
+def phase_slice5_kernel_checks(LN, X):
+    """The AdamW kernel in every variant against its plain version (one
+    update, in place, compared with the plain f32 results); the RMSNorm
+    kernel and the dropout + residual + LayerNorm kernel against theirs
+    in f32 and bf16 at both widths, the latter with its keep-mask equal to
+    the plain hash mask, its kept fraction near 1 - p, and caller bits
+    equal to its own hash giving bit-equal outputs."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    err = dict.fromkeys(("adamw", "rms_norm", "dropout_residual_layer_norm"),
+                        0.0)
+    bc = _adamw_bc(ADAMW_STEP)
+    for name, pd, gd, sd, master, clip in ADAMW_CASES:
+        p, g, m, v, ms, scale = _adamw_tensors(gen, pd, gd, sd, master,
+                                               clip)
+        before = (ms if master else p).clone()
+        pp, pm, pv = X._adamw_kernel_ref(before, g, m, v, *ADAMW_HYPER,
+                                         *bc, scale=scale)
+        X._adamw_launch(p, g, m, v, ms, scale, (*ADAMW_HYPER, *bc))
+        e = max(_adamw_close(name, p, pp, before),
+                _adamw_close(name, m, pm), _adamw_close(name, v, pv))
+        if master:
+            e = max(e, _adamw_close(name, ms, pp, before))
+        err["adamw"] = max(err["adamw"], e)
+        log("kernel", form=f"adamw {list(ADAMW_SHAPE)} {name}",
+            p=str(pd)[6:], g=str(gd)[6:], slots=str(sd)[6:],
+            max_err=f"{e:.3e}")
+        del p, g, m, v, ms, before, pp, pm, pv
+    for dtype in (_F32, _BF16):
+        for n, h in NORM_SHAPES:
+            x = _rand(gen, (n, h), dtype, 2.0)
+            w = _rand(gen, (h,), dtype)
+            plain32 = LN._rms_kernel_ref(x.float(), w.float(), RMS_EPS)
+            e = _check_close("rms_norm", LN._rms_launch(x, w, RMS_EPS),
+                             plain32.to(dtype), plain32)
+            err["rms_norm"] = max(err["rms_norm"], e)
+            r = _rand(gen, (n, h), dtype)
+            b = _rand(gen, (h,), dtype)
+            out, hv = X._drln_launch(x, r, w, b, DRLN_RATE, 1e-5, DRLN_SEED,
+                                     None)
+            o32, h32 = X._dropout_res_ln_kernel_ref(
+                x.float(), r.float(), w.float(), b.float(), DRLN_RATE, 1e-5,
+                DRLN_SEED)
+            e2 = max(_check_close("drln out", out, o32.to(dtype), o32),
+                     _check_close("drln h", hv, h32.to(dtype), h32))
+            err["dropout_residual_layer_norm"] = max(
+                err["dropout_residual_layer_norm"], e2)
+            # the keep-mask: with x != 0 and r = 0, h != 0 exactly where kept
+            _, hk = X._drln_launch(x.abs() + 1, torch.zeros_like(r), w, b,
+                                   DRLN_RATE, 1e-5, DRLN_SEED, None)
+            bits = X._hash_bits(DRLN_SEED, (n, h), "cuda")
+            keep = bits <= X._keep_thresh(DRLN_RATE)
+            if not torch.equal(hk != 0, keep):
+                raise AssertionError("dropout_residual_layer_norm: keep-mask"
+                                     " differs from the plain hash mask")
+            kept = float(keep.float().mean())
+            if abs(kept - (1 - DRLN_RATE)) > KEEP_FRACTION_TOL:
+                raise AssertionError(f"kept fraction {kept}")
+            # the caller's bits (the same hash, as int32) give the same
+            # outputs, bit for bit
+            host = torch.where(bits >= 2 ** 31, bits - 2 ** 32,
+                               bits).to(torch.int32)
+            out2, hv2 = X._drln_launch(x, r, w, b, DRLN_RATE, 1e-5, 0, host)
+            if not (torch.equal(out, out2) and torch.equal(hv, hv2)):
+                raise AssertionError("dropout_residual_layer_norm: host bits"
+                                     " and in-kernel bits disagree")
+            log("kernel", form=f"rms_norm + dropout_residual_layer_norm "
+                f"[{n}, {h}] p={DRLN_RATE}", dtype=str(dtype)[6:],
+                rms_err=f"{e:.3e}", drln_err=f"{e2:.3e}", keep_mask="equal",
+                kept=f"{kept:.6f}", host_bits="equal")
+            del x, r, out, hv, hk, o32, h32, bits, keep, host, out2, hv2
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_slice5_kernel_timing(LN, X):
+    """The three kernels at the main paths' shapes (bf16), beside their
+    plain versions and one PyTorch call computing the same function
+    (never called by the port): `torch._fused_adamw_` on the same
+    tensors (without the clip scale), `F.rms_norm`; no single PyTorch
+    call computes dropout + residual + LayerNorm and the pre-LN sum.
+    Bounds: each input read once and each output written once over 3.35
+    TB/s, or the f32 flops over 67 TFLOP/s, the larger. The JSON rows
+    take the GPT width for RMSNorm and the BERT width for the dropout
+    op, the shapes of the norm entry-point phase."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    out = {}
+    bc = _adamw_bc(ADAMW_STEP)
+    p, g, m, v, _, scale = _adamw_tensors(gen, _BF16, _BF16, _BF16, False,
+                                          True)
+    lr, b1, b2, eps, wd = ADAMW_HYPER
+    steps = torch.full((), float(ADAMW_STEP), device="cuda")
+
+    def plain(i=0):
+        pp, pm, pv = X._adamw_kernel_ref(p, g, m, v, *ADAMW_HYPER, *bc,
+                                         scale=scale)
+        p.copy_(pp)
+        m.copy_(pm)
+        v.copy_(pv)
+
+    numel = p.numel()
+    specs = {"adamw": (
+        lambda i=0: X._adamw_launch(p, g, m, v, None, scale,
+                                    (*ADAMW_HYPER, *bc)),
+        plain,
+        lambda i=0: torch._fused_adamw_(
+            [p], [g], [m], [v], [], [steps], lr=lr, beta1=b1, beta2=b2,
+            weight_decay=wd, eps=eps, amsgrad=False, maximize=False),
+        14 * numel + 4, 16 * numel, f"{list(ADAMW_SHAPE)} bf16 p/g/m/v, "
+        f"clip scale")}
+    for n, h in NORM_SHAPES:
+        x = _rand(gen, (n, h), _BF16, 2.0)
+        w, b = _rand(gen, (h,), _BF16), _rand(gen, (h,), _BF16)
+        r = _rand(gen, (n, h), _BF16)
+        specs[f"rms_norm[{n}x{h}]"] = (
+            lambda i=0, x=x, w=w: LN._rms_launch(x, w, RMS_EPS),
+            lambda i=0, x=x, w=w: LN._rms_kernel_ref(x, w, RMS_EPS),
+            lambda i=0, x=x, w=w, h=h: torch.nn.functional.rms_norm(
+                x, (h,), w, RMS_EPS),
+            4 * n * h + 2 * h, 4 * n * h, f"[{n}, {h}] bf16")
+        specs[f"dropout_residual_layer_norm[{n}x{h}]"] = (
+            lambda i=0, x=x, r=r, w=w, b=b: X._drln_launch(
+                x, r, w, b, DRLN_RATE, 1e-5, DRLN_SEED, None),
+            lambda i=0, x=x, r=r, w=w, b=b: X._dropout_res_ln_kernel_ref(
+                x, r, w, b, DRLN_RATE, 1e-5, DRLN_SEED),
+            None, 8 * n * h + 4 * h, 15 * n * h,
+            f"[{n}, {h}] bf16 p={DRLN_RATE}, in-kernel hash bits")
+    bits = torch.zeros(NORM_SHAPES[1], dtype=torch.int32, device="cuda")
+    x, r = (_rand(gen, NORM_SHAPES[1], _BF16) for _ in range(2))
+    w, b = (_rand(gen, NORM_SHAPES[1][1:], _BF16) for _ in range(2))
+    n, h = NORM_SHAPES[1]
+    specs[f"dropout_residual_layer_norm[{n}x{h}, host bits]"] = (
+        lambda i=0: X._drln_launch(x, r, w, b, DRLN_RATE, 1e-5, 0, bits),
+        lambda i=0: X._dropout_res_ln_kernel_ref(x, r, w, b, DRLN_RATE,
+                                                 1e-5, 0, bits),
+        None, 12 * n * h + 4 * h, 15 * n * h,
+        f"[{n}, {h}] bf16 p={DRLN_RATE}, caller's int32 bits")
+    for name, (kern, plain_fn, library, nbytes, flops, form) in \
+            specs.items():
+        ms = cuda_ms(kern, 20)
+        plain_ms = cuda_ms(plain_fn, 3)
+        library_ms = cuda_ms(library, 20) if library else None
+        bound_ms, bound_by = _bound(nbytes, flops, H100_F32_FLOPS)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms}
+        log("kernel_time", kernel=name, form=repr(form), ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}",
+            library_ms="none (no single PyTorch call)" if library is None
+            else f"{library_ms:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            achieved_GBps=f"{nbytes / ms / 1e6:.1f}")
+    return out
+
+
+def phase_norm_entry_points(LN, X):
+    """The two norm ops through the entry points a user calls, at full
+    width on the card: nn.RMSNorm(2048) forward and backward on [8, 1024,
+    2048] bf16, its output held against the kernel's plain version and
+    its input and weight gradients against autograd of the plain
+    `_rms_ref`; fused_dropout_residual_layer_norm at [16384, 768] bf16, p
+    0.1, in training and in eval, each held against its plain version.
+    Counts are read over the entry-point calls alone."""
+    from paddle_tpu_torch import nn
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    layer = nn.RMSNorm(THID)
+    x = _rand(gen, (TB, TL, THID), _BF16, 2.0).requires_grad_()
+    dy = _rand(gen, (TB, TL, THID), _BF16)
+    n, h = NORM_SHAPES[1]
+    xd, rd = _rand(gen, (n, h), _BF16), _rand(gen, (n, h), _BF16)
+    wd, bd = _rand(gen, (h,), _BF16), _rand(gen, (h,), _BF16)
+    torch.cuda.synchronize()
+    LN.reset_counts()
+    X.reset_counts()
+    y = layer(x)
+    y.backward(dy)
+    train = X.fused_dropout_residual_layer_norm(xd, rd, wd, bd, p=DRLN_RATE,
+                                                seed=DRLN_SEED)
+    evl = X.fused_dropout_residual_layer_norm(xd, rd, wd, bd, p=DRLN_RATE,
+                                              seed=DRLN_SEED,
+                                              training=False)
+    torch.cuda.synchronize()
+    launches = {"rms_norm": LN.rms_kernel_launches,
+                "dropout_residual_layer_norm": X.drln_kernel_launches}
+    plain = LN.rms_plain_launches + X.drln_plain_launches
+    if launches != {"rms_norm": 1, "dropout_residual_layer_norm": 2} or \
+            plain:
+        raise AssertionError(f"norm entry points launched {launches}, "
+                             f"plain {plain}")
+    w32 = layer.weight.detach()
+    y32 = LN._rms_kernel_ref(x.detach().float(), w32, RMS_EPS)
+    err = _check_close("RMSNorm", y.detach(), y32.to(_BF16), y32)
+    with torch.enable_grad():
+        xs, ws = x.detach().requires_grad_(), w32.clone().requires_grad_()
+        dx, dw = torch.autograd.grad(LN._rms_ref(xs, ws, RMS_EPS), (xs, ws),
+                                     dy)
+    gerr = max(_check_close("RMSNorm dx", x.grad, dx, dx.float()),
+               _check_close("RMSNorm dw", layer.weight.grad, dw, dw))
+    derr = 0.0
+    for (out, hv), rate in ((train, DRLN_RATE), (evl, 0.0)):
+        o32, h32 = X._dropout_res_ln_kernel_ref(
+            xd.float(), rd.float(), wd.float(), bd.float(), rate, 1e-5,
+            DRLN_SEED)
+        derr = max(derr, _check_close("drln out", out, o32.to(_BF16), o32),
+                   _check_close("drln h", hv, h32.to(_BF16), h32))
+    log("norm_entry", rms_norm=f"nn.RMSNorm({THID}) [{TB}, {TL}, {THID}] "
+        "bf16 fwd+bwd", rms_fwd_err=f"{err:.3e}", rms_grad_err=f"{gerr:.3e}",
+        drln=f"[{n}, {h}] bf16 p={DRLN_RATE} train+eval",
+        drln_err=f"{derr:.3e}",
+        **{f"{k}_launches": v for k, v in launches.items()}, plain=plain)
+    return launches
+
+
 SERVE_KERNELS = {   # name: (source, TPU kernel it replaces, pool layout)
     "ragged_paged_attention": (
         "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
@@ -1677,6 +1966,10 @@ def main():
     del sd
     torch.cuda.empty_cache()
     phase_small_reference()
+    slice5_err = phase_slice5_kernel_checks(LN, X)
+    slice5_timing = phase_slice5_kernel_timing(LN, X)
+    norm_launches = phase_norm_entry_points(LN, X)
+    torch.cuda.empty_cache()
     train_err = phase_train_kernel_checks(A, LN, X)
     train_timing = phase_train_kernel_timing(A, LN, X)
     trainer, batch, train_launches = phase_training(A, LN, X, smi)
@@ -1727,6 +2020,20 @@ def main():
                     "launches": bert_launches["layer_norm"],
                     "max_abs_err": ln768_err,
                     **bert_timing["layer_norm[h768]"]})
+    for name, source, replaces, launches, timing in (
+            ("adamw", "adamw.cu", "fused_ops.py:215",
+             train_launches["adamw"] + bert_launches["adamw"], "adamw"),
+            ("rms_norm", "layer_norm.cu", "layer_norm.py:29",
+             norm_launches["rms_norm"], f"rms_norm[{TN}x{THID}]"),
+            ("dropout_residual_layer_norm", "dropout_residual_layer_norm.cu",
+             "fused_ops.py:288", norm_launches["dropout_residual_layer_norm"],
+             f"dropout_residual_layer_norm[{BB * BL}x{BHID}]")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"paddle_tpu_torch/ops/csrc/{source}",
+                        "replaces": f"paddle_tpu/ops/{replaces}",
+                        "launches": launches,
+                        "max_abs_err": slice5_err[name],
+                        **slice5_timing[timing]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

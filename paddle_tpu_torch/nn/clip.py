@@ -14,7 +14,10 @@ class ClipGradByGlobalNorm:
         self.clip_norm = float(clip_norm)
 
     def scale(self, grads):
-        """The f32 scale factor (a 0-d tensor) for these gradients."""
+        """The f32 scale factor (a 0-d tensor, on the gradients' device)
+        for these gradients. `AdamW` passes it to its fused update, which
+        scales and rounds each gradient as `__call__` does, without this
+        pass over every gradient and without fetching the scale."""
         sq = sum(g.float().square().sum() for g in grads)
         norm = torch.sqrt(sq)
         return torch.clamp(self.clip_norm / torch.clamp(norm, min=1e-12),

@@ -1,19 +1,19 @@
 """Functionals of the GPT and BERT training paths (counterparts of
 `paddle_tpu/nn/functional`): Paddle's signatures and layouts, PyTorch
-inside. `layer_norm` and `scaled_dot_product_attention` route to the
-port's kernels by the JAX package's own rules; `dropout` draws its mask
-from the JAX package's counter hash, bit for bit."""
-import numpy as np
+inside. `layer_norm`, `rms_norm` and `scaled_dot_product_attention`
+route to the port's kernels by the JAX package's own rules; `dropout`
+draws its mask from the JAX package's counter hash, bit for bit."""
 import torch
 import torch.nn.functional as TF
 
-from ..ops.attention import (_K_COL, _K_ROW, _hash32, _mul32, _next_seed,
-                             _rate_thresh, flash_attention,
+from ..ops.attention import (_next_seed, _rate_thresh, flash_attention,
                              flash_attention_available, mha_reference)
-from ..ops.layer_norm import fused_layer_norm
+from ..ops.fused_ops import _hash_bits
+from ..ops.layer_norm import fused_layer_norm, fused_rms_norm
 
 __all__ = ["linear", "embedding", "gelu", "tanh", "relu", "dropout",
-           "layer_norm", "scaled_dot_product_attention", "cross_entropy"]
+           "layer_norm", "rms_norm", "scaled_dot_product_attention",
+           "cross_entropy"]
 
 
 def linear(x, weight, bias=None):
@@ -54,10 +54,7 @@ def _hash_keep(salt, shape, p, device=None):
     (the JAX `_hash_keep` after its salt draw): keep element i iff
     h32((i * 0x9E3779B1) ^ (salt * 0x85EBCA77)) >= min(int(p * 2^32),
     2^32 - 1), all mod 2^32."""
-    n = int(np.prod(shape, dtype=np.int64))
-    idx = _mul32(torch.arange(n, dtype=torch.int64, device=device), _K_ROW)
-    h = _hash32(idx ^ ((int(salt) * _K_COL) & 0xFFFFFFFF))
-    return (h >= _rate_thresh(p)).reshape(shape)
+    return _hash_bits(salt, shape, device) >= _rate_thresh(p)
 
 
 def _draw_salt(generator=None):
@@ -100,6 +97,17 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     if bias is not None:
         out = out + bias.to(x.dtype)
     return out
+
+
+def rms_norm(x, weight=None, epsilon=1e-6):
+    """RMSNorm over the last axis. With a weight, `ops.layer_norm.
+    fused_rms_norm` (as the JAX `F.rms_norm` takes its Pallas op);
+    without one, the plain form: f32 mean of squares, then the cast."""
+    if weight is not None:
+        return fused_rms_norm(x, weight, eps=epsilon)
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + epsilon)).to(x.dtype)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

@@ -13,7 +13,8 @@ from ..device import get_device
 from . import functional as F
 from .initializer import Constant, Normal, XavierUniform
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "LayerList"]
+__all__ = ["Linear", "Embedding", "LayerNorm", "RMSNorm", "Dropout",
+           "LayerList"]
 
 
 def _param(shape, init, device, generator):
@@ -86,6 +87,20 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x, self._shape, self.weight, self.bias,
                             self._epsilon)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm over the last axis (`F.rms_norm`) with a weight [hidden]
+    that starts at 1."""
+
+    def __init__(self, hidden_size, epsilon=1e-6, device=None):
+        super().__init__()
+        self._epsilon = epsilon
+        self.weight = _param((hidden_size,), Constant(1.0),
+                             get_device(device), None)
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self._epsilon)
 
 
 class Dropout(nn.Module):

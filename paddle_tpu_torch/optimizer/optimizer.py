@@ -2,15 +2,28 @@
 
 The update follows the JAX `Optimizer.apply_gradients_pytree`: the step
 count starts at 1; the gradient clip runs first, over all gradients;
-each parameter's update is computed in f32 from `p.float()` (or from its
-f32 `master` copy when `multi_precision` is set and the parameter is
+each parameter's update is computed in f32 from the parameter (or from
+its f32 `master` copy when `multi_precision` is set and the parameter is
 bf16/fp16); moment slots are stored in `accumulator_dtype` (default
-f32); AdamW's decay is decoupled (`new_p -= lr * wd * p`); the result is
-cast back to the parameter's dtype and written in place. The learning
-rate is a constant (schedulers are not ported).
+f32); the result is cast back to the parameter's dtype and written in
+place. The learning rate is a constant (schedulers are not ported).
+
+`AdamW` makes one call of `ops.fused_ops.adamw_update_` per parameter:
+on the card, one launch of the hand-written AdamW kernel, which reads
+and writes p, m, v (and the master) in place and folds in the
+global-norm clip's scale, read on the card, so the clip no longer
+rewrites every gradient; on the CPU, the kernel's plain version, the
+same arithmetic. It differs from the JAX `AdamW` rule only in rounding:
+the decoupled decay sits inside the update's bracket, `p - lr *
+(mhat / (sqrt(vhat) + eps) + wd * p)`, as in the JAX `fused_adamw`
+kernel, not in a second subtraction. `Adam` (L2 decay added to the
+gradient, which the kernel has no term for) keeps the eager per-tensor
+f32 rule of `Optimizer.apply_gradients`.
 """
 import numpy as np
 import torch
+
+from ..ops.fused_ops import adamw_update_
 
 __all__ = ["Optimizer", "Adam", "AdamW"]
 
@@ -65,13 +78,11 @@ class Optimizer:
         """(new_p, new_slots) from f32 p, g and slots."""
         raise NotImplementedError
 
-    def _decoupled_wd(self):
-        return False
-
     @torch.no_grad()
     def apply_gradients(self, params, grads, lr=None):
         """One update of `params` (in place) from `grads`, in the same
-        order."""
+        order, eagerly in f32; weight decay is L2 (added to the
+        gradient)."""
         lr = self.get_lr() if lr is None else float(lr)
         self._step_count += 1
         step = self._step_count
@@ -83,12 +94,10 @@ class Optimizer:
             master = slots.get("master")
             pv = master if master is not None else p.float()
             gv = g.float()
-            if self._wd and not self._decoupled_wd():
+            if self._wd:
                 gv = gv + self._wd * pv
             f32 = {n: slots[n].float() for n in self._slot_names}
             new_p, new_slots = self._update_rule(pv, gv, f32, lr, step)
-            if self._wd and self._decoupled_wd():
-                new_p = new_p - lr * self._wd * pv
             for n, v in new_slots.items():
                 slots[n] = v.to(slots[n].dtype)
             if master is not None:
@@ -107,14 +116,17 @@ class Adam(Optimizer):
                          multi_precision, accumulator_dtype)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
+    def _bias_corrections(self, step):
+        """1 - beta^step in f32, as the JAX rule raises f32 betas to an
+        f32 step."""
+        return tuple(float(np.float32(1) - np.float32(b) ** np.float32(step))
+                     for b in (self._beta1, self._beta2))
+
     def _update_rule(self, p, g, slots, lr, step):
         b1, b2 = self._beta1, self._beta2
         m = b1 * slots["moment1"] + (1 - b1) * g
         v = b2 * slots["moment2"] + (1 - b2) * g.square()
-        # bias corrections in f32, as the JAX rule raises f32 betas to an
-        # f32 step
-        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(step))
-        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(step))
+        bc1, bc2 = self._bias_corrections(step)
         new_p = p - lr * (m / bc1) / (torch.sqrt(v / bc2) + self._epsilon)
         return new_p, {"moment1": m, "moment2": v}
 
@@ -128,5 +140,18 @@ class AdamW(Adam):
                          weight_decay, grad_clip, multi_precision,
                          accumulator_dtype)
 
-    def _decoupled_wd(self):
-        return True
+    @torch.no_grad()
+    def apply_gradients(self, params, grads, lr=None):
+        """One update of `params` (in place) from `grads`: the clip's
+        scale, then one fused AdamW update per parameter."""
+        lr = self.get_lr() if lr is None else float(lr)
+        self._step_count += 1
+        params, grads = list(params), list(grads)
+        scale = (self._grad_clip.scale(grads)
+                 if self._grad_clip is not None and grads else None)
+        bc1, bc2 = self._bias_corrections(self._step_count)
+        for p, g in zip(params, grads):
+            slots = self._slots(p)
+            adamw_update_(p, g, slots["moment1"], slots["moment2"], lr,
+                          self._beta1, self._beta2, self._epsilon, self._wd,
+                          bc1, bc2, master=slots.get("master"), scale=scale)
