@@ -30,8 +30,14 @@ a step; that kernel (in eight variants of dtypes, master copy and clip
 scale), the RMSNorm kernel and the dropout + residual + LayerNorm kernel
 are held against their plain versions and timed at full width, and the
 two norm ops are driven through their entry points (nn.RMSNorm forward
-and backward, the dropout op in training and eval). Every phase
-raises on failure. The output
+and backward, the dropout op in training and eval). The two legacy
+kernels, block-sparse attention and paged decode attention, are held
+against their plain versions (every block size, head dims 8-256,
+count-0 rows, seq_len 0, -1 page ids) and timed at full width, and their
+entry points are driven at gpt_1p3b's attention width:
+F.sparse_attention forward and backward on a BigBird CSR at L 4096, and
+a PagedKVCache of the serving pool's geometry filled with 16 sequences
+and read by paged_attention. Every phase raises on failure. The output
 is one line per phase, then one JSON line with the kernels' numbers, the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the package next
@@ -1913,6 +1919,360 @@ def phase_norm_entry_points(LN, X):
     return launches
 
 
+# --------------------------------------------------------------- phase 10
+
+# Block-sparse attention at gpt_1p3b's attention width (H 16, D 128),
+# L 4096 in blocks of 128: an element-level BigBird-style CSR, drawn per
+# head from a numpy generator seeded with SEED — each q-block row holds
+# block 0 (global), the window i-1..i+1 and 2 random blocks (at most 6 of
+# 32, uneven counts). The legacy paged cache at the serving pool's
+# geometry (1025 pages of 16 tokens, 16 x 128) with 16 sequences of
+# 64-832 tokens.
+SB, SL, SBS = 1, 4096, 128                  # batch, length, block size
+SB_TIME = 4                                 # batch of the timing run
+PA_PAGES, PA_SEQS, PA_MAX_LEN = 1025, 16, 832
+BS_SMALL_D = (8, 16, 40, 64, 128, 256)
+PA_SMALL = ((8, 4), (16, 16), (64, 5), (128, 16), (256, 32))   # (D, ps)
+
+
+def _bigbird_blocks(rng, nb, n_random=2):
+    """[nb, nb] bool: block 0, the window i-1..i+1, n_random random
+    blocks per row."""
+    bm = np.zeros((nb, nb), bool)
+    for i in range(nb):
+        bm[i, 0] = True
+        bm[i, max(i - 1, 0):i + 2] = True
+        bm[i, rng.choice(nb, n_random, replace=False)] = True
+    return bm
+
+
+def _bigbird_csr(seed, B, Hh, L, bs):
+    """The element-level CSR (offset [B, H, L+1], columns [B, H, nnz],
+    int32) of a per-head BigBird block pattern; heads of unequal nnz pad
+    their columns with 0 past offset[L] (entries the reference ignores).
+    Also returns the [H, nb, nb] block masks."""
+    rng = np.random.RandomState(seed)
+    nb = L // bs
+    masks = np.stack([_bigbird_blocks(rng, nb) for _ in range(Hh)])
+    offs, cols = [], []
+    for h in range(Hh):
+        counts = np.repeat(masks[h].sum(-1) * bs, bs)        # per row
+        offs.append(np.concatenate([[0], np.cumsum(counts)]))
+        cols.append((np.nonzero(masks[h])[1] * bs)[:, None]
+                    + np.arange(bs))                         # [blocks, bs]
+    # rows of block row i: the columns of its blocks, ascending
+    per_head = []
+    for h in range(Hh):
+        c = cols[h].reshape(-1)
+        starts = np.concatenate([[0], np.cumsum(masks[h].sum(-1))]) * bs
+        rows = [np.tile(c[starts[i]:starts[i + 1]], bs) for i in range(nb)]
+        per_head.append(np.concatenate(rows))
+    nnz = max(len(c) for c in per_head)
+    offset = np.zeros((B, Hh, L + 1), np.int32)
+    columns = np.zeros((B, Hh, nnz), np.int32)
+    for h in range(Hh):
+        offset[:, h] = offs[h]
+        columns[:, h, :len(per_head[h])] = per_head[h]
+    return offset, columns, masks
+
+
+def _bs_layout(gen, G, nq, empty=True):
+    """A random blocked-CSR layout on the card: per row 1..nq blocks in
+    ascending order, padded past the count with arbitrary ids; row 1 of
+    pattern 0 empty (count 0) when `empty`."""
+    keys = torch.rand((G, nq, nq), generator=gen, device="cuda")
+    keep = keys < 0.4
+    keep[..., 0] = True
+    if empty:
+        keep[0, min(1, nq - 1)] = False
+    counts = keep.sum(-1).int()
+    max_nnz = int(counts.max()) + 1                 # always one pad slot
+    order = torch.argsort((~keep).int(), dim=-1, stable=True)
+    order = torch.cat([order, order[..., :1]], dim=-1)[..., :max_nnz]
+    pad = torch.randint(0, nq, order.shape, generator=gen, device="cuda")
+    slot = torch.arange(max_nnz, device="cuda")
+    cols = torch.where(slot < counts[..., None], order, pad)
+    return cols.int().contiguous(), counts.contiguous()
+
+
+def _bs_check(bsa, name, q, k, v, cols, counts, bs):
+    """The block-sparse kernel against its plain version (f32: within
+    1e-5; bf16: one ulp of the plain version's f32 result)."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    got = bsa._launch(q, k, v, cols, counts, bs, scale)
+    plain32 = bsa._bs_fwd_ref(q.float(), k.float(), v.float(), cols, counts,
+                              bs, scale)
+    return _check_close(name, got, plain32.to(q.dtype), plain32)
+
+
+def _pa_check(pa, name, q, kp, vp, table, lens):
+    """The paged kernel against its plain version, and the plain version
+    against the gather reference in f32 (both within 1e-5)."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    got = pa._launch(q, kp, vp, table, lens, scale)
+    args = (q.float(), kp.float(), vp.float(), table, lens, scale)
+    plain32 = pa._paged_ref(*args)
+    torch.testing.assert_close(pa._paged_attention_ref(*args), plain32,
+                               atol=1e-5, rtol=1e-5)
+    return _check_close(name, got, plain32.to(q.dtype), plain32)
+
+
+def _pa_fill(gen, dtype, lens):
+    """A PagedKVCache(PA_PAGES, PS, H, D) on the card filled by `append`,
+    one token at a time, for sequences 0..len(lens)-1; returns (cache,
+    page table, seq lens)."""
+    from paddle_tpu_torch.ops.paged_attention import PagedKVCache
+    cache = PagedKVCache(PA_PAGES, PS, H, D, dtype=dtype)
+    for sid, n in enumerate(lens):
+        cache.new_seq(sid)
+        kv = torch.randn((2, n, 1, H, D), generator=gen, device="cuda")
+        for t in range(n):
+            cache.append(sid, kv[0, t], kv[1, t])
+    return (cache,) + cache.batch_view(list(range(len(lens))))
+
+
+def _pa_lens(rng):
+    lens = rng.randint(64, PA_MAX_LEN + 1, PA_SEQS)
+    lens[0] = PA_MAX_LEN                      # the table is 52 pages wide
+    return lens
+
+
+def phase_slice6_kernel_checks(bsa, pa):
+    """Both legacy kernels against their plain versions in f32 and bf16:
+    block-sparse attention at every block size (8-128) and head dims 8 to
+    256, per-head and shared layouts, a count-0 row and padded slots in
+    every layout; paged attention at head dims 8-256 and page sizes 4-32
+    with a seq_len-0 row (the uniform mean), -1 table entries and an id
+    past the pool (both clamped); then both at full width."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    rng = np.random.RandomState(SEED + 30)
+    err = {"block_sparse_attention": 0.0, "paged_attention": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, (bs, d) in enumerate((bs, d) for bs in bsa.BLOCK_SIZES
+                                    for d in BS_SMALL_D):
+            B, Hh, L = 2, 2, max(4 * bs, 64)
+            G = B * Hh if n % 2 == 0 else 1
+            cols, counts = _bs_layout(gen, G, L // bs)
+            q, k, v = (_rand(gen, (B, Hh, L, d), dtype) for _ in range(3))
+            e = _bs_check(bsa, f"bsa bs={bs} D={d}", q, k, v, cols, counts,
+                          bs)
+            err["block_sparse_attention"] = max(
+                err["block_sparse_attention"], e)
+        log("kernel", form="block_sparse_attention small", dtype=str(dtype)[6:],
+            block_sizes=list(bsa.BLOCK_SIZES), head_dims=list(BS_SMALL_D),
+            layouts="per-head+shared, count-0 row, padded slots",
+            max_abs_err=f"{err['block_sparse_attention']:.3e}")
+        for d, ps in PA_SMALL:
+            P, Bq = 40, 6
+            lens = torch.tensor([0, 1, ps, 3 * ps + 1, 7 * ps, 5],
+                                dtype=torch.int32, device="cuda")
+            MP = 8
+            table = torch.randint(0, P, (Bq, MP), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+            table[2, 1:] = -1                   # ids past the sequence
+            table[5, 0] = P + 3                 # past the pool: clamped
+            kp, vp = (_rand(gen, (P, ps, 3, d), dtype) for _ in range(2))
+            q = _rand(gen, (Bq, 1, 3, d), dtype)
+            e = _pa_check(pa, f"paged D={d} ps={ps}", q, kp, vp, table, lens)
+            err["paged_attention"] = max(err["paged_attention"], e)
+        log("kernel", form="paged_attention small", dtype=str(dtype)[6:],
+            D_ps=list(PA_SMALL), rows="seq_len 0, -1 ids, id past the pool",
+            max_abs_err=f"{err['paged_attention']:.3e}")
+    # full width
+    offset, columns, _ = _bigbird_csr(SEED, SB, H, SL, SBS)
+    _, bcols, bcounts = bsa.csr_to_block_layout(offset, columns, SL)
+    bcols, bcounts = (torch.from_numpy(a).cuda() for a in (bcols, bcounts))
+    lens = _pa_lens(rng)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (_rand(gen, (SB, H, SL, D), dtype) for _ in range(3))
+        e = _bs_check(bsa, "bsa full width", q, k, v, bcols, bcounts, SBS)
+        err["block_sparse_attention"] = max(err["block_sparse_attention"], e)
+        cache, table, seq_lens = _pa_fill(gen, dtype, lens)
+        qd = _rand(gen, (PA_SEQS, 1, H, D), dtype)
+        e2 = _pa_check(pa, "paged full width", qd, cache.k_pages,
+                       cache.v_pages, table, seq_lens)
+        err["paged_attention"] = max(err["paged_attention"], e2)
+        log("kernel", form=f"block_sparse_attention [{SB}, {H}, {SL}, {D}] "
+            f"bs {SBS} BigBird + paged_attention pool {PA_PAGES}x{PS}x{H}x"
+            f"{D} B {PA_SEQS} max_pages {table.shape[1]}",
+            dtype=str(dtype)[6:], bsa_err=f"{e:.3e}", paged_err=f"{e2:.3e}")
+        del q, k, v, cache, qd
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_slice6_kernel_timing(bsa, pa):
+    """Both kernels at full width, bf16, beside their plain versions,
+    bounds and a PyTorch yardstick (never called by the port): block-
+    sparse at B 4 x 16 x 4096 x 128 against SDPA with the equivalent
+    dense boolean mask; paged at the entry-point shape against SDPA over
+    the gathered K/V with a length mask. Bounds: block-sparse, the larger
+    of 4*bs*bs*D flops per visited block over 989 TFLOP/s and the q, k,
+    v, out bytes over 3.35 TB/s; paged, the K/V bytes of sum(seq_lens)
+    tokens (plus q, out, table, lens) over 3.35 TB/s."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    out = {}
+    offset, columns, masks = _bigbird_csr(SEED, 1, H, SL, SBS)
+    _, bcols, bcounts = bsa.csr_to_block_layout(offset, columns, SL)
+    visited = int(bcounts.sum()) * SB_TIME
+    bcols, bcounts = (torch.from_numpy(a).cuda() for a in (bcols, bcounts))
+    q, k, v = (_rand(gen, (SB_TIME, H, SL, D), _BF16) for _ in range(3))
+    scale = 1.0 / D ** 0.5
+    dense = torch.from_numpy(np.kron(masks, np.ones((SBS, SBS), bool))
+                             ).cuda()[None]          # [1, H, L, L]
+    specs = {"block_sparse_attention": (
+        lambda i=0: bsa._launch(q, k, v, bcols, bcounts, SBS, scale),
+        lambda i=0: bsa._bs_fwd_ref(q, k, v, bcols, bcounts, SBS, scale),
+        lambda i=0: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=dense, scale=scale),
+        4 * SB_TIME * H * SL * D * 2, 4 * SBS * SBS * D * visited,
+        f"[{SB_TIME}, {H}, {SL}, {D}] bf16 bs {SBS}, "
+        f"{visited / (SB_TIME * H * SL // SBS):.2f} blocks a row")}
+    lens = _pa_lens(np.random.RandomState(SEED + 33))   # [paged_entry]'s
+    cache, table, seq_lens = _pa_fill(gen, _BF16, lens)
+    qd = _rand(gen, (PA_SEQS, 1, H, D), _BF16)
+    MPc = table.shape[1]
+    safe = table.long().clamp_min(0)
+    kg = cache.k_pages[safe].reshape(PA_SEQS, MPc * PS, H, D).transpose(1, 2)
+    vg = cache.v_pages[safe].reshape(PA_SEQS, MPc * PS, H, D).transpose(1, 2)
+    lmask = (torch.arange(MPc * PS, device="cuda")[None, :]
+             < seq_lens[:, None].long())[:, None, None, :]
+    qt = qd.transpose(1, 2)                             # [B, H, 1, D]
+    kv_bytes = int(lens.sum()) * H * D * 2 * 2
+    io_bytes = 2 * PA_SEQS * H * D * 2 + 4 * (PA_SEQS * MPc + PA_SEQS)
+    specs["paged_attention"] = (
+        lambda i=0: pa._launch(qd, cache.k_pages, cache.v_pages, table,
+                               seq_lens, scale),
+        lambda i=0: pa._paged_ref(qd, cache.k_pages, cache.v_pages, table,
+                                  seq_lens, scale),
+        lambda i=0: torch.nn.functional.scaled_dot_product_attention(
+            qt, kg, vg, attn_mask=lmask, scale=scale),
+        kv_bytes + io_bytes, 4 * int(lens.sum()) * H * D,
+        f"pool {PA_PAGES}x{PS}x{H}x{D} bf16, B {PA_SEQS}, max_pages {MPc},"
+        f" mean seq_len {lens.mean():.1f}")
+    for name, (kern, plain_fn, library, nbytes, flops, form) in \
+            specs.items():
+        ms = cuda_ms(kern, 20)
+        plain_ms = cuda_ms(plain_fn, 3)
+        library_ms = cuda_ms(library, 20)
+        bound_ms, bound_by = _bound(nbytes, flops)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms}
+        log("kernel_time", kernel=name, form=repr(form), ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            achieved_GBps=f"{nbytes / ms / 1e6:.1f}",
+            achieved_TFLOPs=f"{flops / ms / 1e9:.2f}")
+    del q, k, v, dense, cache, kg, vg
+    return out
+
+
+def phase_sparse_entry(bsa):
+    """F.sparse_attention at full width (B 1 x 16 x 4096 x 128, bf16) on
+    the BigBird CSR: forward and backward (loss = sum) through the kernel
+    route, counted alone (1 kernel launch, 0 plain); the output held
+    against the kernel's plain version, the gradients against autograd of
+    the dense masked path on the element mask of the same CSR. Then a
+    second call (a hit of the layout cache) and the dense path with a
+    key_padding_mask (no kernel launch), held against SDPA with the same
+    boolean mask."""
+    from paddle_tpu_torch.nn import functional as F
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    offset, columns, _ = _bigbird_csr(SEED, SB, H, SL, SBS)
+    off_t, col_t = torch.from_numpy(offset).cuda(), torch.from_numpy(
+        columns).cuda()
+    q, k, v = (_rand(gen, (SB, H, SL, D), _BF16).requires_grad_()
+               for _ in range(3))
+    F._cached_block_layout.cache_clear()
+    torch.cuda.synchronize()
+    bsa.reset_counts()
+    out = F.sparse_attention(q, k, v, off_t, col_t)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    launches, plain = bsa.kernel_launches, bsa.plain_launches
+    if (launches, plain) != (1, 0):
+        raise AssertionError(f"sparse_attention launched {launches}, plain "
+                             f"{plain}")
+    _, bc, bn = F._cached_block_layout(
+        offset.tobytes(), offset.shape, columns.tobytes(), columns.shape, SL,
+        str(q.device))
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    plain32 = bsa._bs_fwd_ref(qd.float(), kd.float(), vd.float(), bc, bn,
+                              SBS, 1.0 / D ** 0.5)
+    ferr = _check_close("sparse_attention fwd", out.detach(),
+                        plain32.to(_BF16), plain32)
+    mask = bsa.csr_element_mask(off_t, col_t, SL)
+    with torch.enable_grad():
+        qkv = [t.float().requires_grad_() for t in (qd, kd, vd)]
+        ref = bsa.dense_mask_sparse_attention(*qkv, mask)
+        grads = torch.autograd.grad(ref.sum(), qkv)
+    gerr = max(_check_close("sparse_attention grad", t.grad, g.to(_BF16), g,
+                            tol=1e-4)
+               for t, g in zip((q, k, v), grads))
+    del ref, grads, qkv
+    hits = F._cached_block_layout.cache_info().hits
+    F.sparse_attention(qd, kd, vd, off_t, col_t)
+    hit = F._cached_block_layout.cache_info().hits - hits
+    kpm = (torch.arange(SL, device="cuda") < SL - 300)[None].float()
+    before = bsa.kernel_launches
+    dense_out = F.sparse_attention(qd, kd, vd, off_t, col_t,
+                                   key_padding_mask=kpm)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        qd.float(), kd.float(), vd.float(),
+        attn_mask=mask & (kpm[:, None, None, :] != 0))
+    derr = float((dense_out.float() - sdpa).abs().max())
+    if bsa.kernel_launches != before or derr > 2e-2 or \
+            not torch.isfinite(dense_out).all():
+        raise AssertionError(f"sparse_attention dense path: err {derr}")
+    torch.cuda.synchronize()
+    log("sparse_entry", shape=f"[{SB}, {H}, {SL}, {D}] bf16 bs {SBS}",
+        blocks_a_row=f"{float(bn.float().mean()):.3f}",
+        max_nnz=bc.shape[-1], kernel_launches=launches, plain=plain,
+        fwd_err=f"{ferr:.3e}", grad_err=f"{gerr:.3e}",
+        layout_cache_hit=hit, dense_kpm_err_vs_sdpa=f"{derr:.3e}",
+        dense_kernel_launches=bsa.kernel_launches - before)
+    del q, k, v, out, mask, dense_out, sdpa
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_paged_entry(pa):
+    """PagedKVCache(1025, 16, 16, 128, bf16) filled by `append` for 16
+    sequences of 64-832 tokens, `batch_view`, one `paged_attention` call
+    (counted alone: 1 kernel launch, 0 plain), held against the plain
+    version and against the gather reference."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    rng = np.random.RandomState(SEED + 33)
+    lens = _pa_lens(rng)
+    t0 = time.perf_counter()
+    cache, table, seq_lens = _pa_fill(gen, _BF16, lens)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    q = _rand(gen, (PA_SEQS, 1, H, D), _BF16)
+    pa.reset_counts()
+    got = pa.paged_attention(q, cache.k_pages, cache.v_pages, table,
+                             seq_lens)
+    torch.cuda.synchronize()
+    launches, plain = pa.kernel_launches, pa.plain_launches
+    if (launches, plain) != (1, 0):
+        raise AssertionError(f"paged_attention launched {launches}, plain "
+                             f"{plain}")
+    args = (q.float(), cache.k_pages.float(), cache.v_pages.float(), table,
+            seq_lens, 1.0 / D ** 0.5)
+    plain32 = pa._paged_ref(*args)
+    err = _check_close("paged entry", got, plain32.to(_BF16), plain32)
+    ref_err = float((pa._paged_attention_ref(*args) - plain32).abs().max())
+    if ref_err > 1e-5:
+        raise AssertionError(f"paged plain vs gather reference {ref_err}")
+    log("paged_entry", pool=f"PagedKVCache({PA_PAGES}, {PS}, {H}, {D}, "
+        "bf16)", seqs=PA_SEQS, tokens=int(lens.sum()),
+        mean_len=f"{lens.mean():.1f}", max_pages=table.shape[1],
+        unused_ids=int((table < 0).sum()), fill_s=f"{fill_s:.2f}",
+        kernel_launches=launches, plain=plain, max_abs_err=f"{err:.3e}",
+        ref_err=f"{ref_err:.3e}")
+    return launches
+
+
 SERVE_KERNELS = {   # name: (source, TPU kernel it replaces, pool layout)
     "ragged_paged_attention": (
         "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
@@ -1945,8 +2305,10 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import block_sparse_attention as bsa
     from paddle_tpu_torch.ops import fused_ops as X
     from paddle_tpu_torch.ops import layer_norm as LN
+    from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     from paddle_tpu_torch.ops import w4_matmul as w4
     t_start = time.perf_counter()
@@ -1969,6 +2331,12 @@ def main():
     slice5_err = phase_slice5_kernel_checks(LN, X)
     slice5_timing = phase_slice5_kernel_timing(LN, X)
     norm_launches = phase_norm_entry_points(LN, X)
+    torch.cuda.empty_cache()
+    slice6_err = phase_slice6_kernel_checks(bsa, pa)
+    slice6_timing = phase_slice6_kernel_timing(bsa, pa)
+    torch.cuda.empty_cache()
+    slice6_launches = {"block_sparse_attention": phase_sparse_entry(bsa),
+                       "paged_attention": phase_paged_entry(pa)}
     torch.cuda.empty_cache()
     train_err = phase_train_kernel_checks(A, LN, X)
     train_timing = phase_train_kernel_timing(A, LN, X)
@@ -2034,6 +2402,15 @@ def main():
                         "launches": launches,
                         "max_abs_err": slice5_err[name],
                         **slice5_timing[timing]})
+    for name, replaces in (
+            ("block_sparse_attention", "block_sparse_attention.py:35"),
+            ("paged_attention", "paged_attention.py:105")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"paddle_tpu_torch/ops/csrc/{name}.cu",
+                        "replaces": f"paddle_tpu/ops/{replaces}",
+                        "launches": slice6_launches[name],
+                        "max_abs_err": slice6_err[name],
+                        **slice6_timing[name]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ training model (counterpart of `paddle_tpu/models/gpt.py`).
 `GPT` is the pre-LN decoder the JAX package trains: learned positions,
 flash attention on the causal path, per-block activation recompute
 (`remat_policy="full"`, `torch.utils.checkpoint`), and the tied head
-accumulated in f32 with f32 logits. Its parameter names and shapes are
+accumulated in f32 with f32 logits (an untied head returns its Linear's
+dtype). Its parameter names and shapes are
 the JAX `GPT`'s state dict, so `init_state_dict` and
 `convert.state_dict_from_numpy` feed both `GPT` and the serving path's
 `PagedGPTDecoder`. `GPTPretrainingCriterion` is the causal-LM loss with
@@ -39,21 +40,29 @@ class GPTConfig:
     ffn_hidden: int = 0              # 0 -> 4*hidden
     max_seq_len: int = 1024
     dropout: float = 0.0
-    sp_mode: str = "ring"            # sequence parallelism: not ported
+    sp_mode: str = "ring"            # 'ring' | 'zigzag' | 'ulysses'
     dtype: str = "bfloat16"          # compute dtype
     remat: bool = True               # recompute each block in the backward
     remat_policy: str = "full"       # 'full' | 'none'; 'dots' not ported
     tie_embeddings: bool = True
     init_std: float = 0.02
-    tp_overlap: str = "off"          # tensor parallelism: not ported
+    tp_overlap: str = "off"          # 'off' | 'bulk' | 'ring'
+    tp_overlap_chunks: int = 4       # free-dim tiles per overlapped site
 
     def __post_init__(self):
+        """`sp_mode` and `tp_overlap` pick the sequence- and tensor-
+        parallel branches, which the JAX model takes only under a mesh
+        with sp > 1 or tp > 1. The port has no mesh (a decoder asked for
+        one raises), so on its one card every value runs the plain
+        attention and Linear, as the JAX model does on one device."""
         if self.ffn_hidden == 0:
             self.ffn_hidden = 4 * self.hidden_size
-        if self.sp_mode != "ring" or self.tp_overlap != "off":
-            raise NotImplementedError(
-                "sequence/tensor parallelism (sp_mode, tp_overlap) is not "
-                "ported: the port trains on one card")
+        if self.sp_mode not in ("ring", "zigzag", "ulysses"):
+            raise ValueError(f"sp_mode must be 'ring', 'zigzag' or "
+                             f"'ulysses', got {self.sp_mode!r}")
+        if self.tp_overlap not in ("off", "bulk", "ring"):
+            raise ValueError(f"tp_overlap must be 'off', 'bulk' or "
+                             f"'ring', got {self.tp_overlap!r}")
         if self.remat_policy not in ("full", "dots", "none"):
             raise ValueError(f"remat_policy must be 'full', 'dots' or "
                              f"'none', got {self.remat_policy!r}")
@@ -188,7 +197,8 @@ class GPT(tnn.Module):
         return block(x, seed)
 
     def forward(self, input_ids):
-        """input_ids [B, L] -> f32 logits [B, L, V]."""
+        """input_ids [B, L] -> logits [B, L, V]: f32 from the tied head,
+        the Linear's dtype from an untied one (as in JAX)."""
         cfg = self.cfg
         B, L = input_ids.shape
         positions = torch.arange(L, device=input_ids.device)
@@ -200,7 +210,7 @@ class GPT(tnn.Module):
         if cfg.tie_embeddings:
             logits = _TiedHead.apply(x, self.wte.weight)
         else:
-            logits = self.lm_head(x).float()
+            logits = self.lm_head(x)
         return logits.reshape(B, L, -1)
 
 

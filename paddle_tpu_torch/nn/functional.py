@@ -1,11 +1,16 @@
-"""Functionals of the GPT and BERT training paths (counterparts of
-`paddle_tpu/nn/functional`): Paddle's signatures and layouts, PyTorch
-inside. `layer_norm`, `rms_norm` and `scaled_dot_product_attention`
-route to the port's kernels by the JAX package's own rules; `dropout`
-draws its mask from the JAX package's counter hash, bit for bit."""
+"""Functionals of the GPT and BERT training paths and of sparse
+attention (counterparts of `paddle_tpu/nn/functional`): Paddle's
+signatures and layouts, PyTorch inside. `layer_norm`, `rms_norm`,
+`scaled_dot_product_attention` and `sparse_attention` route to the
+port's kernels by the JAX package's own rules; `dropout` draws its mask
+from the JAX package's counter hash, bit for bit."""
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as TF
 
+from ..ops import block_sparse_attention as _bsa
 from ..ops.attention import (_next_seed, _rate_thresh, flash_attention,
                              flash_attention_available, mha_reference)
 from ..ops.fused_ops import _hash_bits
@@ -13,17 +18,21 @@ from ..ops.layer_norm import fused_layer_norm, fused_rms_norm
 
 __all__ = ["linear", "embedding", "gelu", "tanh", "relu", "dropout",
            "layer_norm", "rms_norm", "scaled_dot_product_attention",
-           "cross_entropy"]
+           "sparse_attention", "cross_entropy"]
 
 
-def linear(x, weight, bias=None):
+def linear(x, weight, bias=None, name=None):
     """y = x @ W (+ b), with Paddle's [in, out] weight. A bf16/fp16
     weight casts an f32 x down to its dtype (the JAX AMP rule,
-    `amp_compute_cast`)."""
+    `amp_compute_cast`); any other mix of dtypes promotes, as `v @ w`
+    does in JAX (a bf16 x and an f32 weight give f32), and the bias is
+    added in the output's dtype."""
     if weight.dtype in (torch.bfloat16, torch.float16) and \
             x.dtype == torch.float32:
         x = x.to(weight.dtype)
-    return TF.linear(x, weight.t(), bias)
+    dtype = torch.promote_types(x.dtype, weight.dtype)
+    return TF.linear(x.to(dtype), weight.t().to(dtype),
+                     None if bias is None else bias.to(dtype))
 
 
 def embedding(x, weight, padding_idx=None):
@@ -63,19 +72,37 @@ def _draw_salt(generator=None):
     return int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
 
 
-def dropout(x, p=0.5, training=True, generator=None):
-    """Paddle's upscale-in-train dropout with the JAX package's mask:
-    a salt in [0, 2^31 - 1) drawn per call from the CPU `generator`
-    (None: torch's default CPU generator), `_hash_keep(salt, x.shape,
-    p)`, then where(keep, x / (1 - p), 0) — divide, then select."""
+_DROPOUT_MODES = ("upscale_in_train", "downscale_in_infer")
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None, *, generator=None):
+    """Paddle's dropout with the JAX package's mask: a salt in
+    [0, 2^31 - 1) drawn per call from the CPU `generator` (None: torch's
+    default CPU generator), then `_hash_keep(salt, mask_shape, p)`.
+    The mask covers x, or with `axis` (an int or a list) only the listed
+    axes, broadcast over the others (axes are matched as given, as in
+    JAX). `mode="upscale_in_train"` gives where(keep, x / (1 - p), 0) —
+    divide, then select; "downscale_in_infer" keeps without scaling.
+    In eval or at p 0, x itself."""
+    if mode not in _DROPOUT_MODES:
+        raise ValueError(f"mode must be one of {_DROPOUT_MODES}, got "
+                         f"{mode!r}")
     if not training or p == 0.0:
         return x
+    if axis is None:
+        mask_shape = tuple(x.shape)
+    else:
+        axes = axis if isinstance(axis, (list, tuple)) else [axis]
+        mask_shape = tuple(x.shape[i] if i in axes else 1
+                           for i in range(x.dim()))
     salt = _draw_salt(generator)
     # a named range, so a profile can price the hash ops
     with torch.profiler.record_function("dropout_hash"):
-        keep = _hash_keep(salt, x.shape, p, x.device)
-    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
+        keep = _hash_keep(salt, mask_shape, p, x.device)
+    kept = x / (1.0 - p) if mode == "upscale_in_train" else x
+    return torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
+                                               device=x.device))
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
@@ -112,8 +139,8 @@ def rms_norm(x, weight=None, epsilon=1e-6):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, dropout_seed=None,
-                                 generator=None):
+                                 training=True, name=None, *,
+                                 dropout_seed=None, generator=None):
     """[B, L, H, D] attention with an additive or boolean `attn_mask` and
     dropout on the probabilities (the JAX routing): the flash kernel
     where the JAX package takes it (head_dim 64, 128 or 256), else
@@ -131,9 +158,67 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                          dropout_seed=dropout_seed or 0)
 
 
-def cross_entropy(input, label, ignore_index=-100):
+@functools.lru_cache(maxsize=16)
+def _cached_block_layout(off_bytes, off_shape, col_bytes, col_shape, L,
+                         device):
+    """Sparsity patterns are static across steps: the O(L^2) host-side
+    block-alignment detection runs once per distinct CSR (and device),
+    not per call. Returns None or (block_size, block_cols, block_counts)
+    with the arrays already on `device`."""
+    off = np.frombuffer(off_bytes, np.int32).reshape(off_shape)
+    cols = np.frombuffer(col_bytes, np.int32).reshape(col_shape)
+    layout = _bsa.csr_to_block_layout(off, cols, L)
+    if layout is None:
+        return None
+    bs, bcols, bcounts = layout
+    return (bs, torch.from_numpy(bcols).to(device),
+            torch.from_numpy(bcounts).to(device))
+
+
+def _host_int32(t):
+    """A CSR array read to the host once, as int32 numpy."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t).astype(np.int32)
+
+
+def sparse_attention(query, key, value, sparse_csr_offset,
+                     sparse_csr_columns, key_padding_mask=None,
+                     attn_mask=None, name=None):
+    """CSR-sparsified softmax(QK^T/sqrt(d))V (the reference's
+    `F.sparse_attention`). q/k/v: [B, H, L, D]; offset [B, H, L+1];
+    columns [B, H, nnz]; masks use 0 = masked. A mask-free CSR that is
+    exactly block-aligned (`csr_to_block_layout`, cached per CSR) runs
+    the block-sparse kernel, whose work scales with the nonzero blocks;
+    anything else, or a `key_padding_mask` / `attn_mask`, runs the dense
+    masked path (plain torch) with the same semantics."""
+    L = query.shape[-2]
+    off, cols = _host_int32(sparse_csr_offset), _host_int32(sparse_csr_columns)
+    if key_padding_mask is None and attn_mask is None:
+        layout = _cached_block_layout(off.tobytes(), off.shape, cols.tobytes(),
+                                      cols.shape, L, str(query.device))
+        if layout is not None:
+            bs, bcols, bcounts = layout
+            return _bsa.block_sparse_attention(query, key, value, bcols,
+                                               bcounts, bs)
+    dev = query.device
+    mask = _bsa.csr_element_mask(torch.from_numpy(off).to(dev),
+                                 torch.from_numpy(cols).to(dev), L)
+    return _bsa.dense_mask_sparse_attention(
+        query, key, value, mask,
+        None if key_padding_mask is None else torch.as_tensor(
+            key_padding_mask, device=dev),
+        None if attn_mask is None else torch.as_tensor(attn_mask,
+                                                       device=dev))
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100):
     """Mean hard-label softmax cross-entropy over the last axis, in f32;
-    rows whose label is `ignore_index` are left out of the mean."""
+    rows whose label is `ignore_index` are left out of the mean. Class
+    weights (`weight`) are not ported and raise."""
+    if weight is not None:
+        raise NotImplementedError("cross_entropy class weights are not "
+                                  "ported")
     logp = torch.log_softmax(input.float(), dim=-1)
     lab = label.long()
     if lab.dim() == logp.dim():

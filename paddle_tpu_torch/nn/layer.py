@@ -51,8 +51,12 @@ class Embedding(nn.Module):
     end), that row starts at 0 and its output (so its gradient) is 0."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
-                 weight_init=None, device=None, generator=None):
+                 sparse=False, *, weight_init=None, device=None,
+                 generator=None):
         super().__init__()
+        if sparse:
+            raise NotImplementedError("Embedding(sparse=True) (sparse "
+                                      "gradients) is not ported")
         self._padding_idx = None if padding_idx is None else (
             padding_idx if padding_idx >= 0 else num_embeddings + padding_idx)
         self._weight_init = weight_init or Normal(0.0, 1.0)
@@ -104,17 +108,21 @@ class RMSNorm(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Upscale-in-train hash dropout (`F.dropout`) whose per-call salts
-    come from the CPU `generator` (None: torch's default CPU
-    generator)."""
+    """Hash dropout (`F.dropout`, with its `axis` and `mode`) whose
+    per-call salts come from the CPU `generator` (None: torch's default
+    CPU generator)."""
 
-    def __init__(self, p=0.5, generator=None):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
+                 name=None, *, generator=None):
         super().__init__()
         self.p = float(p)
+        self.axis = axis
+        self.mode = mode
         self.generator = generator
 
     def forward(self, x):
-        return F.dropout(x, self.p, self.training, self.generator)
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode, generator=self.generator)
 
 
 class LayerList(nn.ModuleList):

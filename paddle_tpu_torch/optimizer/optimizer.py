@@ -110,8 +110,10 @@ class Adam(Optimizer):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None, multi_precision=False,
-                 accumulator_dtype=None):
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 use_multi_tensor=False, name=None, accumulator_dtype=None):
+        if lazy_mode:
+            raise NotImplementedError("Adam(lazy_mode=True) is not ported")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          multi_precision, accumulator_dtype)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
@@ -134,11 +136,15 @@ class Adam(Optimizer):
 class AdamW(Adam):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
-                 grad_clip=None, multi_precision=False,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None,
                  accumulator_dtype=None):
+        if lr_ratio is not None or apply_decay_param_fun is not None:
+            raise NotImplementedError("AdamW's lr_ratio and "
+                                      "apply_decay_param_fun are not ported")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         weight_decay, grad_clip, multi_precision,
-                         accumulator_dtype)
+                         weight_decay, grad_clip, lazy_mode,
+                         multi_precision, accumulator_dtype=accumulator_dtype)
 
     @torch.no_grad()
     def apply_gradients(self, params, grads, lr=None):

@@ -156,8 +156,9 @@ def test_unported_options_raise(models):
 
 def test_port_imports_no_jax_and_refuses_missing_card():
     """In a fresh interpreter, importing every module of the port pulls
-    in neither jax nor paddle_tpu; without CUDA, get_device() and a
-    decoder built without device= raise instead of running on the CPU."""
+    in neither jax nor paddle_tpu; without CUDA, get_device(), a state
+    dict and a PagedKVCache built without device= raise instead of
+    running on the CPU."""
     code = """
 import sys
 import torch
@@ -166,13 +167,17 @@ import paddle_tpu_torch.cost_model, paddle_tpu_torch.models
 import paddle_tpu_torch.ops.ragged_paged_attention
 import paddle_tpu_torch.ops.w4_matmul, paddle_tpu_torch.quantization
 import paddle_tpu_torch.serving
+import paddle_tpu_torch.ops.block_sparse_attention
+import paddle_tpu_torch.ops.paged_attention, paddle_tpu_torch.nn.functional
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))
 print('BAD', bad)
 if not torch.cuda.is_available():
     from paddle_tpu_torch.models import gpt_tiny, init_state_dict
+    from paddle_tpu_torch.ops.paged_attention import PagedKVCache
     for call in (paddle_tpu_torch.get_device,
-                 lambda: init_state_dict(gpt_tiny())):
+                 lambda: init_state_dict(gpt_tiny()),
+                 lambda: PagedKVCache(4, 2, 1, 8)):
         try:
             call()
             print('RAN')
