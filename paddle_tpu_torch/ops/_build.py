@@ -4,14 +4,16 @@ Each `ops/csrc/<name>.cu` compiles with nvcc, on its own, into a shared
 library with a plain C interface (`lib<name>-<hash>.so`) that the op
 modules load with ctypes. The build runs at first use, from the sources
 in the checkout, into `paddle_tpu_torch/_build/` (listed in
-.gitignore); the file name carries a hash of the source and the flags,
-so an edited source rebuilds and an unchanged one is reused.
+.gitignore); the file name carries a hash of the source, of the csrc/
+headers it includes (`tc_tile.cuh`) and of the flags, so an edited
+source or header rebuilds and an unchanged one is reused.
 `build_all` starts one nvcc per source together, so the build takes as
 long as the slowest source, not the sum.
 """
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -43,9 +45,29 @@ def _nvcc():
         "CUDA kernels are built from source at first use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(src, seen=None):
+    """`src` and every header of csrc/ it includes with quotes, directly
+    or through another header, in include order."""
+    seen = [] if seen is None else seen
+    if src in seen or not src.exists():
+        return seen
+    seen.append(src)
+    for inc in _INCLUDE.findall(src.read_bytes()):
+        _sources(src.parent / inc.decode(), seen)
+    return seen
+
+
 def _target(name):
+    """(source, library path): the name carries a hash of the source, the
+    headers it includes and the flags, so an edited header rebuilds
+    too."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes())
+    digest = hashlib.sha256()
+    for path in _sources(src):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -12,18 +12,24 @@ causal and ragged positions force p = 0.
 
 Two implementations of the same math:
   * the plain PyTorch version (`_fwd_ref`, `_bwd_ref`): the TPU kernels'
-    walk over key tiles in f32 — an online softmax with the -1e30 mask,
-    masked probabilities forced to 0 and the 1e-30 denominator floor;
-    the backward recomputes P from the saved log-sum-exp;
+    walk over key tiles — an online softmax with the -1e30 mask, masked
+    probabilities forced to 0 and the 1e-30 denominator floor; the
+    backward recomputes P from the saved log-sum-exp. In f32 it is the
+    TPU kernels' arithmetic; for bf16 q/k/v the forward follows the
+    tensor-core kernel's rounding points (s = (q.k)*scale on the stored
+    values, p rounded to bf16 before P.V, 64-key tiles);
   * the hand-written CUDA kernels `csrc/flash_attention.cu` (forward,
-    dQ, dK/dV), templated on the bias kind and on dropout.
+    dQ, dK/dV), templated on the bias kind and on dropout; the bf16
+    forward runs on the tensor cores, the f32 forward and both backward
+    kernels on the CUDA cores (SIMT).
 `flash_attention` is a `torch.autograd.Function`: its forward saves the
 f32 log-sum-exp, its backward computes delta = sum(dO*O) in f32 as a
 torch op and then runs dQ and dK/dV with the same bias and seed. A
 wrapper takes the plain version only for tensors on the CPU; on CUDA
 tensors it launches the kernel or raises. `kernel_launches` /
 `plain_launches` count each, per kernel; `branch_launches` counts the
-kernel launches per template branch ("flash_fwd[kvb+dropout]").
+kernel launches per body and template branch
+("flash_fwd[tc,kvb+dropout]", "flash_bwd_dq[simt,kvb+dropout]").
 
 `mha_reference` is the JAX package's plain reference (probabilities cast
 to q's dtype before P.V, mask and hash dropout included);
@@ -49,7 +55,8 @@ __all__ = ["flash_attention", "flash_attention_available", "mha_reference",
 
 _NEG = -1e30
 _DENOM_EPS = 1e-30
-_BLOCK = 128          # key tile of the plain version's walk
+_BLOCK = 128          # key tile of the plain version's f32 walk
+_TC_BLOCK = 64        # key tile of the bf16 tensor-core kernel and its walk
 
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 kernel_launches = dict.fromkeys(KERNELS, 0)
@@ -277,20 +284,36 @@ class _Extras:
 _NONE = _Extras()
 
 
-def _fwd_ref(q, k, v, causal, scale, ex=_NONE):
-    """Plain forward: (out in q's dtype [B, Lq, Hq, D], lse f32
-    [B, Hq, Lq]). The denominator sums the undropped p; P.V takes the
-    dropped p."""
+def _fwd_ref(q, k, v, causal, scale, ex=_NONE, f32_out=False):
+    """Plain forward: (out [B, Lq, Hq, D] in q's dtype, or f32 with
+    `f32_out`; lse f32 [B, Hq, Lq]). The denominator sums the undropped
+    p; P.V takes the dropped p.
+
+    f32 q/k/v: the TPU kernel's arithmetic, s = (q*scale).k in f32, over
+    key tiles of `_BLOCK`. bf16 q/k/v: the tensor-core kernel's rounding
+    points, over its key tiles of `_TC_BLOCK` (the rounded p depends on
+    the running max, so the walk must cut the keys where the kernel
+    does): (1) s = (q.k)*scale, the product of the stored bf16 values
+    (exact in f32) scaled after the dot, as the backward recomputes it
+    and as `mha_reference` scales; (2) p_use (p, or p * keep / (1 -
+    rate)) rounded to bf16 before P.V, whose sum stays in f32; l sums
+    the unrounded, undropped f32 p. Bias, mask, the forced zeros and the
+    1e-30 floor are the same on both routes."""
+    tc = q.dtype == torch.bfloat16
+    tile = _TC_BLOCK if tc else _BLOCK
     qh, kh, vh = _heads(q, k, v)
-    qh = qh * scale
+    if not tc:
+        qh = qh * scale
     B, H, Lq, D = qh.shape
     Lk = kh.shape[2]
     m = torch.full((B, H, Lq, 1), _NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, H, Lq, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, H, Lq, D), dtype=torch.float32, device=q.device)
-    for k0 in range(0, Lk, _BLOCK):
-        k1 = min(k0 + _BLOCK, Lk)
+    for k0 in range(0, Lk, tile):
+        k1 = min(k0 + tile, Lk)
         s = qh @ kh[:, :, k0:k1].transpose(-1, -2)
+        if tc:
+            s = s * scale
         bias = ex.bias(k0, k1)
         if bias is not None:
             s = s + bias
@@ -306,11 +329,14 @@ def _fwd_ref(q, k, v, causal, scale, ex=_NONE):
         drop = ex.drop(q, k, k0, k1)
         if drop is not None:
             p = p * drop
+        if tc:
+            p = p.to(torch.bfloat16).float()
         acc = acc * corr + p @ vh[:, :, k0:k1]
         m = m_new
     lsafe = l.clamp_min(_DENOM_EPS)
-    out = (acc / lsafe).transpose(1, 2).to(q.dtype)
-    return out, (m + torch.log(lsafe))[..., 0]
+    out = (acc / lsafe).transpose(1, 2)
+    lse = (m + torch.log(lsafe))[..., 0]
+    return (out if f32_out else out.to(q.dtype)), lse
 
 
 def _bwd_ref(q, k, v, dout, lse, delta, causal, scale, ex=_NONE):
@@ -369,7 +395,8 @@ def _kernel_lib():
                                        ctypes.c_uint32, ctypes.c_float,
                                        ctypes.c_int, ctypes.c_int,
                                        ctypes.c_void_p])
-        lib.flash_fwd.argtypes = [ctypes.c_void_p] * 7 + tail
+        lib.flash_fwd.argtypes = ([ctypes.c_void_p] * 7
+                                  + [ctypes.POINTER(ctypes.c_int)] + tail)
         lib.flash_bwd_dq.argtypes = [ctypes.c_void_p] * 9 + tail
         lib.flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 10 + tail
         lib.flash_dropout_keep.argtypes = (
@@ -431,12 +458,15 @@ def _check_extras(ex, dims, device):
         raise ValueError(f"dropout rate must be in [0, 1), got {ex.rate}")
 
 
-def _raise_on(rc, name, lib, ex):
+def _raise_on(rc, name, lib, ex, route=0):
+    """Raise on a failed launch; else count it, by kernel and by body and
+    template branch ("flash_fwd[tc,kvb+dropout]": `route` 1 is the
+    tensor-core forward, 0 a SIMT body)."""
     if rc:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.flash_error_string(rc).decode()} ({rc})")
     kernel_launches[name] += 1
-    key = f"{name}[{ex.branch}]"
+    key = f"{name}[{'tc' if route else 'simt'},{ex.branch}]"
     branch_launches[key] = branch_launches.get(key, 0) + 1
 
 
@@ -468,13 +498,19 @@ def _fwd(q, k, v, causal, scale, ex=_NONE):
     dims = _check(q, k, v)
     _check_extras(ex, dims, q.device)
     B, Lq, _, Hq, _, _ = dims
+    if q.dtype == torch.bfloat16:
+        # the tensor-core body copies 16-byte rows: a view at a storage
+        # offset off that alignment is copied to a fresh buffer first
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
     lib = _kernel_lib()
+    route = ctypes.c_int(-1)
     rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), *_head(ex),
-                       out.data_ptr(), lse.data_ptr(),
+                       out.data_ptr(), lse.data_ptr(), ctypes.byref(route),
                        *_tail(dims, causal, scale, q, ex))
-    _raise_on(rc, "flash_fwd", lib, ex)
+    _raise_on(rc, "flash_fwd", lib, ex, route.value)
     return out, lse
 
 

@@ -1,7 +1,8 @@
 // Flash attention forward, dQ and dK/dV for Hopper (sm_90a), f32 and bf16.
 //
 // Replaces the three TPU kernels of paddle_tpu/ops/attention.py:
-//   _fwd_kernel      -> flash_fwd_kernel      (out + f32 log-sum-exp)
+//   _fwd_kernel      -> flash_fwd_tc_kernel   (bf16; out + f32 log-sum-exp)
+//                       flash_fwd_kernel      (f32)
 //   _bwd_dq_kernel   -> flash_dq_kernel       (dQ, P recomputed from lse)
 //   _bwd_dkv_kernel  -> flash_dkv_kernel      (dK, dV for one key tile)
 // Layout is the JAX package's: q/out/dO [B, Lq, Hq, D], k/v [B, Lk, Hkv, D],
@@ -10,7 +11,8 @@
 // [B, Hq, Lq], which is the JAX kernels' folded [B, Hkv, G*Lq] in the same
 // memory order.
 //
-// Math, as the TPU bodies do it, every dot in f32:
+// Math, as the TPU bodies do it, every dot in f32 (the f32 route, and dQ
+// and dK/dV on both routes):
 //   forward  s = (q*scale).k + bias, causal/ragged-masked to -1e30; online
 //            softmax over key tiles (m, l, acc), masked p forced to 0; l
 //            sums the undropped p, P.V takes p * keep / (1 - rate);
@@ -20,6 +22,20 @@
 //   dK/dV    dv = sum_q (p * keep / (1 - rate)).dO, dk = sum_q ds.q over
 //            every query head of the group and every query tile at or
 //            after the key tile (causal).
+// The bf16 forward (`flash_fwd_tc_kernel`) runs on the tensor cores with
+// these rounding points, which its plain version `_fwd_ref` follows for
+// bf16 inputs (64-key tiles, as here):
+//   1. s = (q.k)*scale: bf16 mma on q and k as stored (the products are
+//      exact in f32, the sum is f32), the scale on the f32 score after
+//      the dot, as dQ and dK/dV recompute s; so the lse it saves agrees
+//      with their p up to the order of the f32 sums. q*scale is never
+//      rounded to bf16.
+//   2. p_use (p, or p * keep / (1 - rate)) is rounded to bf16 (nearest)
+//      for P.V, which accumulates in f32; l sums the unrounded,
+//      undropped f32 p. This is the one new rounding point; the JAX
+//      `mha_reference` rounds its probabilities before P.V too.
+//   3. Bias, the -1e30 mask, masked p forced to 0, the 1e-30 floor and the
+//      dropout hash at (frow, col) are as above.
 // delta = sum(dO*out) per row is computed by the wrapper (a torch op), as
 // the JAX wrapper computes it outside its kernels.
 //
@@ -49,18 +65,39 @@
 //
 // Bound: operations at GPT's training shape (B 8, L 1024, H 16, D 128,
 // causal: 34 GFLOP over 0.1 GB), bytes at BERT's (B 32, L 512, H 12, D 64,
-// 25.8 GFLOP over ~0.1 GB of bf16 q/k/v/out plus the bias). This first
-// design does the dots on the CUDA cores in f32 (SIMT), not on the tensor
-// cores: one 64x64 tile of scores per block, 256 threads as a 16x16 grid,
-// each thread 4x4 scores and 4 rows x D/16 columns of the output tile,
-// operands staged through shared memory (rows padded to D+1 floats so the
-// 16 lanes that read 16 different rows hit 16 different banks). Causal
-// tiles past the diagonal are skipped. So its ceiling is the f32 FMA rate
-// (67 TFLOP/s), not the bf16 tensor-core rate (989); wgmma with TMA-fed
-// tiles is later work (PERF.md). The hash costs ~12 integer ops a score.
+// 25.8 GFLOP over ~0.1 GB of bf16 q/k/v/out plus the bias).
+//
+// The route is chosen by dtype in `launch` (a choice, not a fallback):
+//   bf16 forward -> `flash_fwd_tc_kernel`, bf16 tensor cores: a block of
+//     4 warps owns 64 query rows, each warp 16 (FA2's split): S = Q K^T
+//     over a 64-key tile with mma.sync m16n8k16 (f32 accumulate) into 32
+//     registers a lane, the online softmax on them (m and l per row in
+//     registers, the 4 lanes of a quad sharing a row), then O += P V with
+//     P taken from the score registers as bf16 A fragments (the C layout
+//     of two n8 tiles is the A layout of one k16 step). K and V tiles
+//     come through a 2-stage 16-byte cp.async ring into 128-byte-swizzled
+//     shared memory (ldmatrix, .trans for V, without bank conflicts); Q
+//     stays in shared memory. Tiles past the diagonal are skipped, and
+//     only a tile that reaches past Lk or the diagonal is masked (a
+//     warp-uniform test). At GPT's shape it runs at ~0.13 of the bf16
+//     peak: 4 warps a block, each reading all of K and V from shared
+//     memory for its 16 rows.
+//   f32 forward, dQ and dK/dV (both dtypes) -> SIMT bodies on the CUDA
+//     cores: one 64x64 tile of scores per block (32x32 at D 256), 256
+//     threads as a 16x16 grid, each thread 4x4 scores and 4 rows x D/16
+//     columns of the output tile, operands staged as f32 through shared
+//     memory (rows padded to D+1 floats so the 16 lanes that read 16
+//     different rows hit 16 different banks). Their ceiling is the f32 FMA
+//     rate (67 TFLOP/s); the backward's tensor-core redesign, on the tile
+//     code of `tc_tile.cuh` and the rounding points above, is later work
+//     (PERF.md). The hash costs ~12 integer ops a score.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -274,6 +311,215 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     if (tx == 0)
       lse[(static_cast<size_t>(b) * dm.Hq + hq) * dm.Lq + row] =
           m[i] + logf(lsafe);
+  }
+}
+
+// ------------------------------------------------ bf16 forward: tensor cores
+
+constexpr int kTcQ = 64;            // query rows a block (16 a warp)
+constexpr int kTcK = 64;            // keys a tile (the plain walk's
+                                    // `_TC_BLOCK`)
+constexpr int kTcThreads = 128;
+
+// Rows [r0, r0 + 64) of one head of a bf16 [B, L, H, D] tensor into a
+// swizzled tile of D * 2-byte rows, with 16-byte cp.async; rows >= L are 0.
+template <int D>
+__device__ __forceinline__ void tc_load_rows(unsigned char* dst,
+                                             const __nv_bfloat16* src, int b,
+                                             int r0, int L, int H, int h) {
+  constexpr int CH = D / 8;                   // 16-byte chunks a row
+  for (int c = threadIdx.x; c < kTcK * CH; c += kTcThreads) {
+    const int r = c / CH, ch = c % CH, row = r0 + r;
+    const bool ok = row < L;
+    const __nv_bfloat16* g =
+        ok ? src + ((static_cast<size_t>(b) * L + row) * H + h) * D + 8 * ch
+           : src;
+    tc::cp_async16(dst + tc::swz(r, ch, 2 * D), g, ok ? 16 : 0);
+  }
+}
+
+// Each warp owns 16 query rows: S = Q K^T over a 64-key tile in registers
+// (8 n8 tiles), the online softmax on them, then O += P V with P taken
+// from the score registers as bf16 A fragments. K and V tiles come through
+// a 2-stage cp.async ring; Q stays in shared memory.
+template <int D, int BIAS, bool DROP>
+__global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, Dims dm, Extra ex) {
+  constexpr int RB = 2 * D;                   // bytes a row
+  constexpr int TILE = kTcK * RB;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  unsigned char* qs = tc_smem;                // [64][D]
+  unsigned char* kvs = tc_smem + TILE;        // stage s: K, then V
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kTcQ, hq = blockIdx.y, b = blockIdx.z;
+  const int G = dm.Hq / dm.Hkv, hk = hq / G;
+  const float* kvb = BIAS == kKvb ? kvb_row(ex, dm, b) : nullptr;
+  const float* fb = BIAS == kFb ? fb_plane(ex, dm, b, hq) : nullptr;
+  const uint32_t salt = DROP ? drop_salt(ex.seed, b, hk) : 0u;
+  const int frow0 = (hq % G) * dm.Lq;
+  const int n_k = (dm.Lk + kTcK - 1) / kTcK;
+  const int q_end = min(q0 + kTcQ, dm.Lq);
+  const int n_live = dm.causal ? min((q_end + kTcK - 1) / kTcK, n_k) : n_k;
+
+  tc_load_rows<D>(qs, q, b, q0, dm.Lq, dm.Hq, hq);
+  tc_load_rows<D>(kvs, k, b, 0, dm.Lk, dm.Hkv, hk);
+  tc_load_rows<D>(kvs + TILE, v, b, 0, dm.Lk, dm.Hkv, hk);
+  tc::cp_async_commit();
+
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};     // rows g and g + 8
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  const int qrow[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+
+  for (int kt = 0; kt < n_live; ++kt) {
+    const int k0 = kt * kTcK;
+    if (kt + 1 < n_live) {
+      unsigned char* nxt = kvs + ((kt + 1) & 1) * 2 * TILE;
+      tc_load_rows<D>(nxt, k, b, k0 + kTcK, dm.Lk, dm.Hkv, hk);
+      tc_load_rows<D>(nxt + TILE, v, b, k0 + kTcK, dm.Lk, dm.Hkv, hk);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();                          // tile kt (and Q) landed
+    const unsigned char* ks = kvs + (kt & 1) * 2 * TILE;
+    const unsigned char* vs = ks + TILE;
+
+    // s = q.k over the tile: n8 tile n holds keys k0 + 8n + 2t + {0, 1}
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D / 16; ++d) {
+      uint32_t a[4];
+      tc::ldmatrix_x4(a, qs + tc::swz(16 * warp + (lane & 15),
+                                      2 * d + (lane >> 4), RB));
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bb[4];
+        tc::ldmatrix_x4(bb, ks + tc::swz(16 * np + (lane & 7) +
+                                             8 * (lane >> 4),
+                                         2 * d + ((lane >> 3) & 1), RB));
+        tc::mma_bf16(s[2 * np], a, bb[0], bb[1]);
+        tc::mma_bf16(s[2 * np + 1], a, bb[2], bb[3]);
+      }
+    }
+
+    // the online softmax of rows g (h 0) and g + 8 (h 1); the four lanes
+    // of a quad share a row. Only a tile that reaches past Lk or (causal)
+    // past the warp's first row needs the mask; the test is warp-uniform.
+    const bool edge = k0 + kTcK > dm.Lk ||
+                      (dm.causal && k0 + kTcK - 1 > q0 + 16 * warp);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qpos = qrow[h];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = __fmul_rn(s[n][2 * h + e], dm.scale);   // (q.k)*scale
+          if (BIAS != kNoBias)
+            x += bias_at<BIAS>(kvb, fb, dm, qpos, k0 + 8 * n + 2 * t + e);
+          s[n][2 * h + e] = x;
+        }
+      if (edge) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kpos = k0 + 8 * n + 2 * t + e;
+            if (kpos >= dm.Lk || (dm.causal && qpos < kpos))
+              s[n][2 * h + e] = kNeg;
+          }
+      }
+      float mx = kNeg;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          s[n][2 * h + e] = expf(s[n][2 * h + e] - m_new);
+      if (edge) {                             // masked p is 0, not exp(0)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kpos = k0 + 8 * n + 2 * t + e;
+            if (kpos >= dm.Lk || (dm.causal && qpos < kpos))
+              s[n][2 * h + e] = 0.f;
+          }
+      }
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = s[n][2 * h + e];
+          sum += p;                           // l sums the undropped p
+          if (DROP)
+            s[n][2 * h + e] =
+                drop_keep(salt, frow0 + qpos, k0 + 8 * n + 2 * t + e,
+                          ex.thresh) ? __fmul_rn(p, ex.keep_scale) : 0.f;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float corr = expf(m[h] - m_new);
+      l[h] = __fmul_rn(l[h], corr) + sum;
+      m[h] = m_new;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[n][2 * h] *= corr;
+        o[n][2 * h + 1] *= corr;
+      }
+    }
+
+    // o += p.v, p rounded to bf16 (round to nearest), f32 accumulate
+#pragma unroll
+    for (int kk = 0; kk < kTcK / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = tc::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = tc::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bb[4];
+        tc::ldmatrix_x4_trans(bb, vs + tc::swz(16 * kk + (lane & 7) +
+                                                   8 * ((lane >> 3) & 1),
+                                               2 * dp + (lane >> 4), RB));
+        tc::mma_bf16(o[2 * dp], a, bb[0], bb[1]);
+        tc::mma_bf16(o[2 * dp + 1], a, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();                          // this stage is free again
+  }
+  tc::cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = qrow[h];
+    if (row >= dm.Lq) continue;
+    const float lsafe = fmaxf(l[h], kDenomEps);
+    __nv_bfloat16* orow =
+        out + ((static_cast<size_t>(b) * dm.Lq + row) * dm.Hq + hq) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t) =
+          tc::pack_bf16(o[n][2 * h] / lsafe, o[n][2 * h + 1] / lsafe);
+    if (t == 0)
+      lse[(static_cast<size_t>(b) * dm.Hq + hq) * dm.Lq + row] =
+          m[h] + logf(lsafe);
   }
 }
 
@@ -575,11 +821,21 @@ cudaError_t launch(int which, const Args& a, Dims dm, Extra ex,
   const T* gp = static_cast<const T*>(a.dout);
   cudaError_t err;
   if (which == 0) {
-    const size_t smem = sizeof(float) * (2 * BT * DP + BT * D);
-    auto kern = flash_fwd_kernel<T, D, TM, BIAS, DROP>;
-    if ((err = set_smem(kern, smem)) != cudaSuccess) return err;
-    kern<<<dim3((dm.Lq + BT - 1) / BT, dm.Hq, dm.B), kThreads, smem, st>>>(
-        qp, kp, vp, static_cast<T*>(a.o0), a.lse, dm, ex);
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      // bf16: the tensor-core forward (Q, then K and V in 2 stages)
+      const size_t smem = static_cast<size_t>(5) * kTcK * D * 2;
+      auto kern = flash_fwd_tc_kernel<D, BIAS, DROP>;
+      if ((err = set_smem(kern, smem)) != cudaSuccess) return err;
+      kern<<<dim3((dm.Lq + kTcQ - 1) / kTcQ, dm.Hq, dm.B), kTcThreads, smem,
+             st>>>(qp, kp, vp, static_cast<T*>(a.o0), a.lse, dm, ex);
+    } else {
+      // f32: the SIMT forward
+      const size_t smem = sizeof(float) * (2 * BT * DP + BT * D);
+      auto kern = flash_fwd_kernel<T, D, TM, BIAS, DROP>;
+      if ((err = set_smem(kern, smem)) != cudaSuccess) return err;
+      kern<<<dim3((dm.Lq + BT - 1) / BT, dm.Hq, dm.B), kThreads, smem, st>>>(
+          qp, kp, vp, static_cast<T*>(a.o0), a.lse, dm, ex);
+    }
   } else if (which == 1) {
     const size_t smem = sizeof(float) * 4 * BT * DP;
     auto kern = flash_dq_kernel<T, D, TM, BIAS, DROP>;
@@ -626,13 +882,24 @@ cudaError_t dispatch(int which, int D, const Args& a, Dims dm, Extra ex,
   }
 }
 
+// route (may be null): set to the body that ran, 1 for the tensor-core
+// forward (bf16), 0 for a SIMT body (f32 forward; dQ and dK/dV).
 int run(int which, const Args& a, const float* kvb, const float* fb, int B,
         int Lq, int Lk, int Hq, int Hkv, int D, int causal, int kvb_b,
         int fb_b, int fb_h, float scale, uint32_t seed, uint32_t thresh,
-        float keep_scale, int dtype, int device, void* stream) {
+        float keep_scale, int dtype, int device, void* stream,
+        int* route = nullptr) {
   if (B < 1 || Lq < 1 || Lk < 1 || Hkv < 1 || Hq < Hkv || Hq % Hkv ||
       B > 65535 || Hq > 65535 || (kvb && fb))
     return cudaErrorInvalidValue;
+  // the tensor-core forward copies 16-byte rows (the wrapper copies a
+  // view off that alignment to a fresh buffer first)
+  if (which == 0 && dtype == 1 &&
+      (reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+       reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.o0)) %
+          16)
+    return cudaErrorMisalignedAddress;
+  if (route) *route = which == 0 && dtype == 1 ? 1 : 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Dims dm{B, Lq, Lk, Hq, Hkv, causal ? 1 : 0, scale};
@@ -664,9 +931,9 @@ int run(int which, const Args& a, const float* kvb, const float* fb, int B,
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const float* kvb, const float* fb, void* out,
-                         float* lse, FLASH_TAIL) {
+                         float* lse, int* route, FLASH_TAIL) {
   const Args a{q, k, v, nullptr, lse, nullptr, out, nullptr};
-  return run(0, a, kvb, fb, FLASH_PASS);
+  return run(0, a, kvb, fb, FLASH_PASS, route);
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,

@@ -9,14 +9,19 @@ the same f32 input.
 
 `w4_matmul(x, packed, scale, K)` computes x [..., K] @ W [K, N] with f32
 accumulation, out in x's dtype. Its kernel is the hand-written CUDA
-`csrc/w4_matmul.cu`: the nibbles unpack in shared memory, so the
-dequantized weight never exists in device memory; it takes any S, K
-(odd included) and N, with no padding in device memory (the JAX
-wrapper's pow2 blocks and its odd-K detour are TPU tiling). Its plain
-version `_w4_ref` is the JAX `_w4_ref`: the f32 product with the
-dequantized f32 weight. A wrapper takes the plain version only for
-tensors on the CPU; on CUDA tensors it launches the kernel or raises.
-`kernel_launches` / `plain_launches` count the calls of each.
+`csrc/w4_matmul.cu`: bf16 x runs on the tensor cores (bf16 mma on x and
+the exact integers -7..7, unpacked in registers, the scale in the
+epilogue; one body for decode rows, S <= 16, another for longer S, both
+cutting K into the same slices, so a row's bits do not depend on S), f32
+x on the CUDA cores (SIMT). The dequantized weight never exists in
+device memory; it takes any S, K (odd included) and N, with no padding
+in device memory (the JAX wrapper's pow2 blocks and its odd-K detour are
+TPU tiling). Its plain version `_w4_ref` is the JAX `_w4_ref`: the f32
+product with the dequantized f32 weight. A wrapper takes the plain
+version only for tensors on the CPU; on CUDA tensors it launches the
+kernel or raises. `kernel_launches` / `plain_launches` count the calls
+of each; `branch_launches` counts kernel launches by the body that ran
+("w4_matmul[tc_decode]", "w4_matmul[tc_prefill]", "w4_matmul[simt]").
 """
 import ctypes
 
@@ -26,16 +31,20 @@ from . import _build
 from ..quantization import quantize_weight
 
 __all__ = ["quantize_w4", "w4_matmul", "kernel_launches", "plain_launches",
-           "reset_counts"]
+           "branch_launches", "reset_counts"]
 
 kernel_launches = 0
 plain_launches = 0
+branch_launches = {}        # "w4_matmul[tc_decode]": launches, ...
+_ROUTES = ("simt", "tc_decode", "tc_prefill")   # the C side's route codes
+_KEYS = tuple(f"w4_matmul[{r}]" for r in _ROUTES)
 
 
 def reset_counts():
     global kernel_launches, plain_launches
     kernel_launches = 0
     plain_launches = 0
+    branch_launches.clear()
 
 
 def quantize_w4(w):
@@ -68,6 +77,7 @@ def _w4_ref(x, packed, scale, K):
 
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
+_PACKED = (torch.int8, torch.uint8)
 _lib = None
 
 
@@ -76,7 +86,8 @@ def _kernel_lib():
     if _lib is None:
         lib = _build.load("w4_matmul")
         lib.w4_matmul_forward.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+            + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         lib.w4_matmul_forward.restype = ctypes.c_int
         lib.w4_matmul_error_string.argtypes = [ctypes.c_int]
         lib.w4_matmul_error_string.restype = ctypes.c_char_p
@@ -86,18 +97,22 @@ def _kernel_lib():
 
 def _launch(x, packed, scale, K):
     """Check the operands and launch the CUDA kernel on the current
-    stream. x [S, K] -> [S, N]."""
+    stream. x [S, K] -> [S, N]. At decode the kernel runs for about as
+    long as this function takes, so the checks read plain attributes
+    (device index, flags) and the stream handle comes without a Stream
+    object."""
     global kernel_launches
     S = x.shape[0]
     N = packed.shape[1]
-    for t in (x, packed, scale):
-        if t.device != x.device:
-            raise ValueError(f"w4_matmul: operands on {t.device} and "
-                             f"{x.device}")
-        if not t.is_contiguous():
-            raise ValueError("w4_matmul: operands must be contiguous")
-    if x.dtype not in _CODES or packed.dtype not in (torch.int8,
-                                                     torch.uint8) \
+    dev = x.get_device()
+    if packed.get_device() != dev or scale.get_device() != dev:
+        raise ValueError(f"w4_matmul: operands on {x.device}, "
+                         f"{packed.device} and {scale.device}")
+    if not (x.is_contiguous() and packed.is_contiguous()
+            and scale.is_contiguous()):
+        raise ValueError("w4_matmul: operands must be contiguous")
+    code = _CODES.get(x.dtype)
+    if code is None or packed.dtype not in _PACKED \
             or scale.dtype != torch.float32:
         raise TypeError(f"w4_matmul kernel takes float32/bfloat16 x, int8 "
                         f"packed nibbles and float32 scales, got {x.dtype}, "
@@ -109,29 +124,33 @@ def _launch(x, packed, scale, K):
     out = torch.empty((S, N), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    lib = _kernel_lib()
+    lib = _lib or _kernel_lib()
+    route = ctypes.c_int(-1)
     rc = lib.w4_matmul_forward(
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        S, K, N, _CODES[x.dtype], x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        S, K, N, code, dev, torch._C._cuda_getCurrentRawStream(dev),
+        ctypes.byref(route))
     if rc:
         raise RuntimeError(
             "w4_matmul kernel launch failed: "
             f"{lib.w4_matmul_error_string(rc).decode()} ({rc})")
     kernel_launches += 1
+    key = _KEYS[route.value]
+    branch_launches[key] = branch_launches.get(key, 0) + 1
     return out
 
 
 def w4_matmul(x, packed, scale, K):
     """x [..., K] @ the int4-packed weight -> [..., N] in x's dtype."""
     global plain_launches
-    lead = x.shape[:-1]
     if x.shape[-1] != K:
         raise ValueError(f"w4_matmul: x has {x.shape[-1]} columns, the "
                          f"weight {K} rows")
-    xf = x.reshape(-1, K)
-    N = packed.shape[1]
+    flat = x.dim() == 2
+    xf = x if flat else x.reshape(-1, K)
     if x.device.type == "cpu":
         plain_launches += 1
-        return _w4_ref(xf, packed, scale, K).reshape(*lead, N)
-    return _launch(xf, packed, scale, K).reshape(*lead, N)
+        out = _w4_ref(xf, packed, scale, K)
+    else:
+        out = _launch(xf, packed, scale, K)
+    return out if flat else out.reshape(*x.shape[:-1], packed.shape[1])
