@@ -38,22 +38,27 @@ entry points are driven at gpt_1p3b's attention width:
 F.sparse_attention forward and backward on a BigBird CSR at L 4096, and
 a PagedKVCache of the serving pool's geometry filled with 16 sequences
 and read by paged_attention. The bf16 W4 matmul and the bf16 flash
-forward run on the tensor cores: the W4 checks hold the first S rows of
-x, S in 1, 16, 17, 64 and 300, bit-equal alone and inside a 2048-row
-call, and time the kernel and cuBLAS both eagerly and as device time
-(CUDA-graph replay), beside the earlier design's time; the flash checks
-hold the bf16 forward of every branch (head_dim 64, 128, 256; causal,
-GQA, ragged, a view off 16-byte alignment) against its plain walk at
-the same rounding points, and show on walks with a misplaced rounding
-point that the tolerance rejects them; the training phases check that
-every forward took the tensor-core body. Every phase raises on failure. The output
+forward, dQ and dK/dV run on the tensor cores: the W4 checks hold the
+first S rows of x, S in 1, 16, 17, 64 and 300, bit-equal alone and
+inside a 2048-row call, and time the kernel and cuBLAS both eagerly and
+as device time (CUDA-graph replay), beside the earlier design's time;
+the flash checks hold the bf16 forward and backward of every branch
+(head_dim 64, 128, 256; causal, GQA, ragged, Lq != Lk, a view off
+16-byte alignment) against their plain walks at the same rounding
+points, require two backward runs to be bit-equal, and show on walks
+with a misplaced rounding point that the tolerances reject them; the
+timing phases time dQ + dK/dV together against SDPA's backward; the
+training phases check that every forward, dQ and dK/dV took its
+tensor-core body. Every phase raises on failure. The output
 is one line per phase, then one JSON line with the kernels' numbers, the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the package next
 to it, the script exits non-zero and prints no result. Imports only
 torch, numpy and the port (never jax or paddle_tpu).
 """
+import ctypes
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -144,10 +149,55 @@ def phase_environment():
         build_wall_s=f"{time.perf_counter() - t0:.2f}",
         **{f"build_s[{k}]": f"{v:.2f}" for k, v in secs.items()})
     for name, text in _build.build_logs.items():
-        for fn, regs, spill in _ptxas_entries(text):
+        entries = _ptxas_entries(text)
+        for fn, regs, spill in entries:
             log("ptxas", kernel=name, fn=repr(fn), info=repr(regs),
                 spill=repr(spill))
+        if name == "flash_attention":
+            _ptxas_bwd(entries)
+    if "flash_attention" not in _build.build_logs:
+        log("ptxas_bwd", checked=False, reason="library built before this run")
     return smi
+
+
+# The bf16 backward's bodies by head_dim: the tensor-core dQ and dK/dV at
+# 64 and 128, the SIMT bodies at 256 (the bf16 template argument).
+_BWD_BODIES = (("flash_dq_tc_kernel<", 64), ("flash_dq_tc_kernel<", 128),
+               ("flash_dq_kernel<__nv_bfloat16, 256", 256),
+               ("flash_dkv_tc_kernel<", 64), ("flash_dkv_tc_kernel<", 128),
+               ("flash_dkv_kernel<__nv_bfloat16, 256", 256))
+
+
+def _ptxas_number(pattern, text):
+    m = re.search(pattern, text)
+    return int(m.group(1)) if m else 0
+
+
+def _ptxas_bwd(entries):
+    """One line per bf16 backward body and head_dim: the registers and
+    the spill stores (bytes) over its six bias x dropout branches.
+    Raises if a tensor-core body (head_dim 64, 128) is missing from
+    ptxas's report or spills; the SIMT bodies at 256 are reported
+    only."""
+    for prefix, d in _BWD_BODIES:
+        got = [(_ptxas_number(r"Used (\d+) registers", regs),
+                _ptxas_number(r"(\d+) bytes spill stores", spill))
+               for fn, regs, spill in entries
+               if fn and fn.startswith(prefix) and
+               (d == 256 or fn.startswith(f"{prefix}{d},"))]
+        tc = "_tc_" in prefix
+        spill = max((b for _, b in got), default=None)
+        if got:
+            log("ptxas_bwd", body=prefix.rstrip("<").split("<")[0],
+                head_dim=d, branches=len(got),
+                registers=f"{min(r for r, _ in got)}-{max(r for r, _ in got)}",
+                spill_store_bytes=spill)
+        else:
+            log("ptxas_bwd", body=repr(prefix + str(d)), found=0)
+        if tc and (len(got) != 6 or spill):
+            raise RuntimeError(
+                f"ptxas: {prefix}{d},...> has {len(got)} of its 6 branches "
+                f"in the report, spill stores {spill} bytes (0 required)")
 
 
 def _ptxas_entries(text):
@@ -951,17 +1001,18 @@ def _rand_at_offset(gen, shape, dtype):
 FLIP_ROWS = 0.05
 
 
-def _points_gap(out, at_points, w):
+def _points_gap(out, at_points, w, flip_rows=FLIP_ROWS, c=1.0):
     """bf16 `out` against the plain walk at the rounding points
-    (`at_points`, f32 before its cast; `w` = sum_k (p_use_k / l) |v_k|):
-    (max abs err, share of rows with an element beyond one bf16 ulp of
-    |out| plus 1e-5, max of err / (ulp + 1e-5 + 2^-7 w), whether that is
-    within `_check_fwd`'s tolerance)."""
+    (`at_points`, f32 before its cast; `w` the weight of the p rounding,
+    for the forward sum_k (p_use_k / l) |v_k|): (max abs err, share of
+    rows with an element beyond one bf16 ulp of |out| plus 1e-5, max of
+    err / (ulp + 1e-5 + c 2^-7 w), whether that is at most 1 with at
+    most `flip_rows` of the rows beyond)."""
     err = (out.float() - at_points).abs()
     tight = bf16_ulp(at_points) + 1e-5
     beyond = float((err > tight).any(-1).float().mean())
-    ratio = float((err / (tight + 2 ** -7 * w)).max())
-    within = ratio <= 1.0 and beyond <= FLIP_ROWS and \
+    ratio = float((err / (tight + c * 2 ** -7 * w)).max())
+    within = ratio <= 1.0 and beyond <= flip_rows and \
         bool(torch.isfinite(out).all())
     return float(err.max()), beyond, ratio, within
 
@@ -1037,6 +1088,154 @@ def _fwd_controls(A, name, q, k, v, causal, sc, ex):
             rejected=not within)
 
 
+# The bf16 backward (the tensor-core dQ and dK/dV) against its plain walk
+# at the rounding points (`_check_bwd`): an element bound of one bf16 ulp
+# + 1e-5 + BWD_C 2^-7 W, and at most BWD_FLIP_ROWS of the rows of each
+# gradient beyond one ulp + 1e-5. The kernel's f32 s and dp differ from
+# the walk's by the order of their f32 sums; where a dS (or p_use) lies
+# that close to a bf16 rounding tie, the two round it to neighbours one
+# bf16 step (<= 2^-7 |dS|) apart, which moves dQ by up to 2^-7 |dS_k|
+# |K_k| (dK, dV alike): c = 1 is that bound. Measured on an H100 over
+# every case of both check phases: at most 0.78% of rows beyond one ulp
+# and err / bound <= 0.52; a misplaced rounding point puts 85-100% of
+# rows beyond (`_bwd_controls`), so the cap of 5% separates the two.
+BWD_C = 1.0
+BWD_FLIP_ROWS = 0.05
+GRADS = ("dq", "dk", "dv")
+
+
+def _bwd_weights(A, q, k, v, do, lse, delta, causal, sc, ex):
+    """((W_dq, W_dk, W_dv), (dq, dk) of a misplaced walk), f32 and shaped
+    as dq, dk, dv. W: sum_k |dS_k| |K_k|, sum_q |dS_q| |Q_q| over the
+    group's heads and sum_q |p_use_q| |dO_q|, from the f32 walk's p and
+    dS over key tiles. The misplaced walk (`_bwd_controls`) applies the
+    scale after dS's rounding: bf16(p (dp - delta)) scale."""
+    qh, kh, vh = A._heads(q, k, v)
+    doh = do.float().transpose(1, 2)
+    B, H, Lq, D = qh.shape
+    Lk, Hkv = kh.shape[2], k.shape[2]
+    wq, sq = torch.zeros_like(qh), torch.zeros_like(qh)
+    wk, wv, sk = (torch.zeros_like(kh) for _ in range(3))
+    for k0 in range(0, Lk, A._BLOCK):
+        k1 = min(k0 + A._BLOCK, Lk)
+        s = (qh @ kh[:, :, k0:k1].transpose(-1, -2)) * sc
+        bias = ex.bias(k0, k1)
+        if bias is not None:
+            s = s + bias
+        keep = A._tile_mask(Lq, k0, k1, causal, q.device)
+        if keep is not None:
+            s = torch.where(keep, s, A._NEG)
+        p = torch.exp(s - lse[..., None])
+        dp = doh @ vh[:, :, k0:k1].transpose(-1, -2)
+        pu = p
+        drop = ex.drop(q, k, k0, k1)
+        if drop is not None:
+            pu, dp = p * drop, dp * drop
+        ds_late = A._bf16(p * (dp - delta[..., None])) * sc
+        sq += ds_late @ kh[:, :, k0:k1]
+        sk[:, :, k0:k1] = ds_late.transpose(-1, -2) @ qh
+        ds = (p * (dp - delta[..., None]) * sc).abs()
+        wq += ds @ kh[:, :, k0:k1].abs()
+        wk[:, :, k0:k1] = ds.transpose(-1, -2) @ qh.abs()
+        wv[:, :, k0:k1] = pu.transpose(-1, -2) @ doh.abs()
+        del s, p, dp, pu, ds, ds_late
+    fold = lambda x: x.reshape(B, Hkv, H // Hkv, Lk, D).sum(2).transpose(1, 2)
+    return ((wq.transpose(1, 2), fold(wk), fold(wv)),
+            (sq.transpose(1, 2), fold(sk)))
+
+
+def _bwd_routes(A, run):
+    """run() under a look at the launch counters: its result and, for dQ
+    and dK/dV, whether the launch took a tensor-core body."""
+    before = dict(A.branch_launches)
+    res = run()
+    new = [key for key, n in A.branch_launches.items()
+           if n != before.get(key, 0) and key.startswith("flash_bwd")]
+    return res, {name: f"{name}[tc," in "".join(new)
+                 for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+
+
+def _check_bwd(A, name, q, k, v, do, causal, sc, ex, out, lse):
+    """dQ, dK, dV of the card's backward against the plain version on the
+    same inputs, and a second run bit-equal to the first. f32 and the
+    SIMT bodies (bf16 at head_dim 256): `_check_close` against the f32
+    walk. bf16 on the tensor-core bodies: against `_bwd_ref`'s walk at
+    the rounding points (f32 before its cast), `_points_gap` with
+    BWD_FLIP_ROWS and BWD_C, W from `_bwd_weights`. Raises unless both
+    launches took the tensor-core bodies exactly where they are due
+    (bf16 at `_TC_BWD_HEAD_DIMS`). Returns ({grad: max abs err}, max
+    share of rows beyond one ulp, max err / bound)."""
+    grads, tc = _bwd_routes(A, lambda: A._bwd(q, k, v, out, lse, do, causal,
+                                              sc, ex))
+    want_tc = (q.dtype == torch.bfloat16 and
+               q.shape[3] in A._TC_BWD_HEAD_DIMS)
+    if any(t != want_tc for t in tc.values()):
+        raise AssertionError(
+            f"{name}: backward bodies {tc}, expected tensor-core bodies "
+            f"{want_tc} for {q.dtype} at head_dim {q.shape[3]}")
+    again = A._bwd(q, k, v, out, lse, do, causal, sc, ex)
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"{name}: two backward runs differ")
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    if not want_tc:
+        r32 = A._bwd_ref(q.float(), k.float(), v.float(), do.float(), lse,
+                         delta, causal, sc, ex)
+        return ({g: _check_close(f"{name} {g}", x, r.to(q.dtype), r)
+                 for g, x, r in zip(GRADS, grads, r32)}, 0.0, 0.0)
+    at_points = A._bwd_ref(q, k, v, do, lse, delta, causal, sc, ex,
+                           f32_out=True)
+    w, _ = _bwd_weights(A, q, k, v, do, lse, delta, causal, sc, ex)
+    errs, beyond, ratio = {}, 0.0, 0.0
+    for g, x, at, wg in zip(GRADS, grads, at_points, w):
+        e, b, r, within = _points_gap(x, at, wg, BWD_FLIP_ROWS, BWD_C)
+        if not within:
+            raise AssertionError(
+                f"{name} {g}: bf16 gradient off the plain walk at the "
+                f"rounding points (max err {e:.3e}, rows beyond one ulp "
+                f"{b:.4f}, max err / (ulp + 1e-5 + {BWD_C} 2^-7 W) "
+                f"{r:.3f})")
+        errs[g], beyond, ratio = e, max(beyond, b), max(ratio, r)
+    return errs, beyond, ratio
+
+
+def _bwd_controls(A, name, q, k, v, do, causal, sc, ex, out, lse):
+    """Controls of `_check_bwd`'s bf16 tolerance: the plain walk with one
+    rounding point misplaced, held against the sound walk as a kernel's
+    bf16 gradients would be, must be rejected in the gradients that
+    point moves: dS left unrounded (dQ, dK) and p_use left unrounded
+    (dV), both the f32 walk on the same bf16 values; the scale applied
+    after dS's rounding (dQ, dK; from `_bwd_weights`' tile walk).
+    At a power-of-two scale (head_dim 64) the scale's place is exact and
+    that walk is the sound one, so it must then pass. Logs each
+    control's largest share of rows beyond one ulp and max err / bound;
+    raises if the check mistakes one."""
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (lse, delta, causal, sc, ex)
+    at_points = A._bwd_ref(q, k, v, do, *args, f32_out=True)
+    w, scale_walk = _bwd_weights(A, q, k, v, do, *args)
+    f32_walk = A._bwd_ref(*(t.float() for t in (q, k, v, do)), *args)
+    exact_scale = float(np.log2(sc)).is_integer()
+    for control, walk, moved in (("ds_unrounded", f32_walk, (0, 1)),
+                                 ("p_unrounded", f32_walk, (2,)),
+                                 ("scale_after_ds_rounding", scale_walk,
+                                  (0, 1))):
+        gaps = [_points_gap(walk[i].to(q.dtype), at_points[i], w[i],
+                            BWD_FLIP_ROWS, BWD_C) for i in moved]
+        within = all(gp[3] for gp in gaps)
+        beyond = max(gp[1] for gp in gaps)
+        ratio = max(gp[2] for gp in gaps)
+        sound = control == "scale_after_ds_rounding" and exact_scale
+        if within != sound:
+            raise AssertionError(
+                f"{name}: control {control} {'failed' if sound else 'passed'}"
+                f" the bf16 backward's check (rows beyond one ulp "
+                f"{beyond:.4f}, max err / bound {ratio:.3f})")
+        log("kernel", form=f"control {name}", control=control,
+            grads="/".join(GRADS[i] for i in moved),
+            rows_beyond_ulp=f"{beyond:.4f}", err_over_bound=f"{ratio:.3f}",
+            rejected=not within)
+
+
 def phase_train_kernel_checks(A, LN, X):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     err = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -1052,7 +1251,7 @@ def phase_train_kernel_checks(A, LN, X):
             q = make(gen, (B, L, Hq, D), dtype)
             k = make(gen, (B, L, Hkv, D), dtype)
             v = make(gen, (B, L, Hkv, D), dtype)
-            do = _rand(gen, (B, L, Hq, D), dtype)
+            do = make(gen, (B, L, Hq, D), dtype)
             sc = D ** -0.5
             out, lse = A._fwd(q, k, v, causal, sc)
             e_out, e_lse, beyond, ratio = _check_fwd(
@@ -1062,21 +1261,25 @@ def phase_train_kernel_checks(A, LN, X):
                 _fwd_controls(A, f"flash {case} D={D}", q, k, v, causal, sc,
                               A._NONE)
             err["flash_fwd"] = max(err["flash_fwd"], e_out, e_lse)
-            grads = A._bwd(q, k, v, out, lse, do, causal, sc)
-            delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
-            r32 = A._bwd_ref(q.float(), k.float(), v.float(), do.float(),
-                             lse, delta.contiguous(), causal, sc)
-            check("flash_bwd_dq", grads[0], r32[0].to(dtype), r32[0])
-            for g, r in zip(grads[1:], r32[1:]):
-                check("flash_bwd_dkv", g, r.to(dtype), r)
+            be, b_beyond, b_ratio = _check_bwd(
+                A, f"flash {case} {dt}", q, k, v, do, causal, sc, A._NONE,
+                out, lse)
+            if case == "train" and dtype == torch.bfloat16:
+                _bwd_controls(A, f"flash {case} D={D}", q, k, v, do, causal,
+                              sc, A._NONE, out, lse)
+            err["flash_bwd_dq"] = max(err["flash_bwd_dq"], be["dq"])
+            err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], be["dk"],
+                                       be["dv"])
             log("kernel", form=f"flash {case} B={B} L={L} Hq={Hq} Hkv={Hkv} "
                 f"D={D} causal={causal}", dtype=dt,
                 fwd_err=f"{err['flash_fwd']:.3e}",
                 fwd_rows_beyond_ulp=f"{beyond:.4f}",
                 fwd_err_over_bound=f"{ratio:.3f}",
                 dq_err=f"{err['flash_bwd_dq']:.3e}",
-                dkv_err=f"{err['flash_bwd_dkv']:.3e}")
-            del q, k, v, do, out, lse, grads, r32
+                dkv_err=f"{err['flash_bwd_dkv']:.3e}",
+                bwd_rows_beyond_ulp=f"{b_beyond:.4f}",
+                bwd_err_over_bound=f"{b_ratio:.3f}", bwd_bit_equal=True)
+            del q, k, v, do, out, lse
         x = _rand(gen, (TN, THID), dtype, 2.0)
         w, b = _rand(gen, (THID,), dtype), _rand(gen, (THID,), dtype)
         plain32 = LN._ln_kernel_ref(x.float(), w.float(), b.float(), 1e-5)
@@ -1138,24 +1341,18 @@ def phase_train_kernel_timing(A, LN, X):
         dot = do.transpose(1, 2)
         sdpa_bwd = cuda_ms(lambda i=0: torch.autograd.grad(
             so, (qt, kt, vt), dot, retain_graph=True), 20)
+    dq_run, dkv_run = _bwd_raw(A, q, k, v, do, lse, delta, A._tail(
+        (TB, TL, TL, TH, TH, TD), True, sc, q))
     specs = {
         "flash_fwd": (lambda i=0: A._fwd(q, k, v, True, sc),
                       lambda i=0: A._fwd_ref(q, k, v, True, sc),
                       sdpa_fwd, 4 * io + rows, 4 * TD * pairs),
         "flash_bwd_dq": (
-            lambda i=0: _ok(A._kernel_lib().flash_bwd_dq(
-                *_flash_ptrs(q, k, v, do, lse, delta),
-                torch.empty_like(q).data_ptr(), *A._tail(
-                    (TB, TL, TL, TH, TH, TD), True, sc, q))),
-            lambda i=0: A._bwd_ref(q, k, v, do, lse, delta, True, sc),
+            dq_run, lambda i=0: A._bwd_ref(q, k, v, do, lse, delta, True, sc),
             sdpa_bwd, 5 * io + 2 * rows, 6 * TD * pairs),
         "flash_bwd_dkv": (
-            lambda i=0: _ok(A._kernel_lib().flash_bwd_dkv(
-                *_flash_ptrs(q, k, v, do, lse, delta),
-                torch.empty_like(k).data_ptr(),
-                torch.empty_like(v).data_ptr(), *A._tail(
-                    (TB, TL, TL, TH, TH, TD), True, sc, q))),
-            lambda i=0: A._bwd_ref(q, k, v, do, lse, delta, True, sc),
+            dkv_run, lambda i=0: A._bwd_ref(q, k, v, do, lse, delta, True,
+                                            sc),
             sdpa_bwd, 6 * io + 2 * rows, 8 * TD * pairs),
     }
     x = _rand(gen, (TN, THID), bf, 2.0)
@@ -1197,28 +1394,82 @@ def phase_train_kernel_timing(A, LN, X):
             bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
             achieved_TFLOPs=f"{flops / ms / 1e9:.2f}",
             achieved_GBps=f"{nbytes / ms / 1e6:.1f}",
-            **_fwd_goal(name, "gpt", ms, library_ms))
+            **_goal(name, "gpt", ms, library_ms))
+    _bwd_pair(out, "gpt", f"B={TB} L={TL} H={TH} D={TD} causal bf16",
+              dq_run, dkv_run, 7 * io + 2 * rows, pairs, TD)
     return out
 
 
-# The SIMT forward's times at GPT's shape and at BERT's kvb + dropout,
-# as this script measured them (PERF.md kernel table row 2; NVIDIA H100
-# 80GB HBM3, 700 W), against which the tensor-core forward is reported,
-# with the goal: within 2x the library call.
-FWD_EARLIER_MS = {"gpt": 1.8524, "bert": 1.3089}
+# The SIMT bodies' times at GPT's shape and at BERT's kvb + dropout, as
+# this script measured them (PERF.md kernel table rows 2-4; NVIDIA H100
+# 80GB HBM3, 700 W), against which the tensor-core bodies are reported,
+# with the goals: the forward within 2x the library call, dQ + dK/dV
+# together within 3x SDPA's whole backward.
+EARLIER_MS = {"gpt": {"flash_fwd": 1.8524, "flash_bwd_dq": 3.2571,
+                      "flash_bwd_dkv": 3.5654},
+              "bert": {"flash_fwd": 1.3089, "flash_bwd_dq": 1.7991,
+                       "flash_bwd_dkv": 2.2088}}
 
 
-def _fwd_goal(name, shape, ms, library_ms):
-    if name != "flash_fwd":
+def _goal(name, shape, ms, library_ms):
+    if name not in EARLIER_MS[shape]:
         return {}
-    return {"earlier_ms": FWD_EARLIER_MS[shape], "goal_2x_library": (
-        "met" if ms <= 2 * library_ms else "missed")}
+    goal = {"earlier_ms": EARLIER_MS[shape][name]}
+    if name == "flash_fwd":
+        goal["goal_2x_library"] = "met" if ms <= 2 * library_ms else "missed"
+    return goal
 
 
-def _ok(rc):
-    """A raw kernel call (timed alone, so not counted) that must launch."""
+def _bwd_pair(out, shape, label, dq_run, dkv_run, nbytes, pairs, d):
+    """The dQ + dK/dV pair, run back to back, against SDPA's whole
+    backward (dQ, dK, dV in one call), the goal within 3x the library
+    call. Its bound is that of the function both compute: `nbytes` (q,
+    k, v, dO and the bias read once, lse and delta, dq, dk, dv written
+    once) and 10 D flops a (query, key) pair (S, dP, dV, dK, dQ). The
+    two kernels do 14 D (`work_flops`): dQ recomputes S and dP, the
+    price of summing without atomics, not work the function needs."""
+    rows = [out[n if shape == "gpt" else f"{n}[{MASKED}]"]
+            for n in ("flash_bwd_dq", "flash_bwd_dkv")]
+    ms = cuda_ms(lambda i=0: (dq_run(), dkv_run()), 10)
+    library_ms = rows[0]["library_ms"]
+    flops = 10 * d * pairs
+    bound_ms, bound_by = _bound(nbytes, flops)
+    earlier = sum(EARLIER_MS[shape][n] for n in ("flash_bwd_dq",
+                                                  "flash_bwd_dkv"))
+    log("kernel_time", kernel="flash_bwd_pair", shape=label, ms=f"{ms:.4f}",
+        library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by, achieved_TFLOPs=f"{flops / ms / 1e9:.2f}",
+        work_flops=14 * d * pairs,
+        work_TFLOPs=f"{14 * d * pairs / ms / 1e9:.2f}",
+        over_library=f"{ms / library_ms:.2f}", earlier_ms=f"{earlier:.4f}",
+        goal_3x_library="met" if ms <= 3 * library_ms else "missed")
+
+
+def _ok(rc, route=None):
+    """A raw kernel call (timed alone, so not counted) that must launch,
+    and, given its `route`, on a tensor-core body."""
     if rc:
         raise RuntimeError(f"kernel launch failed ({rc})")
+    if route is not None and route.value != 1:
+        raise RuntimeError("the timed launch took a SIMT body")
+
+
+def _bwd_raw(A, q, k, v, do, lse, delta, tail, kvb=None, fb=None):
+    """Raw dQ and dK/dV launches into buffers made once (timed alone, so
+    not counted), each required to take its tensor-core body."""
+    lib = A._kernel_lib()
+    ptrs = _flash_ptrs(q, k, v, do, lse, delta, kvb, fb)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    route = ctypes.c_int(-1)
+
+    def dq_run(i=0):
+        _ok(lib.flash_bwd_dq(*ptrs, dq.data_ptr(), ctypes.byref(route),
+                             *tail), route)
+
+    def dkv_run(i=0):
+        _ok(lib.flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(),
+                              ctypes.byref(route), *tail), route)
+    return dq_run, dkv_run
 
 
 def _flash_ptrs(q, k, v, do, lse, delta, kvb=None, fb=None):
@@ -1320,8 +1571,9 @@ def phase_training(A, LN, X, smi):
     per_step = {k: v / TRAIN_STEPS for k, v in kern.items()}
     expected = {**EXPECTED_PER_STEP, "adamw": len(trainer.params)}
     branches = dict(A.branch_launches)
-    if per_step != expected or any(plain.values()) or \
-            branches.get("flash_fwd[tc,none]") != kern["flash_fwd"]:
+    if per_step != expected or any(plain.values()) or any(
+            branches.get(f"{name}[tc,none]") != kern[name]
+            for name in A.KERNELS):
         raise AssertionError(f"launches a step {per_step} (expected "
                              f"{expected}), by body and branch {branches}, "
                              f"plain {plain}")
@@ -1458,8 +1710,11 @@ MASKED = "kvb+dropout"           # the branch every BERT attention call takes
 # padding bias, a full bias per (batch, head), a bool mask, GQA with a
 # per-key bias, a ragged length; then the branches not covered yet at
 # each head_dim (no mask at 64, 128, 256; kvb at 256; fb at 128 and 256),
-# ragged, GQA, causal and not. With rates 0 and 0.1 every branch runs
-# with and without dropout at head_dim 64, 128 and 256.
+# ragged, GQA, causal and not; and a full bias with Lq != Lk both ways
+# (L is then (Lq, Lk): a backward that swapped the query and key of the
+# transposed dK/dV tiles would read fb off its [qpos, kpos] there). With
+# rates 0 and 0.1 every branch runs with and without dropout at head_dim
+# 64, 128 and 256.
 MASKED_CASES = [("bert", BB, BL, BH, BH, BD, False, "kvb"),
                 ("fb", 2, 256, 4, 4, 64, False, "fb"),
                 ("bool", 2, 256, 2, 2, 64, False, "bool"),
@@ -1470,7 +1725,9 @@ MASKED_CASES = [("bert", BB, BL, BH, BH, BD, False, "kvb"),
                 ("none256", 2, 200, 4, 2, 256, True, "none"),
                 ("kvb256", 2, 256, 2, 2, 256, False, "kvb"),
                 ("fb128", 2, 200, 4, 2, 128, True, "fb"),
-                ("fb256", 2, 200, 2, 1, 256, True, "fb")]
+                ("fb256", 2, 200, 2, 1, 256, True, "fb"),
+                ("fb_rect", 2, (200, 328), 4, 2, 64, False, "fb"),
+                ("fb_rect128", 2, (328, 200), 4, 2, 128, True, "fb")]
 KEEP_FRACTION_TOL = 0.005
 
 
@@ -1482,14 +1739,14 @@ def _padding_bias(rng, B, L):
     return torch.from_numpy((1.0 - m) * -1e4)[:, None, None, :].cuda()
 
 
-def _masked_mask(kind, gen, rng, B, L, Hq):
+def _masked_mask(kind, gen, rng, B, Lq, Lk, Hq):
     if kind == "none":
         return None
     if kind == "kvb":
-        return _padding_bias(rng, B, L)
+        return _padding_bias(rng, B, Lk)
     if kind == "fb":
-        return torch.randn((B, Hq, L, L), generator=gen, device="cuda") * 2
-    return torch.rand((B, 1, 1, L), generator=gen, device="cuda") > 0.25
+        return torch.randn((B, Hq, Lq, Lk), generator=gen, device="cuda") * 2
+    return torch.rand((B, 1, 1, Lk), generator=gen, device="cuda") > 0.25
 
 
 def phase_bert_kernel_checks(A, LN):
@@ -1499,7 +1756,8 @@ def phase_bert_kernel_checks(A, LN):
     rates 0 and 0.1), the card's keep-mask against the plain version's
     (exact) and its kept fraction at the BERT shape, and LayerNorm at the
     BERT width with both of BERT's epsilons. Tolerance: `_check_fwd` for
-    the forward, `_check_close` for the rest."""
+    the forward, `_check_bwd` for dQ and dK/dV (with its controls at the
+    BERT shape), `_check_close` for the rest."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     rng = np.random.RandomState(SEED + 6)
     err = {k: 0.0 for k in A.KERNELS}
@@ -1507,13 +1765,14 @@ def phase_bert_kernel_checks(A, LN):
         dt = str(dtype)[6:]
         for rate in (0.0, BERT_RATE):
             for case, B, L, Hq, Hkv, D, causal, kind in MASKED_CASES:
-                q = _rand(gen, (B, L, Hq, D), dtype)
-                k = _rand(gen, (B, L, Hkv, D), dtype)
-                v = _rand(gen, (B, L, Hkv, D), dtype)
-                do = _rand(gen, (B, L, Hq, D), dtype)
-                mask = _masked_mask(kind, gen, rng, B, L, Hq)
+                Lq, Lk = L if isinstance(L, tuple) else (L, L)
+                q = _rand(gen, (B, Lq, Hq, D), dtype)
+                k = _rand(gen, (B, Lk, Hkv, D), dtype)
+                v = _rand(gen, (B, Lk, Hkv, D), dtype)
+                do = _rand(gen, (B, Lq, Hq, D), dtype)
+                mask = _masked_mask(kind, gen, rng, B, Lq, Lk, Hq)
                 kvb, fb = ((None, None) if mask is None else
-                           A._normalize_mask(mask, B, Hq, L, L))
+                           A._normalize_mask(mask, B, Hq, Lq, Lk))
                 ex = A._Extras(kvb, fb, rate, int(rng.randint(1 << 24)))
                 sc = D ** -0.5
                 out, lse = A._fwd(q, k, v, causal, sc, ex)
@@ -1523,26 +1782,28 @@ def phase_bert_kernel_checks(A, LN):
                 if case == "bert" and dtype == torch.bfloat16:
                     _fwd_controls(A, f"flash[{ex.branch}] {case} D={D}", q,
                                   k, v, causal, sc, ex)
-                e = {"flash_fwd": max(e_out, e_lse)}
-                grads = A._bwd(q, k, v, out, lse, do, causal, sc, ex)
-                delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
-                r32 = A._bwd_ref(q.float(), k.float(), v.float(), do.float(),
-                                 lse, delta.contiguous(), causal, sc, ex)
-                e["flash_bwd_dq"] = _check_close("dq", grads[0],
-                                                 r32[0].to(dtype), r32[0])
-                e["flash_bwd_dkv"] = max(
-                    _check_close("dkv", g, r.to(dtype), r)
-                    for g, r in zip(grads[1:], r32[1:]))
+                be, b_beyond, b_ratio = _check_bwd(
+                    A, f"flash[{ex.branch}] {case} {dt}", q, k, v, do,
+                    causal, sc, ex, out, lse)
+                if case == "bert" and dtype == torch.bfloat16:
+                    _bwd_controls(A, f"flash[{ex.branch}] {case} D={D}", q,
+                                  k, v, do, causal, sc, ex, out, lse)
+                e = {"flash_fwd": max(e_out, e_lse),
+                     "flash_bwd_dq": be["dq"],
+                     "flash_bwd_dkv": max(be["dk"], be["dv"])}
                 for name, x in e.items():
                     err[name] = max(err[name], x)
-                log("kernel", form=f"flash[{ex.branch}] {case} B={B} L={L} "
-                    f"Hq={Hq} Hkv={Hkv} D={D} causal={causal}", dtype=dt,
+                log("kernel", form=f"flash[{ex.branch}] {case} B={B} "
+                    f"Lq={Lq} Lk={Lk} Hq={Hq} Hkv={Hkv} D={D} "
+                    f"causal={causal}", dtype=dt,
                     fwd_err=f"{e['flash_fwd']:.3e}",
                     fwd_rows_beyond_ulp=f"{beyond:.4f}",
                     fwd_err_over_bound=f"{ratio:.3f}",
                     dq_err=f"{e['flash_bwd_dq']:.3e}",
-                    dkv_err=f"{e['flash_bwd_dkv']:.3e}")
-                del q, k, v, do, out, lse, grads, r32, kvb, fb, mask
+                    dkv_err=f"{e['flash_bwd_dkv']:.3e}",
+                    bwd_rows_beyond_ulp=f"{b_beyond:.4f}",
+                    bwd_err_over_bound=f"{b_ratio:.3f}", bwd_bit_equal=True)
+                del q, k, v, do, out, lse, kvb, fb, mask
     for seed, (B, Hq, Hkv, L) in ((SEED + 7, (BB, BH, BH, BL)),
                                   (SEED + 8, (2, 4, 2, 500))):
         keep = A.dropout_keep_on_card(seed, B, Hq, Hkv, L, L, BERT_RATE,
@@ -1607,8 +1868,9 @@ def phase_bert_kernel_timing(A, LN):
         bias_bytes = sum(t.numel() * 4 for t in (kvb, fb) if t is not None)
         o, lse = A._fwd(q, k, v, False, sc, ex)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        tail = A._tail((BB, BL, BL, BH, BH, BD), False, sc, q, ex)
-        ptrs = _flash_ptrs(q, k, v, do, lse, delta, kvb, fb)
+        dq_run, dkv_run = _bwd_raw(
+            A, q, k, v, do, lse, delta,
+            A._tail((BB, BL, BL, BH, BH, BD), False, sc, q, ex), kvb, fb)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
         lib_mask = None if mask is None else mask.to(bf)
@@ -1627,16 +1889,13 @@ def phase_bert_kernel_timing(A, LN):
                           sdpa_fwd, 4 * _BIO + _BROWS + bias_bytes,
                           4 * BD * _BPAIRS),
             "flash_bwd_dq": (
-                lambda i=0: _ok(A._kernel_lib().flash_bwd_dq(
-                    *ptrs, torch.empty_like(q).data_ptr(), *tail)),
+                dq_run,
                 lambda i=0: A._bwd_ref(q, k, v, do, lse, delta, False, sc,
                                        ex),
                 sdpa_bwd, 5 * _BIO + 2 * _BROWS + bias_bytes,
                 6 * BD * _BPAIRS),
             "flash_bwd_dkv": (
-                lambda i=0: _ok(A._kernel_lib().flash_bwd_dkv(
-                    *ptrs, torch.empty_like(k).data_ptr(),
-                    torch.empty_like(v).data_ptr(), *tail)),
+                dkv_run,
                 lambda i=0: A._bwd_ref(q, k, v, do, lse, delta, False, sc,
                                        ex),
                 sdpa_bwd, 6 * _BIO + 2 * _BROWS + bias_bytes,
@@ -1654,9 +1913,13 @@ def phase_bert_kernel_timing(A, LN):
                 plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
                 bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
                 achieved_TFLOPs=f"{flops / ms / 1e9:.2f}",
-                **(_fwd_goal(name, "bert", ms, library_ms)
+                **(_goal(name, "bert", ms, library_ms)
                    if branch == MASKED else {}))
-        del o, lse, delta, so, qt, kt, vt, kvb, fb
+        if branch == MASKED:
+            _bwd_pair(out, "bert", f"B={BB} L={BL} H={BH} D={BD} bf16 "
+                      f"{MASKED}", dq_run, dkv_run,
+                      7 * _BIO + 2 * _BROWS + bias_bytes, _BPAIRS, BD)
+        del o, lse, delta, so, qt, kt, vt, kvb, fb, dq_run, dkv_run
     x = _rand(gen, (BB * BL, BHID), bf, 2.0)
     w, b = _rand(gen, (BHID,), bf), _rand(gen, (BHID,), bf)
     ms = cuda_ms(lambda i=0: LN._launch(x, w, b, 1e-12), 20)
@@ -1725,9 +1988,9 @@ def _bert_trainer(cfg, device=None, lr=1e-4, acc_dtype="bfloat16",
 
 
 def _branch_key(name):
-    """`branch_launches`' key of a bf16 BERT launch: the forward runs the
-    tensor-core body, dQ and dK/dV a SIMT body."""
-    return f"{name}[{'tc' if name == 'flash_fwd' else 'simt'},{MASKED}]"
+    """`branch_launches`' key of a bf16 BERT launch: the forward, dQ and
+    dK/dV all run their tensor-core bodies."""
+    return f"{name}[tc,{MASKED}]"
 
 
 def phase_bert_training(A, LN, X, smi):

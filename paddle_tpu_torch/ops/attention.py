@@ -17,11 +17,13 @@ Two implementations of the same math:
     backward recomputes P from the saved log-sum-exp. In f32 it is the
     TPU kernels' arithmetic; for bf16 q/k/v the forward follows the
     tensor-core kernel's rounding points (s = (q.k)*scale on the stored
-    values, p rounded to bf16 before P.V, 64-key tiles);
+    values, p rounded to bf16 before P.V, 64-key tiles), and the
+    backward the tensor-core dQ and dK/dV's (dS and p_use rounded to
+    bf16 before their products, f32 sums);
   * the hand-written CUDA kernels `csrc/flash_attention.cu` (forward,
-    dQ, dK/dV), templated on the bias kind and on dropout; the bf16
-    forward runs on the tensor cores, the f32 forward and both backward
-    kernels on the CUDA cores (SIMT).
+    dQ, dK/dV), templated on the bias kind and on dropout; bf16 runs on
+    the tensor cores (dQ and dK/dV at head_dim 64 and 128; head_dim 256
+    keeps their SIMT bodies), f32 on the CUDA cores (SIMT).
 `flash_attention` is a `torch.autograd.Function`: its forward saves the
 f32 log-sum-exp, its backward computes delta = sum(dO*O) in f32 as a
 torch op and then runs dQ and dK/dV with the same bias and seed. A
@@ -29,7 +31,7 @@ wrapper takes the plain version only for tensors on the CPU; on CUDA
 tensors it launches the kernel or raises. `kernel_launches` /
 `plain_launches` count each, per kernel; `branch_launches` counts the
 kernel launches per body and template branch
-("flash_fwd[tc,kvb+dropout]", "flash_bwd_dq[simt,kvb+dropout]").
+("flash_fwd[tc,kvb+dropout]", "flash_bwd_dq[tc,kvb+dropout]").
 
 `mha_reference` is the JAX package's plain reference (probabilities cast
 to q's dtype before P.V, mask and hash dropout included);
@@ -57,6 +59,10 @@ _NEG = -1e30
 _DENOM_EPS = 1e-30
 _BLOCK = 128          # key tile of the plain version's f32 walk
 _TC_BLOCK = 64        # key tile of the bf16 tensor-core kernel and its walk
+# head dims of the bf16 tensor-core dQ and dK/dV; at 256 their dK + dV
+# accumulators do not fit the registers, and bf16 keeps the SIMT bodies
+# (the f32 walk's arithmetic)
+_TC_BWD_HEAD_DIMS = (64, 128)
 
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 kernel_launches = dict.fromkeys(KERNELS, 0)
@@ -284,6 +290,11 @@ class _Extras:
 _NONE = _Extras()
 
 
+def _bf16(x):
+    """f32 x rounded to bf16 (nearest), as f32."""
+    return x.to(torch.bfloat16).float()
+
+
 def _fwd_ref(q, k, v, causal, scale, ex=_NONE, f32_out=False):
     """Plain forward: (out [B, Lq, Hq, D] in q's dtype, or f32 with
     `f32_out`; lse f32 [B, Hq, Lq]). The denominator sums the undropped
@@ -330,7 +341,7 @@ def _fwd_ref(q, k, v, causal, scale, ex=_NONE, f32_out=False):
         if drop is not None:
             p = p * drop
         if tc:
-            p = p.to(torch.bfloat16).float()
+            p = _bf16(p)
         acc = acc * corr + p @ vh[:, :, k0:k1]
         m = m_new
     lsafe = l.clamp_min(_DENOM_EPS)
@@ -339,10 +350,25 @@ def _fwd_ref(q, k, v, causal, scale, ex=_NONE, f32_out=False):
     return (out if f32_out else out.to(q.dtype)), lse
 
 
-def _bwd_ref(q, k, v, dout, lse, delta, causal, scale, ex=_NONE):
+def _bwd_ref(q, k, v, dout, lse, delta, causal, scale, ex=_NONE,
+             f32_out=False):
     """Plain backward from the saved lse and delta ([B, Hq, Lq] f32):
-    (dq, dk, dv) in the dtypes of q, k, v. dS takes the undropped p and
-    the dropped dP; dV the dropped p."""
+    (dq, dk, dv) in the dtypes of q, k, v, or f32 with `f32_out`. dS
+    takes the undropped p and the dropped dP; dV the dropped p.
+
+    f32 q/k/v, and bf16 at head_dim 256 (the SIMT bodies): the TPU
+    kernels' arithmetic, every product in f32. bf16 q/k/v at head_dim 64
+    and 128: the tensor-core kernels' rounding points (p comes from the
+    final lse, not a running max, so the roundings do not depend on the
+    key tiles): (1) s = (q.k)*scale on the stored bf16 values, the scale
+    on the f32 score, p = exp(s + bias - lse) in f32; (2) dp = dO.v on
+    the stored values, an f32 sum, times keep / (1 - rate); (3) dS =
+    p*(dp - delta)*scale in f32, then rounded to bf16 (nearest) for dS.K
+    and dS^T.Q; (4) p_use (p * keep / (1 - rate), or p) rounded to bf16
+    for p_use^T.dO; (5) every product summed in f32 (over key tiles for
+    dQ; over query rows and the group's heads for dK and dV), rounded
+    once at the end."""
+    tc = q.dtype == torch.bfloat16 and q.shape[3] in _TC_BWD_HEAD_DIMS
     qh, kh, vh = _heads(q, k, v)
     doh = dout.float().transpose(1, 2)
     B, H, Lq, D = qh.shape
@@ -369,6 +395,8 @@ def _bwd_ref(q, k, v, dout, lse, delta, causal, scale, ex=_NONE):
             p_drop = p * drop
             dp = dp * drop
         ds = p * (dp - delta_) * scale
+        if tc:
+            ds, p_drop = _bf16(ds), _bf16(p_drop)
         dq += ds @ kt
         dkh[:, :, k0:k1] = ds.transpose(-1, -2) @ qh
         dvh[:, :, k0:k1] = p_drop.transpose(-1, -2) @ doh
@@ -376,7 +404,10 @@ def _bwd_ref(q, k, v, dout, lse, delta, causal, scale, ex=_NONE):
     G = H // Hkv
     dk = dkh.reshape(B, Hkv, G, Lk, D).sum(2).transpose(1, 2)
     dv = dvh.reshape(B, Hkv, G, Lk, D).sum(2).transpose(1, 2)
-    return (dq.transpose(1, 2).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    dq = dq.transpose(1, 2)
+    if f32_out:
+        return dq, dk, dv
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
 # ---------------------------------------------------------------- kernel
@@ -395,10 +426,10 @@ def _kernel_lib():
                                        ctypes.c_uint32, ctypes.c_float,
                                        ctypes.c_int, ctypes.c_int,
                                        ctypes.c_void_p])
-        lib.flash_fwd.argtypes = ([ctypes.c_void_p] * 7
-                                  + [ctypes.POINTER(ctypes.c_int)] + tail)
-        lib.flash_bwd_dq.argtypes = [ctypes.c_void_p] * 9 + tail
-        lib.flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 10 + tail
+        route = [ctypes.POINTER(ctypes.c_int)]
+        lib.flash_fwd.argtypes = [ctypes.c_void_p] * 7 + route + tail
+        lib.flash_bwd_dq.argtypes = [ctypes.c_void_p] * 9 + route + tail
+        lib.flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 10 + route + tail
         lib.flash_dropout_keep.argtypes = (
             [ctypes.c_void_p] + [ctypes.c_int] * 5
             + [ctypes.c_uint32] * 2 + [ctypes.c_int, ctypes.c_void_p])
@@ -460,8 +491,8 @@ def _check_extras(ex, dims, device):
 
 def _raise_on(rc, name, lib, ex, route=0):
     """Raise on a failed launch; else count it, by kernel and by body and
-    template branch ("flash_fwd[tc,kvb+dropout]": `route` 1 is the
-    tensor-core forward, 0 a SIMT body)."""
+    template branch ("flash_fwd[tc,kvb+dropout]": `route` 1 is a
+    tensor-core body, 0 a SIMT body)."""
     if rc:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.flash_error_string(rc).decode()} ({rc})")
@@ -499,10 +530,7 @@ def _fwd(q, k, v, causal, scale, ex=_NONE):
     _check_extras(ex, dims, q.device)
     B, Lq, _, Hq, _, _ = dims
     if q.dtype == torch.bfloat16:
-        # the tensor-core body copies 16-byte rows: a view at a storage
-        # offset off that alignment is copied to a fresh buffer first
-        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in (q, k, v))
+        q, k, v = _aligned(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
     lib = _kernel_lib()
@@ -530,6 +558,10 @@ def _bwd(q, k, v, out, lse, dout, causal, scale, ex=_NONE):
             lse.dtype != torch.float32:
         raise ValueError("flash_attention: lse and delta must be f32 "
                          f"[B, Hq, Lq] = {(B, Hq, Lq)}")
+    if q.dtype == torch.bfloat16:
+        # as in `_fwd`: the saved q, k, v are the caller's tensors, not
+        # the forward's aligned copies
+        q, k, v, dout = _aligned(q, k, v, dout)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -537,11 +569,19 @@ def _bwd(q, k, v, out, lse, dout, causal, scale, ex=_NONE):
     tail = _tail(dims, causal, scale, q, ex)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), *_head(ex))
-    _raise_on(lib.flash_bwd_dq(*ins, dq.data_ptr(), *tail),
-              "flash_bwd_dq", lib, ex)
-    _raise_on(lib.flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *tail),
-              "flash_bwd_dkv", lib, ex)
+    route = ctypes.c_int(-1)
+    rc = lib.flash_bwd_dq(*ins, dq.data_ptr(), ctypes.byref(route), *tail)
+    _raise_on(rc, "flash_bwd_dq", lib, ex, route.value)
+    rc = lib.flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(),
+                           ctypes.byref(route), *tail)
+    _raise_on(rc, "flash_bwd_dkv", lib, ex, route.value)
     return dq, dk, dv
+
+
+def _aligned(*ts):
+    """The tensor-core bodies copy 16-byte rows: a view at a storage
+    offset off that alignment is copied to a fresh buffer first."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
 
 
 def dropout_keep_on_card(seed, B, Hq, Hkv, Lq, Lk, rate, device):

@@ -1,8 +1,9 @@
 // Tensor-core tile helpers for Hopper (sm_90a), shared by the port's bf16
-// kernels (w4_matmul.cu, flash_attention.cu): 16-byte asynchronous copies
-// into shared memory (cp.async, with zero fill), the XOR swizzle that lets
-// ldmatrix read eight 16-byte rows from eight different bank groups,
-// ldmatrix, and the bf16 mma.sync m16n8k16 with an f32 accumulator.
+// kernels (w4_matmul.cu, flash_attention.cu): 16- and 4-byte asynchronous
+// copies into shared memory (cp.async, with zero fill), the XOR swizzle
+// that lets ldmatrix read eight 16-byte rows from eight different bank
+// groups, ldmatrix, and the bf16 mma.sync m16n8k16 with an f32
+// accumulator.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 g + t, g = lane / 4, t =
 // lane % 4), as the helpers below assume them:
@@ -31,6 +32,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes (one f32), through L1; `src_bytes` 4 or 0 as above.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
