@@ -49,7 +49,11 @@ points, require two backward runs to be bit-equal, and show on walks
 with a misplaced rounding point that the tolerances reject them; the
 timing phases time dQ + dK/dV together against SDPA's backward; the
 training phases check that every forward, dQ and dK/dV took its
-tensor-core body. Every phase raises on failure. The output
+tensor-core body. The ragged and paged decode attention (one split page
+walk, chunks merged in order) are held on rows across up to eight
+chunks, with two launches and the split and unsplit launches bit-equal,
+no register spills in any of their bodies, and a chunked-prefill timing
+row beside the decode one. Every phase raises on failure. The output
 is one line per phase, then one JSON line with the kernels' numbers, the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the package next
@@ -155,9 +159,40 @@ def phase_environment():
                 spill=repr(spill))
         if name == "flash_attention":
             _ptxas_bwd(entries)
-    if "flash_attention" not in _build.build_logs:
-        log("ptxas_bwd", checked=False, reason="library built before this run")
+        if name in DECODE_SOURCES:
+            _ptxas_decode(name, entries)
+    for name in ("flash_attention",) + DECODE_SOURCES:
+        if name not in _build.build_logs:
+            log("ptxas_bwd" if name == "flash_attention" else "ptxas_decode",
+                source=name, checked=False,
+                reason="library built before this run")
     return smi
+
+
+# The split decode-attention bodies (csrc/decode_attention.cuh) by source:
+# the walk and the merge kernel of each.
+DECODE_SOURCES = ("ragged_paged_attention", "paged_attention")
+
+
+def _ptxas_decode(name, entries):
+    """One line per kernel of a decode-attention source (the walk over
+    every dtype x layout x head_dim x key-tile instantiation, and the
+    split merge): instantiations, registers and spill stores. Raises if
+    one is missing or any spills."""
+    for kern, want in ((f"{name}_kernel<", 48 if name.startswith("ragged")
+                        else 16), (f"{name}_merge_kernel<", 8)):
+        got = [(_ptxas_number(r"Used (\d+) registers", regs),
+                _ptxas_number(r"(\d+) bytes spill stores", spill))
+               for fn, regs, spill in entries if fn and fn.startswith(kern)]
+        spill = max((b for _, b in got), default=None)
+        log("ptxas_decode", kernel=kern.rstrip("<"), instantiations=len(got),
+            registers=(f"{min(r for r, _ in got)}-{max(r for r, _ in got)}"
+                       if got else "none"),
+            spill_store_bytes=spill)
+        if len(got) != want or spill:
+            raise RuntimeError(f"ptxas: {kern}...> has {len(got)} of its "
+                               f"{want} instantiations in the report, spill "
+                               f"stores {spill} bytes (0 required)")
 
 
 # The bf16 backward's bodies by head_dim: the tensor-core dQ and dK/dV at
@@ -327,29 +362,35 @@ def phase_kernel_checks(rpa, layout="bf16"):
             max_err = max(max_err, err)
             log("kernel", form="dense", **pool, W=W,
                 max_abs_err=f"{err:.3e}")
-            if W == 16:
-                # bit-identity: each query alone (W=1), inside the W=16
-                # window, and inside a shuffled packed stream
-                alone = torch.cat([rpa.ragged_paged_attention(
+            if W in (16, 64):
+                # bit-identity: each query alone (W=1, W 16 only), inside
+                # the window (both launch plans at W 64: 4-query tiles),
+                # and inside a shuffled packed stream (single queries; an
+                # unsplit launch at W 16, a split one at W 64)
+                same = [torch.cat([rpa.ragged_paged_attention(
                     q[:, j:j + 1].contiguous(), kp, vp, table, start + j)
-                    for j in range(W)], dim=1)
+                    for j in range(W)], dim=1)] if W == 16 else [
+                    rpa._launch(q, kp, vp, table, None, start, scale,
+                                split=s) for s in (True, False)]
                 rows = torch.arange(n, device="cuda").repeat_interleave(W)
                 pos = (start[:, None] + torch.arange(
                     W, device="cuda")).reshape(-1)
                 perm = torch.randperm(n * W, generator=gen, device="cuda")
-                packed = rpa.ragged_paged_attention_packed(
+                packed = rpa._launch(
                     q.reshape(n * W, H, D)[perm].contiguous(), kp, vp,
                     table, rows[perm].int().contiguous(),
-                    pos[perm].int().contiguous())
+                    pos[perm].int().contiguous(), scale, split=W == 64)
                 unperm = torch.empty_like(packed)
                 unperm[perm] = packed
-                if not (torch.equal(alone, got) and
+                if not (all(torch.equal(x, got) for x in same) and
                         torch.equal(unperm.reshape(n, W, H, D), got)):
                     raise AssertionError(
                         f"{pool}: a query's output differs between W=1, "
-                        "a W=16 window and a packed stream")
-                log("kernel", check="bit-identical W=1 == W=16 window == "
-                    "shuffled packed stream", **pool)
+                        f"a W={W} window and a packed stream")
+                log("kernel", check=f"bit-identical {'W=1 == ' if W == 16 else ''}"
+                    f"W={W} window == shuffled packed stream",
+                    launches="split, unsplit stream" if W == 16 else
+                    "window split == unsplit, split stream", **pool)
         # packed T=64: 3 rows prefilling 16-token chunks + 16 decode rows
         rows = np.concatenate([np.repeat([2, 5, 9], 16),
                                np.arange(16)]).astype(np.int32)
@@ -368,6 +409,66 @@ def phase_kernel_checks(rpa, layout="bf16"):
         max_err = max(max_err, err)
         log("kernel", form="packed", **pool, T=64, max_abs_err=f"{err:.3e}")
     torch.cuda.synchronize()
+    return max_err
+
+
+def phase_kernel_long_rows(rpa, layout="bf16"):
+    """Rows crossing >= 3 chunks of CHUNK_PAGES pages on one pool layout,
+    f32 and bf16 queries: a packed stream whose positions sit on chunk
+    boundaries (the first and the last key of a chunk, chunks 0-7) and
+    dense W = 3 windows straddling them, each against the plain version
+    (which walks the same chunks and merges them the same way); two
+    launches bit-equal; the split launch (chunks in blocks of their own,
+    merged by a second kernel) bit-equal to the unsplit one (a tile's
+    chunks in one block)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rng = np.random.RandomState(SEED + 3)
+    P = 16 * MP + 1
+    span = rpa.CHUNK_PAGES * PS                 # keys a chunk
+    edges = sorted({0, span - 1, span, 3 * span - 1, 3 * span,
+                    5 * span + 7, MP * PS - 1})
+    qpools = None if layout == "bf16" else \
+        [_layer_pool(x, 0) for x in _quant_pool(gen, P, layout)]
+    n = len(edges)
+    table = _table(rng, n, P)
+    scale = 1.0 / D ** 0.5
+    max_err, launches = 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        if qpools is None:
+            kp, vp = (x[0] for x in _pool(gen, P, dtype))
+            kp32, vp32 = kp.float(), vp.float()
+        else:
+            (kp, vp), (kp32, vp32) = qpools, qpools
+        pos = torch.tensor(edges, dtype=torch.int32, device="cuda")
+        rows = torch.arange(n, dtype=torch.int32, device="cuda")
+        q = torch.randn((n, H, D), generator=gen, device="cuda").to(dtype)
+        before = rpa.device_launches
+        got = rpa._launch(q, kp, vp, table, rows, pos, scale, split=True)
+        again = rpa._launch(q, kp, vp, table, rows, pos, scale, split=True)
+        launches[str(dtype)[6:]] = (rpa.device_launches - before) // 2
+        plain = _ref(rpa, q[:, None], kp, vp, table, pos, scale)[:, 0]
+        plain32 = _ref(rpa, q[:, None].float(), kp32, vp32, table, pos,
+                       scale)[:, 0]
+        max_err = max(max_err, _check_close("long rows packed", got, plain,
+                                            plain32))
+        # dense windows of 3 straddling each boundary (start = edge - 1)
+        start = (pos - 1).clamp(0, MP * PS - 3).contiguous()
+        qd = torch.randn((n, 3, H, D), generator=gen, device="cuda").to(dtype)
+        dense = rpa.ragged_paged_attention(qd, kp, vp, table, start)
+        max_err = max(max_err, _check_close(
+            "long rows dense", dense,
+            _ref(rpa, qd, kp, vp, table, start, scale),
+            _ref(rpa, qd.float(), kp32, vp32, table, start, scale)))
+        unsplit = rpa._launch(q, kp, vp, table, rows, pos, scale,
+                              split=False)
+        if not (torch.equal(got, again) and torch.equal(got, unsplit)):
+            raise AssertionError(f"{layout} {dtype}: two launches, or the "
+                                 "split and unsplit launches, differ")
+    torch.cuda.synchronize()
+    log("kernel", check="long rows: two launches bit-equal, split == "
+        "unsplit bit-equal", pool=layout, positions=edges,
+        chunks_crossed=f"1-{max(edges) // span + 1}", chunk_pages=rpa.CHUNK_PAGES,
+        split_launch_device_launches=launches, max_abs_err=f"{max_err:.3e}")
     return max_err
 
 
@@ -394,12 +495,47 @@ def _dequantized(rpa, pool, l, table):
     return g.to(torch.bfloat16).reshape(table.shape[0], MP * PS, H, D)
 
 
+# The ragged kernel's eager times before the redesign (H100 80GB HBM3,
+# 700 W): serial page walk, one block per (token, head).
+RPA_EARLIER_MS = {"bf16": 0.3054, "int8": 0.4731, "int4": 0.4895}
+# the chunk-mix shape: one row's 128-token prefill chunk at 512..639
+CHUNK_ROW_POS, CHUNK_TOKENS = 512, 128
+
+
+def _rpa_readings(rpa, kern, plain, library, nbytes, flops, iters):
+    """The ragged kernel's time beside its plain version and a library
+    yardstick: eager CUDA events around `iters` calls (`ms`, as PRs 1-8
+    timed it; a call whose Python outlasts its kernel is host time), the
+    same calls replayed from a CUDA graph (`device_ms`: device time
+    alone), each side's host time a call, the bound (bytes over 3.35 TB/s
+    or f32 flops over 67 TFLOP/s, the larger) and the device launches a
+    wrapper call makes."""
+    before = (rpa.kernel_launches, rpa.device_launches)
+    kern()
+    calls = rpa.kernel_launches - before[0]
+    launches = rpa.device_launches - before[1]
+    r = {"ms": cuda_ms(kern, iters), "device_ms": cuda_graph_ms(kern, iters),
+         "plain_ms": cuda_ms(plain, 3),
+         "library_ms": cuda_ms(library, iters),
+         "library_device_ms": cuda_graph_ms(library, iters)}
+    host = {"host_us": host_us(kern, iters),
+            "library_host_us": host_us(library, iters)}
+    bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / H100_F32_FLOPS * 1e3
+    r["bound_ms"], r["bound_by"] = max((bytes_ms, "bytes"),
+                                       (ops_ms, "operations"))
+    return r, host, launches / max(calls, 1)
+
+
 def phase_kernel_timing(rpa, layout="bf16", layers=24):
     """Time the kernel at the serving path's decode shape: one packed
     decode token per slot (T=16), context positions drawn like the
     served requests', bf16 queries over pools of all 24 layers in
     `layout` (each launch reads the next layer's pool, as a serving tick
-    does, so the 50 MB L2 does not hold the pages between launches)."""
+    does, so the 50 MB L2 does not hold the pages between launches).
+    Library: one SDPA call over K/V gathered (and dequantized) to dense
+    bf16 with a causal key mask. Goals: below the library on each
+    reading; stretch: within 4x the byte bound (25% of its rate)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rng = np.random.RandomState(SEED + 1)
     P = 16 * MP + 1
@@ -416,14 +552,18 @@ def phase_kernel_timing(rpa, layout="bf16", layers=24):
                     device="cuda").to(torch.bfloat16)
     scale = 1.0 / D ** 0.5
 
+    # each layer's views made once: a timed call is the wrapper's alone
+    ql = list(q)
+    kl = [_layer_pool(kp, l) for l in range(layers)]
+    vl = [_layer_pool(vp, l) for l in range(layers)]
+
     def kern(i=0):
         return rpa.ragged_paged_attention_packed(
-            q[i % layers], _layer_pool(kp, i % layers),
-            _layer_pool(vp, i % layers), table, rows, pos)
+            ql[i % layers], kl[i % layers], vl[i % layers], table, rows, pos)
 
     def plain(i=0):
-        return _ref(rpa, q[i % layers][:, None], _layer_pool(kp, i % layers),
-                    _layer_pool(vp, i % layers), table, pos, scale)
+        return _ref(rpa, ql[i % layers][:, None], kl[i % layers],
+                    vl[i % layers], table, pos, scale)
 
     # yardstick only, never called by the port: one SDPA call over K/V
     # gathered (and dequantized) to dense bf16 [T, H, MP*PS, D] with a
@@ -433,30 +573,194 @@ def phase_kernel_timing(rpa, layout="bf16", layers=24):
     mask = (torch.arange(MP * PS, device="cuda")[None, :]
             <= pos[:, None].long())[:, None, None, :]
 
+    qd = [x[:, :, None] for x in ql]
+
     def library(i=0):
         return torch.nn.functional.scaled_dot_product_attention(
-            q[i % layers][:, :, None],
-            kd[i % 2], vd[i % 2], attn_mask=mask, scale=scale)
+            qd[i % layers], kd[i % 2], vd[i % 2], attn_mask=mask,
+            scale=scale)
 
-    ms = cuda_ms(kern, 240)
-    plain_ms = cuda_ms(plain, 24)
-    library_ms = cuda_ms(library, 240)
     keys = pos_np.astype(np.int64) + 1
     kv_bytes = int(keys.sum()) * _pool_token_read_bytes(layout)
     io_bytes = 2 * T * H * D * 2 + 4 * (2 * T + int((keys + PS - 1).sum()
                                                     // PS))
     flops = int(keys.sum()) * H * 4 * D                  # q.k and p.v
-    bytes_ms = (kv_bytes + io_bytes) / H100_HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / H100_F32_FLOPS * 1e3
-    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    r, host, per_call = _rpa_readings(rpa, kern, plain, library,
+                                      kv_bytes + io_bytes, flops, 240)
     log("kernel_time", pool=layout, shape=f"packed T={T} H={H} D={D} "
         f"ps={PS} MP={MP} bf16 q mean_ctx={keys.mean():.1f}",
-        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-        bound_by=bound_by,
-        achieved_GBps=f"{(kv_bytes + io_bytes) / ms / 1e6:.1f}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+        **{k: f"{v:.4f}" for k, v in r.items() if k != "bound_by"},
+        bound_by=r["bound_by"], **{k: f"{v:.2f}" for k, v in host.items()},
+        earlier_ms=RPA_EARLIER_MS[layout],
+        device_launches_per_call=f"{per_call:g}",
+        achieved_GBps=f"{(kv_bytes + io_bytes) / r['device_ms'] / 1e6:.1f}",
+        **_rpa_goals(r))
+    return r
+
+
+def _rpa_goals(r):
+    """The redesign's goals on both readings: below the library call, and
+    the stretch of 25% of the bound's rate (ms <= 4 x bound_ms)."""
+    out = {}
+    for reading, ms, lib in (("eager", r["ms"], r["library_ms"]),
+                             ("device", r["device_ms"],
+                              r["library_device_ms"])):
+        out[f"goal_below_library_{reading}"] = \
+            "met" if ms < lib else "missed"
+        out[f"stretch_4x_bound_{reading}"] = \
+            "met" if ms <= 4 * r["bound_ms"] else "missed"
+    return out
+
+
+def phase_chunk_mix_timing(rpa, layout="bf16", layers=24):
+    """The kernel at a chunked-prefill tick: one row's 128-token prefill
+    chunk at positions 512-639, then 16 decode tokens as in the decode
+    shape, packed (T 144), bf16 q over 24 rotating layer pools. The
+    chunk's 128 queries form tiles that share each page load. Library:
+    SDPA over the chunk row's gathered K/V (640 keys) with its causal
+    mask, plus the decode shape's SDPA call (two calls). Bound: the K/V
+    bytes of the 640 + the decode rows' keys read once, or 4 D f32 flops
+    a (query, key) pair, the larger."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rng = np.random.RandomState(SEED + 2)
+    T = 16
+    P = (T + 1) * MP + 1
+    kp, vp = _pool(gen, P, torch.bfloat16, layers=layers) \
+        if layout == "bf16" else _quant_pool(gen, P, layout, layers=layers)
+    table = torch.from_numpy(rng.permutation(P - 1)[:(T + 1) * MP].reshape(
+        T + 1, MP).astype(np.int32)).cuda()
+    dpos = rng.randint(64, 832, T).astype(np.int32)
+    cpos = CHUNK_ROW_POS + np.arange(CHUNK_TOKENS, dtype=np.int32)
+    pos_np = np.concatenate([cpos, dpos])
+    rows_np = np.concatenate([np.full(CHUNK_TOKENS, T), np.arange(T)]
+                             ).astype(np.int32)
+    pos = torch.from_numpy(pos_np).cuda()
+    rows = torch.from_numpy(rows_np).cuda()
+    n = len(pos_np)
+    q = torch.randn((layers, n, H, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    scale = 1.0 / D ** 0.5
+
+    ql = list(q)
+    kl = [_layer_pool(kp, l) for l in range(layers)]
+    vl = [_layer_pool(vp, l) for l in range(layers)]
+
+    def kern(i=0):
+        return rpa.ragged_paged_attention_packed(
+            ql[i % layers], kl[i % layers], vl[i % layers], table, rows, pos)
+
+    def plain(i=0):
+        return _ref(rpa, ql[i % layers][:, None], kl[i % layers],
+                    vl[i % layers], table[rows.long()], pos, scale)
+
+    ckeys = CHUNK_ROW_POS + CHUNK_TOKENS
+    kd = [_dequantized(rpa, kp, l, table).transpose(1, 2) for l in range(2)]
+    vd = [_dequantized(rpa, vp, l, table).transpose(1, 2) for l in range(2)]
+    kc = [x[T:, :, :ckeys].contiguous() for x in kd]     # [1, H, 640, D]
+    vc = [x[T:, :, :ckeys].contiguous() for x in vd]
+    kdec = [x[:T] for x in kd]
+    vdec = [x[:T] for x in vd]
+    cmask = (torch.arange(ckeys, device="cuda")[None, :]
+             <= torch.from_numpy(cpos).cuda()[:, None].long())
+    dmask = (torch.arange(MP * PS, device="cuda")[None, :]
+             <= torch.from_numpy(dpos).cuda()[:, None].long()
+             )[:, None, None, :]
+
+    qc = [x[:CHUNK_TOKENS].transpose(0, 1)[None] for x in ql]
+    qdec = [x[CHUNK_TOKENS:, :, None] for x in ql]
+
+    def library(i=0):
+        a = torch.nn.functional.scaled_dot_product_attention(
+            qc[i % layers], kc[i % 2], vc[i % 2], attn_mask=cmask,
+            scale=scale)
+        b = torch.nn.functional.scaled_dot_product_attention(
+            qdec[i % layers], kdec[i % 2], vdec[i % 2], attn_mask=dmask,
+            scale=scale)
+        return a, b
+
+    keys = dpos.astype(np.int64) + 1
+    per_tok = _pool_token_read_bytes(layout)
+    kv_bytes = (int(keys.sum()) + ckeys) * per_tok
+    io_bytes = 2 * n * H * D * 2 + 4 * (2 * n + (T + 1) * MP)
+    pairs = int(keys.sum()) + int((cpos.astype(np.int64) + 1).sum())
+    flops = pairs * H * 4 * D
+    r, host, per_call = _rpa_readings(rpa, kern, plain, library,
+                                      kv_bytes + io_bytes, flops, 96)
+    log("kernel_time", pool=layout, shape=f"chunk mix packed T={n}: "
+        f"{CHUNK_TOKENS} prefill at {CHUNK_ROW_POS}-"
+        f"{CHUNK_ROW_POS + CHUNK_TOKENS - 1} + {T} decode, bf16 q",
+        **{k: f"{v:.4f}" for k, v in r.items() if k != "bound_by"},
+        bound_by=r["bound_by"], **{k: f"{v:.2f}" for k, v in host.items()},
+        device_launches_per_call=f"{per_call:g}",
+        achieved_GBps=f"{(kv_bytes + io_bytes) / r['device_ms'] / 1e6:.1f}",
+        achieved_TFLOPs=f"{flops / r['device_ms'] / 1e9:.2f}")
+    return r
+
+
+# The serving engine's packed ticks by how many of its 16 rows stream a
+# 128-token prefill chunk (the others decode a token each): from the decode
+# tick (T 16) to the widest (every row prefilling, T 2048)
+PLAN_PREFILL_ROWS = (0, 1, 2, 4, 8, 16)
+
+
+def phase_split_plan_timing(rpa, layout="bf16", layers=24):
+    """Both launch plans at the serving engine's packed tick shapes: the
+    device time (CUDA graph) of the split launch (a block a chunk, then a
+    merge kernel) and of the unsplit one (a tile's chunks in one block,
+    merged in shared memory), the two bit-equal, and the plan the wrapper
+    picks (`SPLIT_MAX_ROWS`) beside the faster one. Prefill chunks sit at
+    multiples of 128 in 0-640, decode tokens at 64-831; bf16 q over 24
+    rotating layer pools of `layout`."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    rng = np.random.RandomState(SEED + 4)
+    S = 16
+    P = S * MP + 1
+    kp, vp = _pool(gen, P, torch.bfloat16, layers=layers) \
+        if layout == "bf16" else _quant_pool(gen, P, layout, layers=layers)
+    table = torch.from_numpy(rng.permutation(P - 1)[:S * MP].reshape(
+        S, MP).astype(np.int32)).cuda()
+    kl = [_layer_pool(kp, l) for l in range(layers)]
+    vl = [_layer_pool(vp, l) for l in range(layers)]
+    scale = 1.0 / D ** 0.5
+    out = []
+    for n_pf in PLAN_PREFILL_ROWS:
+        rows_np, pos_np = [], []
+        for r in range(S):
+            if r < n_pf:
+                p0 = CHUNK_TOKENS * rng.randint(0, 6)
+                rows_np += [r] * CHUNK_TOKENS
+                pos_np += list(p0 + np.arange(CHUNK_TOKENS))
+            else:
+                rows_np.append(r)
+                pos_np.append(rng.randint(64, 832))
+        T = len(rows_np)
+        rows = torch.tensor(rows_np, dtype=torch.int32, device="cuda")
+        pos = torch.tensor(pos_np, dtype=torch.int32, device="cuda")
+        ql = list(torch.randn((layers, T, H, D), generator=gen,
+                              device="cuda").to(torch.bfloat16))
+
+        def run(split):
+            return lambda i=0: rpa._launch(
+                ql[i % layers], kl[i % layers], vl[i % layers], table, rows,
+                pos, scale, split=split)
+        if not torch.equal(run(True)(), run(False)()):
+            raise AssertionError(f"{layout} T={T}: the split and unsplit "
+                                 "launches differ")
+        before = rpa.device_launches
+        rpa.ragged_paged_attention_packed(ql[0], kl[0], vl[0], table, rows,
+                                          pos)
+        picked = "split" if rpa.device_launches - before == 2 else "unsplit"
+        ms = {name: cuda_graph_ms(run(name == "split"), 24)
+              for name in ("split", "unsplit")}
+        faster = min(ms, key=ms.get)
+        log("kernel_time", check="launch plans", pool=layout, T=T,
+            prefill_rows=n_pf, query_heads=T * H,
+            split_device_ms=f"{ms['split']:.4f}",
+            unsplit_device_ms=f"{ms['unsplit']:.4f}", faster=faster,
+            picked=picked, split_max_rows=rpa.SPLIT_MAX_ROWS)
+        out.append((T, ms, picked))
+    torch.cuda.synchronize()
+    return out
 
 
 # W4A16 matmul: the four products of a gpt_1p3b layer (K, N), and edge
@@ -644,7 +948,8 @@ def _serve_run(dec, prompts, mods):
     new tokens through the default (ragged, packed) engine with k_max 8.
     Every kernel count of `mods` is set to 0 just before the run and read
     just after. Returns (engine, streams, wall seconds, {module: (kernel
-    launches, plain launches)})."""
+    launches, plain launches)}, with the ragged kernel's device launches
+    under "device")."""
     from paddle_tpu_torch.serving import ContinuousBatchingEngine
     # warm-up (cuBLAS handles, allocator): one short request
     warm = ContinuousBatchingEngine(dec, max_new_tokens=4, k_max=K_MAX)
@@ -663,6 +968,8 @@ def _serve_run(dec, prompts, mods):
     launches = {mod.__name__.rsplit(".", 1)[1]: (mod.kernel_launches,
                                                  mod.plain_launches)
                 for mod in mods}
+    # device launches of the ragged kernel (a split call is two)
+    launches["device"] = (mods[0].device_launches, 0)
     streams = [out[r] for r in rids]
     if any(len(s) != MAX_NEW for s in streams):
         raise AssertionError("a request did not return 64 tokens")
@@ -705,13 +1012,15 @@ def phase_serving(rpa):
                         counts["ragged_paged_attention"]))
     if launches["kernel"] <= 0 or launches["plain"] != 0:
         raise AssertionError(f"attention launches on the card: {launches}")
+    device = counts["device"][0]
     log("serve", model="gpt_1p3b", layers=cfg.num_layers,
         hidden=cfg.hidden_size, requests=N_REQ, max_new=MAX_NEW,
         max_batch=16, k_max=K_MAX, priced_k_max=priced_k,
         chunk_tokens=eng.scheduler.chunk_tokens, setup_s=f"{setup_s:.2f}",
         **_serve_fields(eng, wall),
         kernel_launches=launches["kernel"],
-        plain_launches=launches["plain"],
+        plain_launches=launches["plain"], device_launches=device,
+        device_launches_per_call=f"{device / launches['kernel']:.3f}",
         peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     return sd, dec, prompts, streams, launches
 
@@ -823,23 +1132,188 @@ def _teacher_force(dec, prompts, streams):
     return gap, float(torch.stack(nll).mean())
 
 
-def phase_oracle(dec, prompts, streams, label="oracle", **tags):
+def _kv_bytes(dec, pages):
+    """One sequence's K and V pool leaves (payload, and the scales of a
+    quantized pool), pages in block order: copies [L, positions, ...]."""
+    idx = torch.as_tensor(pages, dtype=torch.long, device=dec.device)
+    leaves = []
+    for pool in (dec.k_pages, dec.v_pages):
+        for x in (pool if isinstance(pool, tuple) else (pool,)):
+            g = x[:, idx]
+            leaves.append(g.reshape(g.shape[0], -1, *g.shape[3:]))
+    return leaves
+
+
+class _AttnTap:
+    """Stands in for the decoder module's `rpa` during a replay: passes
+    every call to the kernel's wrappers and keeps, layer by layer, the q
+    row and the output row of one query a request (`want`: request id ->
+    position), found by its table row's first page and its position. The
+    last call holding it wins (a pad query of the packed stream can sit at
+    a row's future position before that position is real)."""
+
+    def __init__(self, rpa, dec, want):
+        self.rpa, self.want, self.eng, self.rows = rpa, want, None, {}
+        leaf = dec.k_pages[0] if isinstance(dec.k_pages, tuple) \
+            else dec.k_pages
+        self.layer = {leaf[l].data_ptr(): l for l in range(leaf.shape[0])}
+
+    def _keep(self, q, out, kp, table, rows, pos):
+        first = {self.eng._slot_pages[s][0]: rid
+                 for s, rid in enumerate(self.eng._slot_req)
+                 if rid in self.want and self.eng._slot_pages[s]}
+        if not first:
+            return
+        leaf = kp[0] if isinstance(kp, tuple) else kp
+        layer = self.layer[leaf.data_ptr()]
+        heads = table[:, 0][rows.long()].tolist()
+        for t, (pg, x) in enumerate(zip(heads, pos.tolist())):
+            rid = first.get(pg)
+            if rid is not None and x == self.want[rid]:
+                self.rows.setdefault(rid, {})[layer] = (q[t].clone(),
+                                                        out[t].clone())
+
+    def ragged_paged_attention(self, q, kp, vp, table, start):
+        out = self.rpa.ragged_paged_attention(q, kp, vp, table, start)
+        rows = torch.arange(q.shape[0], device=q.device)
+        self._keep(q[:, 0], out[:, 0], kp, table, rows, start)
+        return out
+
+    def ragged_paged_attention_packed(self, q, kp, vp, table, rows, pos):
+        out = self.rpa.ragged_paged_attention_packed(q, kp, vp, table, rows,
+                                                     pos)
+        self._keep(q, out, kp, table, rows, pos)
+        return out
+
+
+def _replay(rpa, dec, prompts, want, k_max, kv_want):
+    """One engine run of `prompts` (k_max 1: the per-tick engine; else the
+    ragged one), keeping the K/V pool bytes of the requests in `kv_want`
+    and, through `_AttnTap`, the attention q and output rows of `want`
+    (request id -> position). Returns (streams, K/V bytes, tapped rows)."""
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.serving import decoder as dec_module
+
+    class Capture(ContinuousBatchingEngine):
+        def _retire(self, slot):         # copy before the pages are freed
+            if self._slot_req[slot] in kv_want:
+                self.kv[self._slot_req[slot]] = _kv_bytes(
+                    self.d, self._slot_pages[slot])
+            super()._retire(slot)
+
+    eng = Capture(dec, max_new_tokens=MAX_NEW, k_max=k_max)
+    eng.kv = {}
+    tap = _AttnTap(rpa, dec, want)
+    tap.eng = eng
+    rids = [eng.submit(p) for p in prompts]
+    dec_module.rpa = tap
+    try:
+        out = eng.run()
+    finally:
+        dec_module.rpa = rpa
+    return [out[r] for r in rids], eng.kv, tap.rows
+
+
+def _rows_depend_on_count(dec):
+    """Layer 0's four cuBLAS products (qkv, proj, fc1, fc2) on 2048 random
+    bf16 rows: the products whose first M rows, M in 16, 144, 512, differ
+    in bits from the same rows inside the 2048-row product."""
+    from paddle_tpu_torch.serving.decoder import _at, _mm
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    out = []
+    for name in ("qkv", "proj", "fc1", "fc2"):
+        w, b = _at(dec.weights[f"{name}_w"], 0), _at(dec.weights[f"{name}_b"],
+                                                     0)
+        if isinstance(w, tuple):
+            continue                        # W4: rows fixed by its kernel
+        x = torch.randn((2048, w.shape[0]), generator=gen,
+                        device="cuda").to(dec.compute_dtype)
+        full = _mm(x, w, b)
+        if any(not torch.equal(_mm(x[:m], w, b), full[:m])
+               for m in (16, 144, 512)):
+            out.append(name)
+    return out
+
+
+def _oracle_kv(rpa, dec, prompts, streams, per_tick, diverged, label,
+               **tags):
+    """Where the engines' streams diverge: both engines replayed (the
+    per-tick one on the oracle's requests, the ragged one on all prompts
+    as in the main run), each keeping the diverging requests' K/V pool
+    bytes: the first position whose K/V differ in any layer, up to the
+    diverging token's. Replayed again, they keep there, layer by layer,
+    the attention's q and output rows. Layer 0's K/V come from the
+    embedding, LayerNorm and the qkv product alone; equal layer-0 K/V, q
+    and attention output at that position put the first differing bits
+    after the attention kernel, in layer 0's later products
+    (`cublas_rows_depend_on_count`: the products whose rows change with
+    the row count)."""
+    pt_streams, pt_kv, _ = _replay(rpa, dec, prompts[:N_ORACLE], {}, 1,
+                                   diverged)
+    rg_streams, rg_kv, _ = _replay(rpa, dec, prompts, {}, K_MAX, diverged)
+    rows, first = {}, {}
+    for i, j in sorted(diverged.items()):
+        upto = len(prompts[i]) + j
+        diff = None
+        for x, y in zip(pt_kv[i], rg_kv[i]):
+            d = (x[:, :upto] != y[:, :upto]).reshape(
+                x.shape[0], upto, -1).any(-1)                # [L, upto]
+            diff = d if diff is None else diff | d
+        at = diff.any(0).nonzero().flatten()
+        if len(at):
+            first[i] = int(at[0])
+        rows[i] = dict(
+            request=i, first_divergence=j, positions_compared=upto,
+            replays_match_runs=(pt_streams[i] == per_tick[i] and
+                                rg_streams[i] == streams[i]),
+            positions_differing=len(at), first_differing_pos=first.get(i),
+            layers_differing_there=(diff[:, first[i]].nonzero().flatten()
+                                    .tolist() if i in first else []),
+            layer0_positions_differing=int(diff[0].sum()))
+    del pt_kv, rg_kv
+    _, _, pt_rows = _replay(rpa, dec, prompts[:N_ORACLE], first, 1, ())
+    _, _, rg_rows = _replay(rpa, dec, prompts, first, K_MAX, ())
+    products = _rows_depend_on_count(dec)
+    for i in sorted(diverged):
+        a, b = pt_rows.get(i, {}), rg_rows.get(i, {})
+        layers = [l for l in sorted(a) if l in b]
+        q_eq = [torch.equal(a[l][0], b[l][0]) for l in layers]
+        o_eq = [torch.equal(a[l][1], b[l][1]) for l in layers]
+        at0 = bool(layers) and layers[0] == 0
+        log(f"{label}_kv", **tags, **rows[i], tapped_layers=len(layers),
+            layer0_q_equal=q_eq[0] if at0 else None,
+            layer0_attention_out_equal=o_eq[0] if at0 else None,
+            first_q_diff_layer=next(
+                (l for l, e in zip(layers, q_eq) if not e), None),
+            first_out_diff_layer=next(
+                (l for l, e in zip(layers, o_eq) if not e), None),
+            cublas_rows_depend_on_count=products)
+
+
+def phase_oracle(rpa, dec, prompts, streams, label="oracle", **tags):
     """The first 4 requests through the per-tick engine (k_max 1) against
-    the ragged engine's streams; then the per-tick decoder teacher-forced
-    on the ragged engine's tokens, each within LOGIT_TOL of its tick's best
-    logit. Returns the mean NLL of those tokens."""
+    the ragged engine's streams (at a divergence, the two engines' K/V
+    pool bytes compared: `_oracle_kv`); then the per-tick decoder
+    teacher-forced on the ragged engine's tokens, each within LOGIT_TOL of
+    its tick's best logit. Returns the mean NLL of those tokens."""
     from paddle_tpu_torch.serving import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(dec, max_new_tokens=MAX_NEW, k_max=1)
     rids = [eng.submit(p) for p in prompts[:N_ORACLE]]
     out = eng.run()
     per_tick = [out[r] for r in rids]
     agree = sum(a == b for a, b in zip(per_tick, streams))
+    diverged = {}
     for i, (a, b) in enumerate(zip(per_tick, streams)):
         if a != b:
             j = next(t for t, (x, y) in enumerate(zip(a, b)) if x != y)
+            diverged[i] = j
             log(label, **tags, request=i, first_divergence=j,
                 prompt_len=len(prompts[i]), per_tick_token=a[j],
                 engine_token=b[j])
+    if diverged:
+        _oracle_kv(rpa, dec, prompts, streams, per_tick, diverged, label,
+                   **tags)
+        torch.cuda.empty_cache()
     gap, nll = _teacher_force(dec, prompts[:N_ORACLE], streams[:N_ORACLE])
     if gap > LOGIT_TOL:
         raise AssertionError(f"an engine token scores {gap:.4f} below the "
@@ -883,6 +1357,7 @@ def phase_serve_quant(sd, prompts, ref_streams, nll_bf16, rpa, w4):
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         eng, streams, wall, counts = _serve_run(dec, prompts, (rpa, w4))
+        device = counts.pop("device")[0]
         kern = {k: v[0] for k, v in counts.items()}
         plain = sum(v[1] for v in counts.values())
         if kern["ragged_paged_attention"] <= 0 or plain or \
@@ -900,10 +1375,13 @@ def phase_serve_quant(sd, prompts, ref_streams, nll_bf16, rpa, w4):
             **_serve_fields(eng, wall),
             kv_bytes_per_token=eng.stats.kv_bytes_per_token,
             rpa_launches=kern["ragged_paged_attention"],
+            rpa_device_launches=device,
+            rpa_device_launches_per_call=(
+                f"{device / kern['ragged_paged_attention']:.3f}"),
             w4_launches=kern["w4_matmul"], **w4_routes, plain_launches=plain,
             peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
         phase_profile(dec, prompts, mode=name)
-        phase_oracle(dec, prompts, streams, label="serve_quant_oracle",
+        phase_oracle(rpa, dec, prompts, streams, label="serve_quant_oracle",
                      mode=name)
         _, nll = _teacher_force(dec, prompts[:N_ORACLE],
                                 ref_streams[:N_ORACLE])
@@ -2459,6 +2937,9 @@ SB_TIME = 4                                 # batch of the timing run
 PA_PAGES, PA_SEQS, PA_MAX_LEN = 1025, 16, 832
 BS_SMALL_D = (8, 16, 40, 64, 128, 256)
 PA_SMALL = ((8, 4), (16, 16), (64, 5), (128, 16), (256, 32))   # (D, ps)
+# the paged kernel's eager time before the redesign (H100 80GB HBM3,
+# 700 W): one block per (b, h), a serial page walk
+PA_EARLIER_MS = 0.3248
 
 
 def _bigbird_blocks(rng, nb, n_random=2):
@@ -2543,6 +3024,20 @@ def _pa_check(pa, name, q, kp, vp, table, lens):
     return _check_close(name, got, plain32.to(q.dtype), plain32)
 
 
+def _pa_identity(pa, q, kp, vp, table, lens):
+    """Two launches of the paged kernel bit-equal, and the split launch
+    bit-equal to the unsplit one."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    a = pa._launch(q, kp, vp, table, lens, scale, split=True)
+    b = pa._launch(q, kp, vp, table, lens, scale, split=True)
+    c = pa._launch(q, kp, vp, table, lens, scale, split=False)
+    if not (torch.equal(a, b) and torch.equal(a, c)):
+        raise AssertionError("paged: two launches, or the split and "
+                             "unsplit launches, differ")
+    log("kernel", check="paged two launches bit-equal, split == unsplit "
+        "bit-equal", dtype=str(q.dtype)[6:], max_pages=table.shape[1])
+
+
 def _pa_fill(gen, dtype, lens):
     """A PagedKVCache(PA_PAGES, PS, H, D) on the card filled by `append`,
     one token at a time, for sequences 0..len(lens)-1; returns (cache,
@@ -2588,11 +3083,12 @@ def phase_slice6_kernel_checks(bsa, pa):
             block_sizes=list(bsa.BLOCK_SIZES), head_dims=list(BS_SMALL_D),
             layouts="per-head+shared, count-0 row, padded slots",
             max_abs_err=f"{err['block_sparse_attention']:.3e}")
-        for d, ps in PA_SMALL:
-            P, Bq = 40, 6
-            lens = torch.tensor([0, 1, ps, 3 * ps + 1, 7 * ps, 5],
-                                dtype=torch.int32, device="cuda")
-            MP = 8
+        for (d, ps), MP in ((x, mp) for x in PA_SMALL for mp in (8, 40)):
+            # MP 40: 5 chunks of 8 pages; seq_len 0 over the whole table
+            P, Bq = 60, 7
+            lens = torch.tensor([0, 1, ps, 3 * ps + 1, 7 * ps, 5,
+                                 (MP - 7) * ps], dtype=torch.int32,
+                                device="cuda")
             table = torch.randint(0, P, (Bq, MP), generator=gen,
                                   device="cuda", dtype=torch.int32)
             table[2, 1:] = -1                   # ids past the sequence
@@ -2602,7 +3098,8 @@ def phase_slice6_kernel_checks(bsa, pa):
             e = _pa_check(pa, f"paged D={d} ps={ps}", q, kp, vp, table, lens)
             err["paged_attention"] = max(err["paged_attention"], e)
         log("kernel", form="paged_attention small", dtype=str(dtype)[6:],
-            D_ps=list(PA_SMALL), rows="seq_len 0, -1 ids, id past the pool",
+            D_ps=list(PA_SMALL), max_pages="8 and 40 (1 and 5 chunks)",
+            rows="seq_len 0, -1 ids, id past the pool",
             max_abs_err=f"{err['paged_attention']:.3e}")
     # full width
     offset, columns, _ = _bigbird_csr(SEED, SB, H, SL, SBS)
@@ -2618,6 +3115,7 @@ def phase_slice6_kernel_checks(bsa, pa):
         e2 = _pa_check(pa, "paged full width", qd, cache.k_pages,
                        cache.v_pages, table, seq_lens)
         err["paged_attention"] = max(err["paged_attention"], e2)
+        _pa_identity(pa, qd, cache.k_pages, cache.v_pages, table, seq_lens)
         log("kernel", form=f"block_sparse_attention [{SB}, {H}, {SL}, {D}] "
             f"bs {SBS} BigBird + paged_attention pool {PA_PAGES}x{PS}x{H}x"
             f"{D} B {PA_SEQS} max_pages {table.shape[1]}",
@@ -2684,11 +3182,27 @@ def phase_slice6_kernel_timing(bsa, pa):
         bound_ms, bound_by = _bound(nbytes, flops)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms}
+        extra = {}
+        if name == "paged_attention":
+            # a launch shorter than its Python: device time from a CUDA
+            # graph and each side's host time a call, beside the eager ms
+            out[name]["device_ms"] = cuda_graph_ms(kern, 20)
+            out[name]["library_device_ms"] = cuda_graph_ms(library, 20)
+            extra = {k: f"{out[name][k]:.4f}"
+                     for k in ("device_ms", "library_device_ms")}
+            extra.update(host_us=f"{host_us(kern, 20):.2f}",
+                         library_host_us=f"{host_us(library, 20):.2f}",
+                         earlier_ms=PA_EARLIER_MS,
+                         goal_below_library_eager="met" if ms < library_ms
+                         else "missed",
+                         goal_below_library_device="met" if
+                         out[name]["device_ms"] <
+                         out[name]["library_device_ms"] else "missed")
         log("kernel_time", kernel=name, form=repr(form), ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
             bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
             achieved_GBps=f"{nbytes / ms / 1e6:.1f}",
-            achieved_TFLOPs=f"{flops / ms / 1e9:.2f}")
+            achieved_TFLOPs=f"{flops / ms / 1e9:.2f}", **extra)
     del q, k, v, dense, cache, kg, vg
     return out
 
@@ -2840,13 +3354,18 @@ def main():
     t_start = time.perf_counter()
     smi = phase_environment()
     layouts = [v[2] for v in SERVE_KERNELS.values()]
-    serve_err = {lay: phase_kernel_checks(rpa, lay) for lay in layouts}
+    serve_err = {lay: max(phase_kernel_checks(rpa, lay),
+                          phase_kernel_long_rows(rpa, lay))
+                 for lay in layouts}
     w4_err = phase_w4_checks(w4)
     serve_timing = {lay: phase_kernel_timing(rpa, lay) for lay in layouts}
+    for lay in layouts:
+        phase_chunk_mix_timing(rpa, lay)
+        phase_split_plan_timing(rpa, lay)
     w4_timing = phase_w4_timing(w4)
     sd, dec, prompts, streams, launches = phase_serving(rpa)
     phase_profile(dec, prompts)
-    nll_bf16 = phase_oracle(dec, prompts, streams)
+    nll_bf16 = phase_oracle(rpa, dec, prompts, streams)
     del dec
     torch.cuda.empty_cache()
     quant_launches = phase_serve_quant(sd, prompts, streams, nll_bf16, rpa,

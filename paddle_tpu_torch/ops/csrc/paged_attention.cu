@@ -6,195 +6,129 @@
 // `paged_attention`).
 //
 // Math (the JAX kernel): the query of (b, h), q [B, 1, H, D], walks the
-// pages j = 0..max_pages-1 of table row b in order; a page id is clamped
-// into [0, P-1] (-1, an unused slot, reads page 0). q is scaled before the
-// dot. Position j*ps + t with t in the page gets the logit q.k, or -1e30
-// when it is >= seq_lens[b] (masked, not skipped). One f32 online-softmax
-// step a page: m_new = max(m, page max), p = exp(logit - m_new),
-// corr = exp(m - m_new), s = s*corr + sum p, acc = acc*corr + p.V. The
-// output is acc / max(s, 1e-30) in q's dtype. With seq_len 0 every logit is
-// -1e30, so p = exp(0) = 1 everywhere and the output is the uniform mean of
-// V over every slot of the table, as in the TPU kernel and the JAX
-// reference; this kernel walks every page in that case. With seq_len > 0 it
-// stops after the last page that holds a position < seq_len: a fully masked
-// page after a real logit gives p = 0 and corr = 1 and changes no bit.
+// pages of table row b in order; a page id is clamped into [0, P-1] (-1, an
+// unused slot, reads page 0). q is scaled before the dot. Position p gets
+// the logit q.k, or -1e30 when p >= seq_lens[b] (masked, not skipped): the
+// ragged kernel's rule kpos <= qpos with qpos = seq_len - 1. One f32
+// online-softmax step a page (pages of more than 32 tokens: a step per 32
+// keys, as `_paged_ref` walks them); the output is acc / max(s, 1e-30) in
+// q's dtype. With seq_len 0 every logit is -1e30, so every p is 1 and the
+// output is the uniform mean of V over every slot of the table, as in the
+// TPU kernel and the JAX reference: qpos -1 makes the walk cover all MP
+// pages. With seq_len > 0 it stops after the last page that holds a
+// position < seq_len (a fully masked page after a real logit changes no
+// bit).
 //
-// Bound: bytes. A query reads seq_len*D keys and values (2*seq_len*D*itemsize
-// bytes a head) and does ~4*D flops per key, far below the card's
-// ops:bytes ridge; the floor is the K/V bytes over HBM bandwidth. What this
-// first design does about it: every K and V element of a (b, h) is read
-// once, with neighbouring threads on neighbouring head-dim elements
-// (coalesced), and the walk stops at the last real page. A page step costs
-// about two memory latencies (its keys, then its values), spread over a
-// whole thread block. No cp.async/TMA prefetch of the next page yet, so at
-// decode batch sizes the walk is latency-bound (see PERF.md).
+// Bound: bytes. A query reads seq_len D keys and values a head (2 seq_len D
+// itemsize bytes) and does ~4 D flops a key, far below the f32 ridge; the
+// floor is the K/V bytes over 3.35 TB/s (0.019-0.022 ms at the entry shape,
+// B 16 x 16 heads x 128, 52 pages of 16).
 //
-// Layout: one block of kThreads threads per (b, h). Per page: warp w scores
-// keys w, w+kWarps, ... (lane l holds q * scale for head-dim elements l,
-// l+32, ...; the dot is summed by an xor butterfly) into shared memory;
-// after a barrier every thread reads the page's logits, so every thread
-// holds the same page max, p and sum of p (summed over keys in order);
-// thread t accumulates p.V for head-dim elements t and t + kThreads over the
-// page's keys in order, into a page sum that is then added to acc*corr, as
-// the TPU kernel does.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+// Design (the earlier design walked a sequence's pages one at a time in
+// one block per (b, h), two memory latencies a page): the ragged kernel's
+// body (decode_attention.cuh) with W = 1, no row map, start = seq_lens and
+// a position offset of -1. The split: chunks of C = kChunkPages (8) pages
+// at fixed absolute page indices, each (b, chunk, h) a block of its own at
+// the entry shape (a second kernel merges; batches of more than the
+// wrapper's `SPLIT_MAX_ROWS` (b, h) pairs merge in the block); the merge: per query, chunks in order (M = max m_c, s = sum s_c
+// exp(m_c - M), acc likewise); the loads: one page a warp a round, each
+// token's head slice straight into registers with vector loads where the
+// pool's alignment allows (element loads otherwise, dims past D read as
+// 0), values asked of L1 before the keys are scored; the dots: lanes over
+// head_dim and a reduce-scatter butterfly, no idle lanes at page size 16 or
+// 32 (pages over 32 tokens: a step a 32-key tile). The grid stays (b, h)
+// times the chunk groups: one block per decode query, chunk and head.
+#include "decode_attention.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kDPT = 256 / kThreads;      // head-dim elements a thread owns
-constexpr float kMask = -1e30f;
-constexpr float kDenomEps = 1e-30f;
-constexpr unsigned kFull = 0xffffffffu;
+using dattn::Params;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// DPL: head-dim elements a lane holds for scoring (D <= 32 * DPL).
-template <typename T, int DPL>
-__global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ table,
-    const int* __restrict__ seq_lens, T* __restrict__ out, int H, int D,
-    int ps, int MP, int P_, float scale) {
-  extern __shared__ float lg[];             // the page's logits [ps]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int len = seq_lens[b];
-  const int* trow = table + static_cast<size_t>(b) * MP;
-  const int pages = len > 0 ? min(MP, (len + ps - 1) / ps) : MP;
-
-  const T* qrow = q + (static_cast<size_t>(b) * H + h) * D;
-  float qv[DPL];
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    const int d = lane + 32 * i;
-    qv[i] = d < D ? to_f32(qrow[d]) * scale : 0.f;
-  }
-  float m = kMask, s = 0.f, acc[kDPT];
-#pragma unroll
-  for (int c = 0; c < kDPT; ++c) acc[c] = 0.f;
-  for (int j = 0; j < pages; ++j) {
-    const int pid = min(max(trow[j], 0), P_ - 1);
-    const size_t page = static_cast<size_t>(pid) * ps;
-#pragma unroll 2
-    for (int t = warp; t < ps; t += kWarps) {
-      const T* krow = k_pages + ((page + t) * H + h) * D;
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) dot = fmaf(qv[i], to_f32(krow[d]), dot);
-      }
-#pragma unroll
-      for (int o = 16; o; o >>= 1) dot += __shfl_xor_sync(kFull, dot, o);
-      if (lane == 0) lg[t] = j * ps + t < len ? dot : kMask;
-    }
-    __syncthreads();                        // the page's logits are in lg
-    float pmax = kMask;
-    for (int t = 0; t < ps; ++t) pmax = fmaxf(pmax, lg[t]);
-    const float m_new = fmaxf(m, pmax);
-    const float corr = expf(m - m_new);
-    float psum = 0.f, pv[kDPT];
-#pragma unroll
-    for (int c = 0; c < kDPT; ++c) pv[c] = 0.f;
-#pragma unroll 4
-    for (int t = 0; t < ps; ++t) {
-      const float p = expf(lg[t] - m_new);
-      psum += p;
-      const T* vrow = v_pages + ((page + t) * H + h) * D;
-#pragma unroll
-      for (int c = 0; c < kDPT; ++c) {
-        const int d = threadIdx.x + kThreads * c;
-        if (d < D) pv[c] = fmaf(p, to_f32(vrow[d]), pv[c]);
-      }
-    }
-    __syncthreads();                        // lg is rewritten next page
-    s = s * corr + psum;
-#pragma unroll
-    for (int c = 0; c < kDPT; ++c) acc[c] = acc[c] * corr + pv[c];
-    m = m_new;
-  }
-  const float denom = fmaxf(s, kDenomEps);
-  T* orow = out + (static_cast<size_t>(b) * H + h) * D;
-#pragma unroll
-  for (int c = 0; c < kDPT; ++c) {
-    const int d = threadIdx.x + kThreads * c;
-    if (d < D) store(orow + d, acc[c] / denom);
-  }
+// No __launch_bounds__: with the 256-thread bound ptxas spills a few
+// registers to raise occupancy; without it none spill.
+template <typename T, int DPL, int KP>
+__global__ void paged_attention_kernel(Params p) {
+  dattn::decode_attention<T, dattn::kPlain, DPL, KP>(p);
 }
 
 template <typename T, int DPL>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const int* table, const int* lens, void* out, int B, int H,
-                   int D, int ps, int MP, int P_, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * static_cast<size_t>(ps);
-  auto kernel = paged_attention_kernel<T, DPL>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<dim3(B, H), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), table, lens, static_cast<T*>(out), H, D, ps,
-      MP, P_, scale);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(128) paged_attention_merge_kernel(Params p) {
+  dattn::merge_split<T, DPL>(p);
+}
+
+constexpr size_t kMaxSmem = 232448 - 1024;   // 227 KB less the static part
+
+template <typename T, int DPL, int KP>
+cudaError_t launch(const Params& p, cudaStream_t stream,
+                   long* scratch_floats) {
+  static bool smem_set[64] = {};     // per kernel and device
+  return dattn::plan_and_launch<dattn::kPlain, DPL, KP>(
+      p, sizeof(T), kMaxSmem, smem_set, paged_attention_kernel<T, DPL, KP>,
+      paged_attention_merge_kernel<T, DPL>, stream, scratch_floats);
 }
 
 template <typename T>
-cudaError_t dispatch_d(const void* q, const void* kp, const void* vp,
-                       const int* table, const int* lens, void* out, int B,
-                       int H, int D, int ps, int MP, int P_, float scale,
-                       cudaStream_t s) {
-  if (D <= 32)
-    return launch<T, 1>(q, kp, vp, table, lens, out, B, H, D, ps, MP, P_,
-                        scale, s);
-  if (D <= 64)
-    return launch<T, 2>(q, kp, vp, table, lens, out, B, H, D, ps, MP, P_,
-                        scale, s);
-  if (D <= 128)
-    return launch<T, 4>(q, kp, vp, table, lens, out, B, H, D, ps, MP, P_,
-                        scale, s);
-  return launch<T, 8>(q, kp, vp, table, lens, out, B, H, D, ps, MP, P_,
-                      scale, s);
+cudaError_t dispatch(const Params& p, cudaStream_t s, long* scratch_floats) {
+#define PA_CASE(DPL)                                            \
+  return p.ps <= 16 ? launch<T, DPL, 16>(p, s, scratch_floats)  \
+                    : launch<T, DPL, 32>(p, s, scratch_floats)
+  if (p.D <= 32) PA_CASE(1);
+  if (p.D <= 64) PA_CASE(2);
+  if (p.D <= 128) PA_CASE(4);
+  PA_CASE(8);
+#undef PA_CASE
+}
+
+int run(const void* q, const void* k_pages, const void* v_pages,
+        const int* table, const int* seq_lens, void* out, float* scratch,
+        int B, int H, int D, int ps, int MP, int P, float scale, int split,
+        int dtype, int device, void* stream, long* scratch_floats) {
+  if (B < 1 || H < 1 || H > 65535 || D < 1 || D > 256 || ps < 1 || MP < 1 ||
+      P < 1)
+    return cudaErrorInvalidValue;
+  Params p{q, k_pages, v_pages, nullptr, nullptr, table, nullptr, seq_lens,
+           out, scratch, B, 1, H, D, ps, MP, P, B, 0, 0, -1, scale,
+           split != 0};
+  if (!scratch_floats) {
+    int cur = -1;
+    cudaError_t err = cudaGetDevice(&cur);
+    if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch<float>(p, s, scratch_floats);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(p, s, scratch_floats);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, pages and out share it). table
-// [B, MP] and seq_lens [B] int32. Returns the cudaError_t of the launch
-// (0 = launched).
+// [B, MP] and seq_lens [B] int32. split: walk each chunk in a block of its
+// own and merge in a second kernel (else a query's chunks in one block,
+// merged in shared memory). scratch: [B, H, paged_scratch_floats(...)] f32
+// for the chunk partials of a split launch, or NULL. Returns the
+// cudaError_t of the launches (0 = launched).
 extern "C" int paged_forward(const void* q, const void* k_pages,
                              const void* v_pages, const int* table,
-                             const int* seq_lens, void* out, int B, int H,
-                             int D, int ps, int MP, int P, float scale,
-                             int dtype, int device, void* stream) {
-  if (B < 1 || H < 1 || H > 65535 || D < 1 || D > 256 || ps < 1 || MP < 1 ||
-      P < 1)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k_pages, v_pages, table, seq_lens, out, B, H,
-                             D, ps, MP, P, scale, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k_pages, v_pages, table, seq_lens,
-                                     out, B, H, D, ps, MP, P, scale, s);
-  return cudaErrorInvalidValue;
+                             const int* seq_lens, void* out, float* scratch,
+                             int B, int H, int D, int ps, int MP, int P,
+                             float scale, int split, int dtype, int device,
+                             void* stream) {
+  return run(q, k_pages, v_pages, table, seq_lens, out, scratch, B, H, D, ps,
+             MP, P, scale, split, dtype, device, stream, nullptr);
+}
+
+// Scratch f32 a (query, head) a launch needs for its chunk partials: 0
+// for an unsplit launch, -1 when its block does not fit shared memory.
+// Host only.
+extern "C" long paged_scratch_floats(int H, int D, int ps, int MP, int split,
+                                     int dtype) {
+  static const int dummy[1] = {0};
+  long floats = -1;
+  int rc = run(dummy, dummy, dummy, dummy, dummy, nullptr, nullptr, 1, H, D,
+               ps, MP, 1, 1.f, split, dtype, 0, nullptr, &floats);
+  return rc ? -1 : floats;
 }
 
 extern "C" const char* paged_error_string(int code) {

@@ -7,251 +7,85 @@
 // packed token stream). One kernel serves both forms: q [N, W, H, D] with
 // query w of item n at absolute position start[n] + w, reading page-table
 // row row_of[n] (row_of == NULL: row n). The packed form is N = T, W = 1,
-// row_of = row_ids, start = pos.
+// row_of = row_ids, start = pos. head_dim 32/64/128/256, page size <= 32.
 //
-// Math (the JAX `_page_update`): each query walks its row's pages in page
-// order j = 0, 1, ...; a page contributes logits q.k * scale masked to
-// kpos <= qpos with -1e30, then one online-softmax step in f32
-// (m_new = max(m, page max); p = exp(logit - m_new); corr = exp(m - m_new);
-// s = s*corr + sum p; acc = acc*corr + p.V). Output acc / max(s, 1e-30),
-// cast to q's dtype. Negative (and past-the-pool) table entries clamp into
-// [0, P-1], as the TPU kernel's index map and the JAX gather do.
+// Math (the JAX `_page_update`, per page): logits q.k * scale masked to
+// kpos <= qpos with -1e30, one f32 online-softmax step (m, s, acc); output
+// acc / max(s, 1e-30) in q's dtype. Table ids clamp into [0, P-1]. The
+// int8 key scale multiplies the finished logit before the mask, the int8
+// value dequantizes (v * s, f32) before P.V, an int4 element is nibble *
+// group scale in f32 before both dots: the JAX order.
 //
-// Pool layouts (template parameter L), the JAX kernel's `quant` modes:
-//   kPlain: pages [P, ps, H, D] in q's dtype;
-//   kInt8:  pages int8 [P, ps, H, D] + per-token f32 scales [P, ps] for K
-//           and for V. The key scale multiplies the finished logit
-//           (q.(k*s) == (q.k)*s), before the mask; V is dequantized
-//           (v * s) before the PV dot: the JAX `_page_update` order;
-//   kInt4:  nibble-packed uint8 pages [P, ps, PB] + per-group f32 scales
-//           [P, ps, G]. Element e = h*D + d of a token is nibble e % 2
-//           (low first) of byte e / 2, sign-extended from 4 bits, times the
-//           scale of group e / (2*PB / G): the JAX `_dequant_page_int4`,
-//           applied to K and V before both dots. A block reads only its own
-//           head's slice of the packed page (D/2 bytes and D/group scales a
-//           token); the JAX interpret-mode kernel re-reads the whole page
-//           for each head, which costs time and changes no value.
-// Each layout only changes how one page lands in shared memory (as f32) and,
-// for int8, one multiply of the logit; the page walk, the online softmax and
-// every reduction order are the same code for all three.
+// Bound: bytes. A query at qpos reads (qpos + 1) H D keys and values
+// (bf16 2 bytes an element; int8 1 plus a 4-byte scale a token and plane;
+// int4 1/2 plus a 4-byte scale a group) and does ~4 D flops a key and head:
+// ~1 flop a byte, far below the f32 ridge; the floor is the K/V bytes over
+// 3.35 TB/s (0.0123 / 0.0062 / 0.0039 ms at the serving decode shape:
+// packed T 16, mean context 314, 16 x 128 heads).
 //
-// Bound: bytes. A query at position qpos must read (qpos+1)*H*D*2*itemsize
-// bytes of K and V (int8: itemsize 1 plus a 4-byte scale per token and
-// plane; int4: 1/2 plus a 4-byte scale per group) and does ~4*D*(qpos+1)
-// flops per head (plus the dequant multiplies), so at any
-// context the kernel is far below the card's ops:bytes ridge; its floor is
-// K/V bytes over HBM bandwidth. What this first design does about it: each
-// K/V page of a (row, head) is read from device memory once per group of
-// four queries into shared memory and consumed there, and the walk stops at
-// the query's last causal page instead of the table width (a fully masked
-// page leaves m, s and acc unchanged bit for bit, so stopping changes
-// nothing). No TMA, wgmma or multi-page pipelining yet: the page loads are
-// not overlapped with compute, so the kernel is latency-bound at decode
-// batch sizes (see PERF.md).
-//
-// Schedule independence: one thread block per (item, head); one warp per
-// query; every query runs the same instruction sequence over the same pages
-// whatever W, N, its place in the batch or the block launch order, so a
-// token's output is bit-identical whether it is computed alone, inside a
-// dense window or inside a packed stream. Per page: lane t < ps scores key t
-// with a sequential dot over d; the page max and the page sum of p are warp
-// butterflies (every lane ends with the same value: IEEE max and + are
-// commutative); lane l owns head-dim elements l, l+32, ... and sums p.V over
-// keys in order t = 0..ps-1.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+// Design (decode_attention.cuh, the body shared with paged_attention.cu;
+// the earlier design walked a row's pages one at a time in one block per
+// (token, head), so the longest row set the time alone):
+//   - the split: chunks of C = kChunkPages (8) pages at fixed absolute
+//     page indices; in a split launch (the wrapper's choice for launches
+//     of at most `SPLIT_MAX_ROWS` (query, head) pairs: decode ticks) each
+//     (query tile, chunk, head) is a block of its own, so the 52-page row
+//     of the decode shape spreads over 7 blocks per head, and a second
+//     kernel merges; wider launches walk a tile's chunks in one block and
+//     merge them in shared memory;
+//   - the merge: per query, chunks in order: M = max m_c, s = sum s_c
+//     exp(m_c - M), acc likewise, out = acc / max(s, 1e-30);
+//   - the loads: 8 warps a block, one page a warp a round, every key's
+//     head slice loaded straight into registers (8 bytes a lane at bf16 D
+//     128, one 256-byte row a warp instruction), the round's values asked
+//     of L1 before the keys are scored; the grid puts the heads of one
+//     (query, chunk) side by side, so they read the same tokens' rows;
+//   - the dots: the whole warp on each key (lanes over head_dim, a
+//     reduce-scatter butterfly); P.V with lanes over head_dim;
+//   - shared pages: consecutive queries of one row at consecutive positions
+//     (a dense window, a prefill chunk in the packed stream) form tiles of
+//     up to kTileQ (4) that score every loaded page (the later queries
+//     read it from L1); each query's arithmetic is the same in a tile as
+//     alone, so a token's bits depend only on its row's pages and its
+//     position (W = 1 == any window == any packed stream).
+#include "decode_attention.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;                 // queries in flight per block
-constexpr int kThreads = kWarps * 32;
-constexpr float kMask = -1e30f;
-constexpr float kDenomEps = 1e-30f;
-constexpr unsigned kFull = 0xffffffffu;
+using dattn::Params;
 
-enum Layout { kPlain = 0, kInt8 = 1, kInt4 = 2 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(int8_t x) {
-  return static_cast<float>(x);
-}
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
+// No __launch_bounds__: with the 256-thread bound ptxas spills a few
+// registers to raise occupancy; without it none spill.
+template <typename T, int L, int DPL, int KP>
+__global__ void ragged_paged_attention_kernel(Params p) {
+  dattn::decode_attention<T, L, DPL, KP>(p);
 }
 
-// Sign-extended 4-bit value of nibble `e % 2` of byte `e / 2` of `row`.
-__device__ __forceinline__ float nibble(const uint8_t* row, int e) {
-  const int b = (row[e >> 1] >> ((e & 1) * 4)) & 0xF;
-  return static_cast<float>(b >= 8 ? b - 16 : b);
+template <typename T, int DPL>
+__global__ void __launch_bounds__(128)
+    ragged_paged_attention_merge_kernel(Params p) {
+  dattn::merge_split<T, DPL>(p);
 }
 
-// Load page `pid`'s keys and values of head h into shared memory as f32
-// (keys into rows of D + 1, values into rows of D); for kInt8 also the
-// page's key scales into kscale[ps].
-template <int L, typename P, int D>
-__device__ __forceinline__ void load_page(
-    const P* __restrict__ k_pages, const P* __restrict__ v_pages,
-    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-    int pid, int h, int H, int ps, int PB, int G, float* ks, float* vs,
-    float* kscale) {
-  const size_t tok0 = static_cast<size_t>(pid) * ps;
-  if constexpr (L == kInt4) {
-    const int group = 2 * PB / G;
-    for (int e = threadIdx.x; e < ps * D; e += kThreads) {
-      const int t = e / D, d = e % D;
-      const int el = h * D + d;
-      const size_t tok = tok0 + t;
-      const float* kg = k_scale + tok * G;
-      const float* vg = v_scale + tok * G;
-      ks[t * (D + 1) + d] = nibble(k_pages + tok * PB, el) * kg[el / group];
-      vs[t * D + d] = nibble(v_pages + tok * PB, el) * vg[el / group];
-    }
-  } else {
-    const size_t base = (tok0 * H + h) * D;
-    for (int e = threadIdx.x; e < ps * D; e += kThreads) {
-      const int t = e / D, d = e % D;
-      const size_t off = base + static_cast<size_t>(t) * H * D + d;
-      ks[t * (D + 1) + d] = to_f32(k_pages[off]);
-      if constexpr (L == kInt8)
-        vs[t * D + d] = to_f32(v_pages[off]) * v_scale[tok0 + t];
-      else
-        vs[t * D + d] = to_f32(v_pages[off]);
-    }
-    if constexpr (L == kInt8)
-      if (threadIdx.x < ps) kscale[threadIdx.x] = k_scale[tok0 + threadIdx.x];
-  }
+constexpr size_t kMaxSmem = 232448 - 1024;   // 227 KB less the static part
+
+template <typename T, int L, int DPL, int KP>
+cudaError_t launch(const Params& p, cudaStream_t stream,
+                   long* scratch_floats) {
+  using P = typename dattn::PoolT<L, T>::type;
+  static bool smem_set[64] = {};     // per kernel and device
+  return dattn::plan_and_launch<L, DPL, KP>(
+      p, sizeof(P), kMaxSmem, smem_set,
+      ragged_paged_attention_kernel<T, L, DPL, KP>,
+      ragged_paged_attention_merge_kernel<T, DPL>, stream, scratch_floats);
 }
 
-// DPL = D / 32: head-dim elements each lane owns. T: q and out; P: the
-// pool's element type (T, int8_t or uint8_t by layout L).
-template <typename T, typename P, int L, int DPL>
-__global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
-    const T* __restrict__ q, const P* __restrict__ k_pages,
-    const P* __restrict__ v_pages, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ table,
-    const int* __restrict__ row_of, const int* __restrict__ start,
-    T* __restrict__ out, int W, int H, int ps, int MP, int P_, int R, int PB,
-    int G, float scale) {
-  constexpr int D = DPL * 32;
-  extern __shared__ float smem[];
-  float* ks = smem;                  // [ps][D + 1]: padded rows, so lane t
-                                     // reading key t hits its own bank
-  float* vs = ks + ps * (D + 1);     // [ps][D]
-  float* qs = vs + ps * D;           // [kWarps][D]: each warp's query
-  float* kscale = qs + kWarps * D;   // [32]: kInt8's per-token key scales
-
-  const int n = blockIdx.x;
-  const int h = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  int row = row_of ? row_of[n] : n;
-  row = min(max(row, 0), R - 1);
-  const int* trow = table + static_cast<size_t>(row) * MP;
-  const int pos0 = start[n];
-  float* qw = qs + warp * D;
-
-  for (int g = 0; g < W; g += kWarps) {
-    const int w = g + warp;
-    const bool active = w < W;
-    const int qpos = pos0 + w;
-    const int my_pages = active ? min(MP, qpos / ps + 1) : 0;
-    // positions rise with w, so the group's last query walks the most pages
-    const int group_pages = min(MP, (pos0 + min(g + kWarps, W) - 1) / ps + 1);
-    float m = kMask, s = 0.f, acc[DPL];
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-    if (active) {
-      const T* qrow = q + ((static_cast<size_t>(n) * W + w) * H + h) * D;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i)
-        qw[lane + 32 * i] = to_f32(qrow[lane + 32 * i]) * scale;
-    }
-    __syncwarp();
-    for (int j = 0; j < group_pages; ++j) {
-      const int pid = min(max(trow[j], 0), P_ - 1);
-      __syncthreads();               // the previous page is consumed
-      load_page<L, P, D>(k_pages, v_pages, k_scale, v_scale, pid, h, H, ps,
-                         PB, G, ks, vs, kscale);
-      __syncthreads();
-      if (j >= my_pages) continue;   // warp-uniform: past this query's keys
-      float logit = kMask;
-      if (lane < ps) {
-        const float* kr = ks + lane * (D + 1);
-        float dot = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) dot = fmaf(qw[d], kr[d], dot);
-        if constexpr (L == kInt8) dot *= kscale[lane];
-        logit = (j * ps + lane <= qpos) ? dot : kMask;
-      }
-      float pmax = logit;
-#pragma unroll
-      for (int o = 16; o; o >>= 1)
-        pmax = fmaxf(pmax, __shfl_xor_sync(kFull, pmax, o));
-      const float m_new = fmaxf(m, pmax);
-      const float p = lane < ps ? expf(logit - m_new) : 0.f;
-      const float corr = expf(m - m_new);
-      float psum = p;
-#pragma unroll
-      for (int o = 16; o; o >>= 1) psum += __shfl_xor_sync(kFull, psum, o);
-      s = s * corr + psum;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        float pv = 0.f;
-        for (int t = 0; t < ps; ++t)
-          pv = fmaf(__shfl_sync(kFull, p, t), vs[t * D + lane + 32 * i], pv);
-        acc[i] = acc[i] * corr + pv;
-      }
-      m = m_new;
-    }
-    if (active) {
-      T* orow = out + ((static_cast<size_t>(n) * W + w) * H + h) * D;
-      const float denom = fmaxf(s, kDenomEps);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) store(orow + lane + 32 * i, acc[i] / denom);
-    }
-    __syncwarp();                    // qw is rewritten by the next group
-  }
-}
-
-template <typename T, typename P, int L, int DPL>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const float* ks, const float* vs, const int* table,
-                   const int* row_of, const int* start, void* out, int N,
-                   int W, int H, int ps, int MP, int P_, int R, int PB, int G,
-                   float scale, cudaStream_t stream) {
-  constexpr int D = DPL * 32;
-  const size_t smem =
-      sizeof(float) * (ps * (D + 1) + ps * D + kWarps * D + 32);
-  auto kernel = ragged_paged_attention_kernel<T, P, L, DPL>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<dim3(N, H), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const P*>(kp),
-      static_cast<const P*>(vp), ks, vs, table, row_of, start,
-      static_cast<T*>(out), W, H, ps, MP, P_, R, PB, G, scale);
-  return cudaGetLastError();
-}
-
-template <typename T, typename P, int L>
-cudaError_t dispatch_d(int D, const void* q, const void* kp, const void* vp,
-                       const float* ks, const float* vs, const int* table,
-                       const int* row_of, const int* start, void* out, int N,
-                       int W, int H, int ps, int MP, int P_, int R, int PB,
-                       int G, float scale, cudaStream_t stream) {
-#define RPA_CASE(DPL)                                                       \
-  return launch<T, P, L, DPL>(q, kp, vp, ks, vs, table, row_of, start, out, \
-                              N, W, H, ps, MP, P_, R, PB, G, scale, stream)
-  switch (D) {
+template <typename T, int L>
+cudaError_t dispatch(const Params& p, cudaStream_t s, long* scratch_floats) {
+#define RPA_CASE(DPL)                                              \
+  return p.ps <= 16 ? launch<T, L, DPL, 16>(p, s, scratch_floats)  \
+                    : launch<T, L, DPL, 32>(p, s, scratch_floats)
+  switch (p.D) {
     case 32: RPA_CASE(1);
     case 64: RPA_CASE(2);
     case 128: RPA_CASE(4);
@@ -262,61 +96,84 @@ cudaError_t dispatch_d(int D, const void* q, const void* kp, const void* vp,
 }
 
 template <typename T>
-cudaError_t dispatch_layout(int layout, int D, const void* q, const void* kp,
-                            const void* vp, const float* ks, const float* vs,
-                            const int* table, const int* row_of,
-                            const int* start, void* out, int N, int W, int H,
-                            int ps, int MP, int P_, int R, int PB, int G,
-                            float scale, cudaStream_t s) {
+cudaError_t dispatch_layout(int layout, const Params& p, cudaStream_t s,
+                            long* scratch_floats) {
   switch (layout) {
-    case kPlain:
-      return dispatch_d<T, T, kPlain>(D, q, kp, vp, ks, vs, table, row_of,
-                                      start, out, N, W, H, ps, MP, P_, R, PB,
-                                      G, scale, s);
-    case kInt8:
-      if (!ks || !vs) return cudaErrorInvalidValue;
-      return dispatch_d<T, int8_t, kInt8>(D, q, kp, vp, ks, vs, table,
-                                          row_of, start, out, N, W, H, ps, MP,
-                                          P_, R, PB, G, scale, s);
-    case kInt4:
-      if (!ks || !vs || G < 1 || (2 * PB) % G || 2 * PB < H * D)
+    case dattn::kPlain:
+      return dispatch<T, dattn::kPlain>(p, s, scratch_floats);
+    case dattn::kInt8:
+      return dispatch<T, dattn::kInt8>(p, s, scratch_floats);
+    case dattn::kInt4:
+      if (p.G < 1 || (2 * p.PB) % p.G || 2 * p.PB < p.H * p.D)
         return cudaErrorInvalidValue;
-      return dispatch_d<T, uint8_t, kInt4>(D, q, kp, vp, ks, vs, table,
-                                           row_of, start, out, N, W, H, ps,
-                                           MP, P_, R, PB, G, scale, s);
+      return dispatch<T, dattn::kInt4>(p, s, scratch_floats);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+int run(const void* q, const void* k_pages, const void* v_pages,
+        const float* k_scale, const float* v_scale, const int* table,
+        const int* row_of, const int* start, void* out, float* scratch,
+        int N, int W, int H, int D, int ps, int MP, int P, int R, int PB,
+        int G, float scale, int split, int dtype, int layout, int device,
+        void* stream, long* scratch_floats) {
+  if (ps < 1 || ps > 32 || N < 1 || W < 1 || MP < 1 || P < 1 || R < 1 ||
+      H < 1 || H > 65535 || static_cast<long>(N) * W > 0x7fffffffL ||
+      (layout != dattn::kPlain && (!k_scale || !v_scale)))
+    return cudaErrorInvalidValue;
+  Params p{q, k_pages, v_pages, k_scale, v_scale, table, row_of, start,
+           out, scratch, N, W, H, D, ps, MP, P, R, PB, G, 0, scale,
+           split != 0};
+  if (!scratch_floats) {
+    int cur = -1;
+    cudaError_t err = cudaGetDevice(&cur);
+    if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_layout<float>(layout, p, s, scratch_floats);
+  if (dtype == 1)
+    return dispatch_layout<__nv_bfloat16>(layout, p, s, scratch_floats);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q and out share it; a kPlain pool too).
+// dtype: 0 = float32, 1 = bfloat16 (q and out share it; a plain pool too).
 // layout: 0 plain, 1 int8 (k_scale/v_scale [P, ps]), 2 int4 (pages [P, ps,
 // PB] uint8, k_scale/v_scale [P, ps, G]); PB and G are read for int4 only.
-// Returns the cudaError_t of the launch (0 = launched).
+// split: walk each chunk in a block of its own and merge in a second
+// kernel (else a tile's chunks in one block, merged in shared memory).
+// scratch: [N * W, H, rpa_scratch_floats(...)] f32 for the chunk partials
+// of a split launch, or NULL. Returns the cudaError_t of the launches (0 =
+// launched).
 extern "C" int rpa_forward(const void* q, const void* k_pages,
                            const void* v_pages, const float* k_scale,
                            const float* v_scale, const int* table,
                            const int* row_of, const int* start, void* out,
-                           int N, int W, int H, int D, int ps, int MP, int P,
-                           int R, int PB, int G, float scale, int dtype,
-                           int layout, int device, void* stream) {
-  if (ps < 1 || ps > 32 || N < 1 || W < 1 || MP < 1 || P < 1 || R < 1)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_layout<float>(layout, D, q, k_pages, v_pages, k_scale,
-                                  v_scale, table, row_of, start, out, N, W, H,
-                                  ps, MP, P, R, PB, G, scale, s);
-  if (dtype == 1)
-    return dispatch_layout<__nv_bfloat16>(layout, D, q, k_pages, v_pages,
-                                          k_scale, v_scale, table, row_of,
-                                          start, out, N, W, H, ps, MP, P, R,
-                                          PB, G, scale, s);
-  return cudaErrorInvalidValue;
+                           float* scratch, int N, int W, int H, int D, int ps,
+                           int MP, int P, int R, int PB, int G, float scale,
+                           int split, int dtype, int layout, int device,
+                           void* stream) {
+  return run(q, k_pages, v_pages, k_scale, v_scale, table, row_of, start,
+             out, scratch, N, W, H, D, ps, MP, P, R, PB, G, scale, split,
+             dtype, layout, device, stream, nullptr);
+}
+
+// Scratch f32 a (query, head) a launch needs for its chunk partials: 0
+// for an unsplit launch, -1 when its block does not fit shared memory.
+// Host only.
+extern "C" long rpa_scratch_floats(int H, int D, int ps, int MP, int PB,
+                                   int G, int split, int dtype, int layout) {
+  static const int dummy[1] = {0};
+  long floats = -1;
+  const float one[1] = {1.f};
+  int rc = run(dummy, dummy, dummy, one, one, dummy, nullptr, dummy, nullptr,
+               nullptr, 1, 1, H, D, ps, MP, 1, 1, PB, G, 1.f, split, dtype,
+               layout, 0, nullptr, &floats);
+  return rc ? -1 : floats;
 }
 
 extern "C" const char* rpa_error_string(int code) {

@@ -17,9 +17,13 @@ Three implementations of the same function:
     >= seq_len set to -1e30, softmax, P.V;
   * `_paged_ref`, the plain version of the kernel: the JAX kernel's walk
     over pages j = 0..max_pages-1 in order, q*scale before the dot, one
-    f32 online-softmax step a page, masked positions -1e30 (not
-    skipped), acc / max(s, 1e-30);
-  * the hand-written CUDA kernel `csrc/paged_attention.cu`.
+    f32 online-softmax step a page (a page of more than 32 tokens: a
+    step a 32-key tile), masked positions -1e30 (not skipped), cut into
+    chunks of `CHUNK_PAGES` pages at fixed page indices, each from a
+    fresh state, merged in chunk order as the ragged kernel's
+    (`_merge_chunks`);
+  * the hand-written CUDA kernel `csrc/paged_attention.cu` (the ragged
+    kernel's body, `csrc/decode_attention.cuh`, with qpos = seq_len - 1).
 With seq_len 0 every logit is -1e30, so all three return the uniform
 mean of V over every gathered slot, as the JAX paths do.
 
@@ -29,7 +33,8 @@ CUDA tensor always launches the kernel, and a build or launch failure
 raises (there is no fallback, unlike the JAX `kernel_fallback`). On CPU
 tensors the flag picks `_paged_ref` (True) or `_paged_attention_ref`
 (False). `kernel_launches` / `plain_launches` count the kernel's
-launches and the CPU calls.
+launches and the CPU calls; `device_launches` the device launches (two
+for a split call, one otherwise).
 """
 import ctypes
 import math
@@ -39,21 +44,26 @@ import torch
 
 from . import _build
 from ..device import get_device
+from .ragged_paged_attention import CHUNK_PAGES, _merge_chunks, _plan
 
 __all__ = ["PagedKVCache", "paged_attention", "kernel_launches",
-           "plain_launches", "reset_counts"]
+           "plain_launches", "device_launches", "reset_counts"]
 
 _MASK = -1e30
 _DENOM_EPS = 1e-30
+# keys of one online-softmax step in a page longer than this
+_KEY_TILE = 32
 
 kernel_launches = 0
 plain_launches = 0
+device_launches = 0
 
 
 def reset_counts():
-    global kernel_launches, plain_launches
+    global kernel_launches, plain_launches, device_launches
     kernel_launches = 0
     plain_launches = 0
+    device_launches = 0
 
 
 class PagedKVCache:
@@ -140,32 +150,40 @@ def _paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens, scale):
 
 
 def _paged_ref(q, k_pages, v_pages, page_table, seq_lens, scale):
-    """Plain version of the kernel: pages j = 0..max_pages-1 in order
-    (ids clamped into [0, P-1]), one f32 online-softmax step a page over
-    q*scale . k, positions >= seq_len masked to -1e30."""
+    """Plain version of the kernel: pages j = 0..max_pages-1 in order (ids
+    clamped into [0, P-1]) in chunks of CHUNK_PAGES, one f32 online-softmax
+    step a page (or a 32-key tile of a longer page) over q*scale . k,
+    positions >= seq_len masked to -1e30, each chunk from a fresh state,
+    the chunks merged in order (`_merge_chunks`)."""
     b, _, h, d = q.shape
     P, ps = k_pages.shape[:2]
+    MP = page_table.shape[1]
     dev = q.device
     safe = page_table.long().clamp(0, P - 1)
     qf = q[:, 0].float() * scale                              # [B, H, D]
     lens = seq_lens.long()[:, None, None]
-    m = torch.full((b, h, 1), _MASK, dtype=torch.float32, device=dev)
-    s = torch.zeros((b, h, 1), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, h, d), dtype=torch.float32, device=dev)
-    for j in range(page_table.shape[1]):
-        kj = k_pages[safe[:, j]].float()                      # [B, ps, H, D]
-        vj = v_pages[safe[:, j]].float()
-        logits = torch.einsum("bhd,bthd->bht", qf, kj)        # [B, H, ps]
-        pos = j * ps + torch.arange(ps, device=dev)
-        logits = torch.where(pos < lens, logits, _MASK)
-        m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
-        p = torch.exp(logits - m_new)
-        corr = torch.exp(m - m_new)
-        m = m_new
-        s = s * corr + p.sum(-1, keepdim=True)
-        acc = acc * corr + torch.einsum("bht,bthd->bhd", p, vj)
-    out = acc / s.clamp_min(_DENOM_EPS)
-    return out[:, None].to(q.dtype)
+    tile = ps if ps <= _KEY_TILE else _KEY_TILE
+    parts = []
+    for c0 in range(0, MP, CHUNK_PAGES):
+        m = torch.full((b, h, 1), _MASK, dtype=torch.float32, device=dev)
+        s = torch.zeros((b, h, 1), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, h, d), dtype=torch.float32, device=dev)
+        for j in range(c0, min(c0 + CHUNK_PAGES, MP)):
+            kp = k_pages[safe[:, j]].float()                  # [B, ps, H, D]
+            vp = v_pages[safe[:, j]].float()
+            for t0 in range(0, ps, tile):
+                kj, vj = kp[:, t0:t0 + tile], vp[:, t0:t0 + tile]
+                logits = torch.einsum("bhd,bthd->bht", qf, kj)  # [B, H, t]
+                pos = j * ps + t0 + torch.arange(kj.shape[1], device=dev)
+                logits = torch.where(pos < lens, logits, _MASK)
+                m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+                p = torch.exp(logits - m_new)
+                corr = torch.exp(m - m_new)
+                m = m_new
+                s = s * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + torch.einsum("bht,bthd->bhd", p, vj)
+        parts.append((m, s, acc))
+    return _merge_chunks(parts)[:, None].to(q.dtype)
 
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -176,21 +194,26 @@ def _kernel_lib():
     global _lib
     if _lib is None:
         lib = _build.load("paged_attention")
-        lib.paged_forward.argtypes = ([ctypes.c_void_p] * 6
+        lib.paged_forward.argtypes = ([ctypes.c_void_p] * 7
                                       + [ctypes.c_int] * 6
-                                      + [ctypes.c_float, ctypes.c_int,
-                                         ctypes.c_int, ctypes.c_void_p])
+                                      + [ctypes.c_float]
+                                      + [ctypes.c_int] * 3
+                                      + [ctypes.c_void_p])
         lib.paged_forward.restype = ctypes.c_int
+        lib.paged_scratch_floats.argtypes = [ctypes.c_int] * 6
+        lib.paged_scratch_floats.restype = ctypes.c_long
         lib.paged_error_string.argtypes = [ctypes.c_int]
         lib.paged_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def _launch(q, k_pages, v_pages, page_table, seq_lens, scale):
+def _launch(q, k_pages, v_pages, page_table, seq_lens, scale, split=None):
     """Check the operands and launch the CUDA kernel on the current
-    stream. Anything the kernel does not take raises."""
-    global kernel_launches
+    stream. Anything the kernel does not take raises. The launch plan
+    (`split`) and the scratch for a split launch's chunk partials (B * H *
+    ceil(MP / CHUNK_PAGES) * (32 DPL + 4) f32) are the ragged kernel's."""
+    global kernel_launches, device_launches
     B, one, H, D = q.shape
     P, ps = k_pages.shape[:2]
     MP = page_table.shape[1]
@@ -222,15 +245,23 @@ def _launch(q, k_pages, v_pages, page_table, seq_lens, scale):
     if q.numel() == 0:
         return out
     lib = _kernel_lib()
+    dtype = _CODES[q.dtype]
+    dev = q.get_device()
+    split, per = _plan(lib.paged_scratch_floats, B * H, (H, D, ps, MP),
+                       (dtype,), split)
+    scratch = torch.empty((B * H * per,), dtype=torch.float32,
+                          device=q.device) if per else None
     rc = lib.paged_forward(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), B, H, D,
-        ps, MP, P, float(scale), _CODES[q.dtype], q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), B, H, D, ps, MP, P,
+        float(scale), int(split), dtype, dev,
+        torch._C._cuda_getCurrentRawStream(dev))
     if rc:
         raise RuntimeError("paged_attention kernel launch failed: "
                            f"{lib.paged_error_string(rc).decode()} ({rc})")
     kernel_launches += 1
+    device_launches += 2 if split else 1
     return out
 
 
