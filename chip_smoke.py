@@ -25,9 +25,14 @@ bf16, batch 32 x 512 with padding masks, dropout 0.1, AdamW, bench.py's
 recipe) for 2 warm-up and 8 timed steps, counts launches by kernel and
 branch, splits one profiled step by family, and checks a small BERT's
 training with dropout on against the port's CPU path. Both training
-paths update every parameter with one launch of the fused AdamW kernel
-a step; that kernel (in eight variants of dtypes, master copy and clip
-scale), the RMSNorm kernel and the dropout + residual + LayerNorm kernel
+paths update every parameter with one launch of the multi-tensor AdamW
+kernel a step, held bit-equal to one launch a parameter over each run's
+real parameter list and timed against those launches and
+`torch._fused_adamw_` over the same lists; the first steps of each run
+are replayed with one launch a parameter and must give the same losses
+bit for bit. That kernel (in eight variants of dtypes, master copy and
+clip scale, beside a copy probe and a cheap-division probe of its loop),
+the RMSNorm kernel and the dropout + residual + LayerNorm kernel
 are held against their plain versions and timed at full width, and the
 two norm ops are driven through their entry points (nn.RMSNorm forward
 and backward, the dropout op in training and eval). The two legacy
@@ -37,7 +42,11 @@ count-0 rows, seq_len 0, -1 page ids) and timed at full width, and their
 entry points are driven at gpt_1p3b's attention width:
 F.sparse_attention forward and backward on a BigBird CSR at L 4096, and
 a PagedKVCache of the serving pool's geometry filled with 16 sequences
-and read by paged_attention. The bf16 W4 matmul and the bf16 flash
+and read by paged_attention; bf16 block-sparse attention at block sizes
+16-128 and head_dim 64 and 128 runs on its tensor-core body (every case
+asserts the body it took and two launches bit-equal, a walk with p
+rounded to bf16 alone must fall outside the tolerance, and no
+tensor-core instantiation may spill). The bf16 W4 matmul and the bf16 flash
 forward, dQ and dK/dV run on the tensor cores: the W4 checks hold the
 first S rows of x, S in 1, 16, 17, 64 and 300, bit-equal alone and
 inside a 2048-row call, and time the kernel and cuBLAS both eagerly and
@@ -132,6 +141,13 @@ def host_us(fn, iters):
     return took / iters * 1e6
 
 
+def _bits_equal(x, y):
+    """x and y hold the same bits (a NaN equals itself)."""
+    it = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+          8: torch.int64}[x.element_size()]
+    return x.dtype == y.dtype and torch.equal(x.view(it), y.view(it))
+
+
 def bf16_ulp(x):
     """One bf16 ulp (8 significant bits) at |x|, as f32."""
     mag = x.abs().float().clamp_min(2.0 ** -126)
@@ -161,12 +177,37 @@ def phase_environment():
             _ptxas_bwd(entries)
         if name in DECODE_SOURCES:
             _ptxas_decode(name, entries)
-    for name in ("flash_attention",) + DECODE_SOURCES:
+        if name == "block_sparse_attention":
+            _ptxas_bsa(entries)
+    for name, line in (("flash_attention", "ptxas_bwd"),
+                       ("block_sparse_attention", "ptxas_bsa")) + tuple(
+                           (d, "ptxas_decode") for d in DECODE_SOURCES):
         if name not in _build.build_logs:
-            log("ptxas_bwd" if name == "flash_attention" else "ptxas_decode",
-                source=name, checked=False,
+            log(line, source=name, checked=False,
                 reason="library built before this run")
     return smi
+
+
+def _ptxas_bsa(entries):
+    """One line for the block-sparse tensor-core body (its instantiations
+    at block sizes 16-128 and head_dim 64 and 128) and one for the SIMT
+    body: registers and spill stores. Raises if a tensor-core
+    instantiation is missing from ptxas's report or spills."""
+    from paddle_tpu_torch.ops import block_sparse_attention as bsa
+    want = len(bsa.TC_BLOCK_SIZES) * len(bsa.TC_HEAD_DIMS)
+    for kern, tc in (("bsa_fwd_tc_kernel<", True),
+                     ("block_sparse_attention_kernel<", False)):
+        got = [(_ptxas_number(r"Used (\d+) registers", regs),
+                _ptxas_number(r"(\d+) bytes spill stores", spill))
+               for fn, regs, spill in entries if fn and fn.startswith(kern)]
+        spill = max((b for _, b in got), default=None)
+        log("ptxas_bsa", kernel=kern.rstrip("<"), instantiations=len(got),
+            registers=(f"{min(r for r, _ in got)}-{max(r for r, _ in got)}"
+                       if got else "none"), spill_store_bytes=spill)
+        if tc and (len(got) != want or spill):
+            raise RuntimeError(f"ptxas: {kern}...> has {len(got)} of its "
+                               f"{want} instantiations in the report, spill "
+                               f"stores {spill} bytes (0 required)")
 
 
 # The split decode-attention bodies (csrc/decode_attention.cuh) by source:
@@ -1989,11 +2030,26 @@ def _reset_train_counts(A, LN, X):
         mod.reset_counts()
 
 
+def _adamw_launches_expected(trainer, X):
+    """Launches of the multi-tensor AdamW kernel an optimizer step makes:
+    one per group of parameters sharing their dtypes (and master copy)
+    and `adamw_capacity()` tensors."""
+    opt = trainer.optimizer
+    groups = {}
+    for p in trainer.params:
+        slots = opt._slots(p)
+        key = (p.dtype, slots["moment1"].dtype, "master" in slots)
+        groups[key] = groups.get(key, 0) + 1
+    cap = X.adamw_capacity()
+    return sum(-(-n // cap) for n in groups.values())
+
+
 def _trainer(cfg, device=None, lr=2e-4, acc_dtype="bfloat16", bf16=True,
-             state=None):
+             state=None, opt_cls=None):
     """The bench.py recipe: GPT(cfg) (seed 0, or the weights `state`)
     [.bfloat16()], the pretraining criterion, AdamW(lr, weight_decay
-    0.1, ClipGradByGlobalNorm(1.0), bf16 moment slots), Trainer."""
+    0.1, ClipGradByGlobalNorm(1.0), bf16 moment slots), Trainer;
+    `opt_cls` in place of AdamW where given."""
     from paddle_tpu_torch.distributed import Trainer
     from paddle_tpu_torch.models import GPT, GPTPretrainingCriterion
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
@@ -2004,9 +2060,9 @@ def _trainer(cfg, device=None, lr=2e-4, acc_dtype="bfloat16", bf16=True,
     if bf16:
         model.bfloat16()
     crit = GPTPretrainingCriterion()
-    opt = AdamW(learning_rate=lr, weight_decay=0.1,
-                grad_clip=ClipGradByGlobalNorm(1.0),
-                accumulator_dtype=acc_dtype)
+    opt = (opt_cls or AdamW)(learning_rate=lr, weight_decay=0.1,
+                             grad_clip=ClipGradByGlobalNorm(1.0),
+                             accumulator_dtype=acc_dtype)
     return Trainer(model, opt,
                    lambda m, b: crit(m(b["input_ids"]), b["labels"]),
                    device=device)
@@ -2018,10 +2074,14 @@ def _batch(cfg, B, L, seed=SEED):
             "labels": ids[:, 1:].astype("int32")}
 
 
+def _gpt_train_cfg():
+    from paddle_tpu_torch.models import gpt_1p3b
+    return gpt_1p3b(max_seq_len=TL, remat_policy="full")
+
+
 def phase_training(A, LN, X, smi):
     from paddle_tpu_torch.distributed import LossBuffer
-    from paddle_tpu_torch.models import gpt_1p3b
-    cfg = gpt_1p3b(max_seq_len=TL, remat_policy="full")
+    cfg = _gpt_train_cfg()
     t0 = time.perf_counter()
     trainer = _trainer(cfg)
     torch.cuda.synchronize()
@@ -2047,7 +2107,8 @@ def phase_training(A, LN, X, smi):
         raise AssertionError(f"training losses not finite and falling: "
                              f"{losses}")
     per_step = {k: v / TRAIN_STEPS for k, v in kern.items()}
-    expected = {**EXPECTED_PER_STEP, "adamw": len(trainer.params)}
+    expected = {**EXPECTED_PER_STEP,
+                "adamw": _adamw_launches_expected(trainer, X)}
     branches = dict(A.branch_launches)
     if per_step != expected or any(plain.values()) or any(
             branches.get(f"{name}[tc,none]") != kern[name]
@@ -2068,8 +2129,9 @@ def phase_training(A, LN, X, smi):
         loss_first=f"{losses[0]:.5f}", loss_last=f"{losses[-1]:.5f}")
     log("train_launches", **{f"{k}_per_step": v for k, v in
                              per_step.items()},
+        adamw_tensors_per_launch=len(trainer.params) / per_step["adamw"],
         **branches, plain=sum(plain.values()))
-    return trainer, batch, kern
+    return trainer, batch, kern, losses
 
 
 _FAMILIES = (("flash_attention", ("flash_fwd", "flash_dq", "flash_dkv")),
@@ -2442,10 +2504,11 @@ def _bert_batch(cfg, seed=0):
 
 
 def _bert_trainer(cfg, device=None, lr=1e-4, acc_dtype="bfloat16",
-                  state=None):
+                  state=None, opt_cls=None):
     """bench.py's recipe: BertForPretraining(cfg) (seed 0, or the weights
     `state`), train mode, BertPretrainingCriterion, AdamW(lr,
-    weight_decay 0.01, no clip, moment slots in `acc_dtype`), Trainer."""
+    weight_decay 0.01, no clip, moment slots in `acc_dtype`), Trainer;
+    `opt_cls` in place of AdamW where given."""
     from paddle_tpu_torch.distributed import Trainer
     from paddle_tpu_torch.models import (BertForPretraining,
                                          BertPretrainingCriterion)
@@ -2455,8 +2518,8 @@ def _bert_trainer(cfg, device=None, lr=1e-4, acc_dtype="bfloat16",
         model.load_state_dict(state)
     model.train()
     crit = BertPretrainingCriterion(cfg.vocab_size)
-    opt = AdamW(learning_rate=lr, weight_decay=0.01,
-                accumulator_dtype=acc_dtype)
+    opt = (opt_cls or AdamW)(learning_rate=lr, weight_decay=0.01,
+                             accumulator_dtype=acc_dtype)
 
     def loss_fn(m, b):
         mlm, nsp = m(b["input_ids"], attention_mask=b["attention_mask"])
@@ -2471,10 +2534,14 @@ def _branch_key(name):
     return f"{name}[tc,{MASKED}]"
 
 
+def _bert_train_cfg():
+    from paddle_tpu_torch.models import bert_base
+    return bert_base(dtype="bfloat16")
+
+
 def phase_bert_training(A, LN, X, smi):
     from paddle_tpu_torch.distributed import LossBuffer
-    from paddle_tpu_torch.models import bert_base
-    cfg = bert_base(dtype="bfloat16")
+    cfg = _bert_train_cfg()
     t0 = time.perf_counter()
     trainer = _bert_trainer(cfg)
     torch.cuda.synchronize()
@@ -2501,7 +2568,8 @@ def phase_bert_training(A, LN, X, smi):
     if not all(np.isfinite(losses)):
         raise AssertionError(f"bert_base losses not finite: {losses}")
     per_step = {k: v / TRAIN_STEPS for k, v in kern.items()}
-    expected = {**BERT_EXPECTED_PER_STEP, "adamw": len(trainer.params)}
+    expected = {**BERT_EXPECTED_PER_STEP,
+                "adamw": _adamw_launches_expected(trainer, X)}
     masked = {k: branches.get(_branch_key(k), 0) for k in A.KERNELS}
     if per_step != expected or any(plain.values()) or \
             masked != {k: kern[k] for k in A.KERNELS}:
@@ -2521,9 +2589,10 @@ def phase_bert_training(A, LN, X, smi):
         loss_first=f"{losses[0]:.5f}", loss_last=f"{losses[-1]:.5f}")
     log("bert_launches", **{f"{k}_per_step": v for k, v in
                             per_step.items()},
+        adamw_tensors_per_launch=len(trainer.params) / per_step["adamw"],
         **{_branch_key(k): v for k, v in masked.items()},
         plain=sum(plain.values()))
-    return trainer, batch, kern
+    return trainer, batch, kern, losses
 
 
 _BERT_FAMILIES = ("flash_attention", "cublas", "layer_norm", "dropout_hash",
@@ -2662,6 +2731,11 @@ def phase_bert_small_reference():
 ADAMW_SHAPE = (THID, 4 * THID)
 ADAMW_HYPER = (2e-4, 0.9, 0.999, 1e-8, 0.1)       # lr, b1, b2, eps, wd
 ADAMW_STEP = 10
+# the per-tensor AdamW kernel's time at ADAMW_SHAPE before the
+# multi-tensor loop (a grid-stride loop of 8 elements a thread over 132 x
+# 16 blocks), on these inputs, timed by tools/kernel_ab.py on the tree
+# before it (H100 80GB HBM3, 700 W); the [kernel_time] line only
+ADAMW_EARLIER_MS = 0.0974
 NORM_SHAPES = ((TN, THID), (BB * BL, BHID))
 RMS_EPS, DRLN_RATE, DRLN_SEED = 1e-6, 0.1, 1234
 # AdamW variants: (name, p dtype, g dtype, slot dtype, f32 master, clip)
@@ -2786,6 +2860,35 @@ def phase_slice5_kernel_checks(LN, X):
     return err
 
 
+_probe_lib = None
+
+
+def _adamw_probe(mode, p, g, m, v, scale, hyper):
+    """A measurement probe of the AdamW kernel's loop on one bf16 tensor
+    (`csrc/adamw_probe.cu`, never used for results and never loaded by
+    the port): mode 1 with cheap approximate divisions, mode 2 a copy of
+    the same traffic."""
+    global _probe_lib
+    from paddle_tpu_torch.ops import _build
+    if _probe_lib is None:
+        _probe_lib = _build.load("adamw_probe")
+        _probe_lib.adamw_probe.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+            + [ctypes.c_float] * 9 + [ctypes.c_int, ctypes.c_void_p])
+        _probe_lib.adamw_probe.restype = ctypes.c_int
+        _probe_lib.adamw_probe_error_string.argtypes = [ctypes.c_int]
+        _probe_lib.adamw_probe_error_string.restype = ctypes.c_char_p
+    lr, b1, b2, eps, wd, bc1, bc2 = hyper
+    rc = _probe_lib.adamw_probe(
+        mode, p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+        None if scale is None else scale.data_ptr(), p.numel(), lr, b1,
+        1.0 - b1, b2, 1.0 - b2, eps, wd, bc1, bc2, p.device.index or 0,
+        torch.cuda.current_stream(p.device).cuda_stream)
+    if rc:
+        raise RuntimeError("adamw probe launch failed: "
+                           f"{_probe_lib.adamw_probe_error_string(rc)}")
+
+
 def phase_slice5_kernel_timing(LN, X):
     """The three kernels at the main paths' shapes (bf16), beside their
     plain versions and one PyTorch call computing the same function
@@ -2856,13 +2959,143 @@ def phase_slice5_kernel_timing(LN, X):
         bound_ms, bound_by = _bound(nbytes, flops, H100_F32_FLOPS)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms}
+        extra = {}
+        if name == "adamw":
+            # the loop's ceilings, from the same loop (never results): the
+            # update with cheap approximate divisions, and a copy of the
+            # same traffic, on copies of the state (the copy probe
+            # scrambles its operands)
+            hyper = (*ADAMW_HYPER, *bc)
+            st = [t.clone() for t in (p, g, m, v)]
+            out[name]["cheap_div_ms"] = cuda_ms(
+                lambda i=0: _adamw_probe(1, *st, scale, hyper), 20)
+            out[name]["copy_ceiling_ms"] = cuda_ms(
+                lambda i=0: _adamw_probe(2, *st, scale, hyper), 20)
+            del st
+            extra = {k: f"{out[name][k]:.4f}" for k in
+                     ("copy_ceiling_ms", "cheap_div_ms")}
+            extra.update(earlier_ms=ADAMW_EARLIER_MS,
+                         goal_no_slower_than_library="met" if
+                         ms <= library_ms else "missed")
         log("kernel_time", kernel=name, form=repr(form), ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.4f}",
             library_ms="none (no single PyTorch call)" if library is None
             else f"{library_ms:.4f}",
             bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-            achieved_GBps=f"{nbytes / ms / 1e6:.1f}")
+            achieved_GBps=f"{nbytes / ms / 1e6:.1f}", **extra)
     return out
+
+
+# Steps of a training run replayed with one AdamW launch a parameter
+# (the route the multi-tensor launch replaced): their losses must equal
+# the run's bit for bit.
+ROUTE_STEPS = 3
+
+
+def phase_adamw_list(trainer, batch, X, label):
+    """The multi-tensor AdamW launch over a training run's real parameter
+    list (`trainer.params`, the gradients of one more step, the
+    optimizer's moment slots and, for GPT, the clip scale), on copies
+    of the state: bit-equal to one `adamw_update_` launch a parameter.
+    Then the whole list timed three ways on the same copies: the
+    multi-tensor launch, the per-tensor launches, and
+    `torch._fused_adamw_` over the same lists (PyTorch's multi-tensor
+    form, without the clip scale; never called by the port); bound: the
+    list's p, g, m, v read once and p, m, v written once over 3.35 TB/s
+    (the f32 flops, ~16 an element over 67 TFLOP/s, are below it)."""
+    opt = trainer.optimizer
+    _, grads = trainer._loss_and_grads(batch)
+    clip = opt._grad_clip
+    scale = clip.scale(list(grads)) if clip is not None else None
+    params = list(trainer.params)
+    slots = [opt._slots(p) for p in params]
+    if any("master" in st for st in slots):
+        raise AssertionError(f"{label}: a master copy in the list")
+    hyper = (opt.get_lr(), opt._beta1, opt._beta2, opt._epsilon, opt._wd,
+             *opt._bias_corrections(opt._step_count + 1))
+
+    def state():
+        return ([p.detach().clone() for p in params],
+                [st["moment1"].clone() for st in slots],
+                [st["moment2"].clone() for st in slots])
+
+    a, b = state(), state()
+    X.reset_counts()
+    X.adamw_update_multi(a[0], grads, a[1], a[2], *hyper, scale=scale)
+    multi_launches = X.adamw_kernel_launches
+    for p, g, m, v in zip(b[0], grads, b[1], b[2]):
+        X.adamw_update_(p, g, m, v, *hyper, scale=scale)
+    torch.cuda.synchronize()
+    equal = all(_bits_equal(x, y) for la, lb in zip(a, b)
+                for x, y in zip(la, lb))
+    if not equal:
+        raise AssertionError(f"{label}: the multi-tensor AdamW launch and "
+                             "the per-tensor launches differ")
+    numel = sum(p.numel() for p in params)
+    nbytes = sum(p.numel() * (2 * p.element_size() + g.element_size() +
+                              2 * st["moment1"].element_size() * 2)
+                 for p, g, st in zip(params, grads, slots))
+    steps = [torch.full((), float(opt._step_count + 1), device="cuda")
+             for _ in params]
+    lr, b1, b2, eps, wd = hyper[:5]
+    routes = {
+        "": lambda i=0: X.adamw_update_multi(a[0], grads, a[1], a[2],
+                                             *hyper, scale=scale),
+        "per_tensor_": lambda i=0: [
+            X.adamw_update_(p, g, m, v, *hyper, scale=scale)
+            for p, g, m, v in zip(b[0], grads, b[1], b[2])],
+        "library_": lambda i=0: torch._fused_adamw_(
+            b[0], list(grads), b[1], b[2], [], steps, lr=lr, beta1=b1,
+            beta2=b2, weight_decay=wd, eps=eps, amsgrad=False,
+            maximize=False)}
+    # eager (CUDA events around calls, host-paced where the Python of a
+    # call outlasts its device work), device time (the calls replayed
+    # from a CUDA graph) and host time a call
+    out = {}
+    for key, fn in routes.items():
+        out[f"{key}ms"] = cuda_ms(fn, 5)
+        out[f"{key}device_ms"] = cuda_graph_ms(fn, 5)
+        out[f"{key}host_us"] = host_us(fn, 5)
+    bound_ms, bound_by = _bound(nbytes, 16 * numel, H100_F32_FLOPS)
+    out.update(bound_ms=bound_ms, launches=multi_launches)
+    log("adamw_list", model=label, tensors=len(params),
+        elements=numel, launches=multi_launches,
+        clip_scale=scale is not None, bit_equal_to_per_tensor=equal,
+        **{k: f"{v:.4f}" if k.endswith("ms") else f"{v:.1f}"
+           for k, v in out.items() if k.endswith(("ms", "us"))},
+        per_tensor_launches=len(params), bound_by=bound_by,
+        device_share_of_bound=f"{bound_ms / out['device_ms']:.3f}",
+        goal_below_library_device="met" if out["device_ms"] <=
+        out["library_device_ms"] else "missed")
+    del a, b, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_route(label, make_trainer, batch, losses):
+    """A fresh trainer of the same recipe with one AdamW launch a
+    parameter (`testing.PerTensorAdamW`) runs the first ROUTE_STEPS steps
+    of the run: its losses must equal the run's (the multi-tensor
+    launch) bit for bit."""
+    from paddle_tpu_torch.distributed import LossBuffer
+    from paddle_tpu_torch.ops import fused_ops as X
+    from paddle_tpu_torch.testing import PerTensorAdamW
+    trainer = make_trainer(PerTensorAdamW)
+    buf = LossBuffer(drain_every=ROUTE_STEPS)
+    X.reset_counts()
+    for _ in range(ROUTE_STEPS):
+        buf.append(trainer.step(batch))
+    got = buf.losses
+    launches = X.adamw_kernel_launches
+    del trainer
+    torch.cuda.empty_cache()
+    if got != list(losses[:ROUTE_STEPS]):
+        raise AssertionError(f"{label}: losses with one AdamW launch a "
+                             f"parameter {got} differ from the run's "
+                             f"{list(losses[:ROUTE_STEPS])}")
+    log("train_route", model=label, steps=ROUTE_STEPS,
+        per_tensor_launches_per_step=launches / ROUTE_STEPS,
+        losses=",".join(f"{x:.9g}" for x in got), bit_equal_to_run=True)
 
 
 def phase_norm_entry_points(LN, X):
@@ -2940,6 +3173,13 @@ PA_SMALL = ((8, 4), (16, 16), (64, 5), (128, 16), (256, 32))   # (D, ps)
 # the paged kernel's eager time before the redesign (H100 80GB HBM3,
 # 700 W): one block per (b, h), a serial page walk
 PA_EARLIER_MS = 0.3248
+# the block-sparse kernel's time at the timing shape on its SIMT f32 body
+# before the tensor-core body, on these inputs (one pattern per (b, h)),
+# timed by tools/kernel_ab.py on the tree before it (H100 80GB HBM3, 700
+# W; the [kernel_time] line only), and the goals of the redesign: below
+# SDPA with the dense mask, stretch 0.8 ms
+BS_EARLIER_MS = 4.3281
+BS_STRETCH_MS = 0.8
 
 
 def _bigbird_blocks(rng, nb, n_random=2):
@@ -3002,14 +3242,43 @@ def _bs_layout(gen, G, nq, empty=True):
     return cols.int().contiguous(), counts.contiguous()
 
 
-def _bs_check(bsa, name, q, k, v, cols, counts, bs):
-    """The block-sparse kernel against its plain version (f32: within
-    1e-5; bf16: one ulp of the plain version's f32 result)."""
+def _bs_route(bsa, dtype, bs, d):
+    """The body a launch must take: the tensor cores for bf16 at the
+    block sizes and head dims they cover, SIMT otherwise."""
+    tc = dtype == torch.bfloat16 and bs in bsa.TC_BLOCK_SIZES and \
+        d in bsa.TC_HEAD_DIMS
+    return f"{'tc' if tc else 'simt'},bs{bs},d{d}"
+
+
+def _bs_check(bsa, name, q, k, v, cols, counts, bs, control=False):
+    """The block-sparse kernel against its plain version `_bs_fwd_ref`
+    (f32: within 1e-5; bf16: one ulp of the plain version's f32 result
+    plus 1e-5), two launches bit-equal, both on the body the route rule
+    names. With `control`, the tensor-core rounding points with p
+    rounded to bf16 alone (`testing.bs_tc_walk(p_split=False)`) are held
+    to the same tolerance; returns (max err, whether the control was
+    rejected, None without one)."""
+    from paddle_tpu_torch.testing import bs_tc_walk
     scale = 1.0 / q.shape[-1] ** 0.5
+    bsa.reset_counts()
     got = bsa._launch(q, k, v, cols, counts, bs, scale)
+    again = bsa._launch(q, k, v, cols, counts, bs, scale)
+    want = {_bs_route(bsa, q.dtype, bs, q.shape[-1]): 2}
+    if bsa.route_launches != want:
+        raise AssertionError(f"{name}: launches by body "
+                             f"{bsa.route_launches}, expected {want}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches differ")
     plain32 = bsa._bs_fwd_ref(q.float(), k.float(), v.float(), cols, counts,
                               bs, scale)
-    return _check_close(name, got, plain32.to(q.dtype), plain32)
+    err = _check_close(name, got, plain32.to(q.dtype), plain32)
+    rejected = None
+    if control:
+        ctrl = bs_tc_walk(q, k, v, cols, counts, bs, scale,
+                          p_split=False).to(q.dtype).float()
+        rejected = bool(((ctrl - plain32).abs() >
+                         bf16_ulp(plain32) + 1e-5).any())
+    return err, rejected
 
 
 def _pa_check(pa, name, q, kp, vp, table, lens):
@@ -3068,6 +3337,7 @@ def phase_slice6_kernel_checks(bsa, pa):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
     rng = np.random.RandomState(SEED + 30)
     err = {"block_sparse_attention": 0.0, "paged_attention": 0.0}
+    routes, controls = {}, []
     for dtype in (torch.float32, torch.bfloat16):
         for n, (bs, d) in enumerate((bs, d) for bs in bsa.BLOCK_SIZES
                                     for d in BS_SMALL_D):
@@ -3075,14 +3345,23 @@ def phase_slice6_kernel_checks(bsa, pa):
             G = B * Hh if n % 2 == 0 else 1
             cols, counts = _bs_layout(gen, G, L // bs)
             q, k, v = (_rand(gen, (B, Hh, L, d), dtype) for _ in range(3))
-            e = _bs_check(bsa, f"bsa bs={bs} D={d}", q, k, v, cols, counts,
-                          bs)
+            route = _bs_route(bsa, dtype, bs, d)
+            e, rejected = _bs_check(bsa, f"bsa bs={bs} D={d}", q, k, v,
+                                    cols, counts, bs,
+                                    control=route.startswith("tc"))
+            routes[route] = routes.get(route, 0) + 1
+            if rejected is not None:
+                controls.append(rejected)
             err["block_sparse_attention"] = max(
                 err["block_sparse_attention"], e)
         log("kernel", form="block_sparse_attention small", dtype=str(dtype)[6:],
             block_sizes=list(bsa.BLOCK_SIZES), head_dims=list(BS_SMALL_D),
             layouts="per-head+shared, count-0 row, padded slots",
-            max_abs_err=f"{err['block_sparse_attention']:.3e}")
+            max_abs_err=f"{err['block_sparse_attention']:.3e}",
+            cases_by_body=";".join(f"{k}:{v}" for k, v in routes.items()),
+            run_to_run="bit-equal",
+            p_alone_control_rejected=f"{sum(controls)}/{len(controls)}")
+        routes.clear()
         for (d, ps), MP in ((x, mp) for x in PA_SMALL for mp in (8, 40)):
             # MP 40: 5 chunks of 8 pages; seq_len 0 over the whole table
             P, Bq = 60, 7
@@ -3108,7 +3387,11 @@ def phase_slice6_kernel_checks(bsa, pa):
     lens = _pa_lens(rng)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (_rand(gen, (SB, H, SL, D), dtype) for _ in range(3))
-        e = _bs_check(bsa, "bsa full width", q, k, v, bcols, bcounts, SBS)
+        e, rejected = _bs_check(bsa, "bsa full width", q, k, v, bcols,
+                                bcounts, SBS, control=dtype == _BF16)
+        if rejected is False:
+            raise AssertionError("block-sparse: the p-rounded-alone control "
+                                 "passed the bf16 tolerance at full width")
         err["block_sparse_attention"] = max(err["block_sparse_attention"], e)
         cache, table, seq_lens = _pa_fill(gen, dtype, lens)
         qd = _rand(gen, (PA_SEQS, 1, H, D), dtype)
@@ -3119,10 +3402,31 @@ def phase_slice6_kernel_checks(bsa, pa):
         log("kernel", form=f"block_sparse_attention [{SB}, {H}, {SL}, {D}] "
             f"bs {SBS} BigBird + paged_attention pool {PA_PAGES}x{PS}x{H}x"
             f"{D} B {PA_SEQS} max_pages {table.shape[1]}",
-            dtype=str(dtype)[6:], bsa_err=f"{e:.3e}", paged_err=f"{e2:.3e}")
+            dtype=str(dtype)[6:], bsa_err=f"{e:.3e}", paged_err=f"{e2:.3e}",
+            bsa_body=_bs_route(bsa, dtype, SBS, D),
+            bsa_p_alone_control_rejected=rejected)
         del q, k, v, cache, qd
     torch.cuda.synchronize()
     return err
+
+
+def _bs_timing_inputs(bsa, gen):
+    """The block-sparse timing inputs, bf16 at B 4 x 16 x 4096 x 128, bs
+    128 (also drawn by tools/kernel_ab.py): (q, k, v, block_cols,
+    block_counts, visited blocks, the equivalent dense mask [1, H, L,
+    L]). One pattern per (b, h): each head's BigBird pattern in every
+    batch row, as the dense mask gives SDPA (a [H, ..] layout would be
+    read as one shared pattern)."""
+    offset, columns, masks = _bigbird_csr(SEED, 1, H, SL, SBS)
+    _, bcols, bcounts = bsa.csr_to_block_layout(offset, columns, SL)
+    bcols, bcounts = (np.tile(a, (SB_TIME,) + (1,) * (a.ndim - 1))
+                      for a in (bcols, bcounts))
+    visited = int(bcounts.sum())
+    bcols, bcounts = (torch.from_numpy(a).cuda() for a in (bcols, bcounts))
+    q, k, v = (_rand(gen, (SB_TIME, H, SL, D), _BF16) for _ in range(3))
+    dense = torch.from_numpy(np.kron(masks, np.ones((SBS, SBS), bool))
+                             ).cuda()[None]
+    return q, k, v, bcols, bcounts, visited, dense
 
 
 def phase_slice6_kernel_timing(bsa, pa):
@@ -3136,14 +3440,9 @@ def phase_slice6_kernel_timing(bsa, pa):
     tokens (plus q, out, table, lens) over 3.35 TB/s."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
     out = {}
-    offset, columns, masks = _bigbird_csr(SEED, 1, H, SL, SBS)
-    _, bcols, bcounts = bsa.csr_to_block_layout(offset, columns, SL)
-    visited = int(bcounts.sum()) * SB_TIME
-    bcols, bcounts = (torch.from_numpy(a).cuda() for a in (bcols, bcounts))
-    q, k, v = (_rand(gen, (SB_TIME, H, SL, D), _BF16) for _ in range(3))
+    q, k, v, bcols, bcounts, visited, dense = _bs_timing_inputs(bsa, gen)
+    bsa.reset_counts()
     scale = 1.0 / D ** 0.5
-    dense = torch.from_numpy(np.kron(masks, np.ones((SBS, SBS), bool))
-                             ).cuda()[None]          # [1, H, L, L]
     specs = {"block_sparse_attention": (
         lambda i=0: bsa._launch(q, k, v, bcols, bcounts, SBS, scale),
         lambda i=0: bsa._bs_fwd_ref(q, k, v, bcols, bcounts, SBS, scale),
@@ -3183,6 +3482,20 @@ def phase_slice6_kernel_timing(bsa, pa):
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms}
         extra = {}
+        if name == "block_sparse_attention":
+            # the tensor-core body issues 6 bs^2 D flops a visited block
+            # (P.V twice: p_hi and p_lo) to the function's 4
+            # the body is "body" in the kernels line, whose "route" is
+            # the language ("cuda")
+            out[name].update(body=",".join(bsa.route_launches),
+                             work_TFLOPs=1.5 * flops / ms / 1e9)
+            extra = dict(route=out[name]["body"],
+                         work_TFLOPs=f"{1.5 * flops / ms / 1e9:.2f}",
+                         earlier_ms=BS_EARLIER_MS,
+                         goal_below_library="met" if ms < library_ms
+                         else "missed",
+                         stretch_0p8_ms="met" if ms <= BS_STRETCH_MS
+                         else "missed")
         if name == "paged_attention":
             # a launch shorter than its Python: device time from a CUDA
             # graph and each side's host time a call, beside the eager ms
@@ -3230,9 +3543,11 @@ def phase_sparse_entry(bsa):
     out.float().sum().backward()
     torch.cuda.synchronize()
     launches, plain = bsa.kernel_launches, bsa.plain_launches
-    if (launches, plain) != (1, 0):
-        raise AssertionError(f"sparse_attention launched {launches}, plain "
-                             f"{plain}")
+    routes = dict(bsa.route_launches)
+    if (launches, plain) != (1, 0) or \
+            routes != {_bs_route(bsa, _BF16, SBS, D): 1}:
+        raise AssertionError(f"sparse_attention launched {launches} "
+                             f"({routes}), plain {plain}")
     _, bc, bn = F._cached_block_layout(
         offset.tobytes(), offset.shape, columns.tobytes(), columns.shape, SL,
         str(q.device))
@@ -3267,7 +3582,8 @@ def phase_sparse_entry(bsa):
     torch.cuda.synchronize()
     log("sparse_entry", shape=f"[{SB}, {H}, {SL}, {D}] bf16 bs {SBS}",
         blocks_a_row=f"{float(bn.float().mean()):.3f}",
-        max_nnz=bc.shape[-1], kernel_launches=launches, plain=plain,
+        max_nnz=bc.shape[-1], kernel_launches=launches,
+        body=",".join(routes), plain=plain,
         fwd_err=f"{ferr:.3e}", grad_err=f"{gerr:.3e}",
         layout_cache_hit=hit, dense_kpm_err_vs_sdpa=f"{derr:.3e}",
         dense_kernel_launches=bsa.kernel_launches - before)
@@ -3385,18 +3701,31 @@ def main():
     torch.cuda.empty_cache()
     train_err = phase_train_kernel_checks(A, LN, X)
     train_timing = phase_train_kernel_timing(A, LN, X)
-    trainer, batch, train_launches = phase_training(A, LN, X, smi)
+    trainer, batch, train_launches, losses = phase_training(A, LN, X, smi)
     phase_train_profile(trainer, batch)
     phase_train_split(trainer, batch)
-    del trainer, batch
+    adamw_lists = {"gpt_1p3b": phase_adamw_list(trainer, batch, X,
+                                                "gpt_1p3b")}
+    del trainer
+    torch.cuda.empty_cache()
+    phase_train_route("gpt_1p3b", lambda opt_cls: _trainer(
+        _gpt_train_cfg(), opt_cls=opt_cls), batch, losses)
+    del batch
     phase_train_small_reference()
     torch.cuda.empty_cache()
     masked_err, ln768_err = phase_bert_kernel_checks(A, LN)
     bert_timing = phase_bert_kernel_timing(A, LN)
     torch.cuda.empty_cache()
-    trainer, batch, bert_launches = phase_bert_training(A, LN, X, smi)
+    trainer, batch, bert_launches, losses = phase_bert_training(A, LN, X,
+                                                                smi)
     phase_bert_split(trainer, batch)
-    del trainer, batch
+    adamw_lists["bert_base"] = phase_adamw_list(trainer, batch, X,
+                                                "bert_base")
+    del trainer
+    torch.cuda.empty_cache()
+    phase_train_route("bert_base", lambda opt_cls: _bert_trainer(
+        _bert_train_cfg(), opt_cls=opt_cls), batch, losses)
+    del batch
     torch.cuda.empty_cache()
     phase_bert_small_reference()
     log("done", total_s=f"{time.perf_counter() - t_start:.1f}")
@@ -3441,12 +3770,15 @@ def main():
             ("dropout_residual_layer_norm", "dropout_residual_layer_norm.cu",
              "fused_ops.py:288", norm_launches["dropout_residual_layer_norm"],
              f"dropout_residual_layer_norm[{BB * BL}x{BHID}]")):
+        extra = {} if name != "adamw" else {
+            f"{m}_list_{k}": v for m, r in adamw_lists.items()
+            for k, v in r.items() if k.endswith("ms")}
         kernels.append({"name": name, "route": "cuda",
                         "source": f"paddle_tpu_torch/ops/csrc/{source}",
                         "replaces": f"paddle_tpu/ops/{replaces}",
                         "launches": launches,
                         "max_abs_err": slice5_err[name],
-                        **slice5_timing[timing]})
+                        **slice5_timing[timing], **extra})
     for name, replaces in (
             ("block_sparse_attention", "block_sparse_attention.py:35"),
             ("paged_attention", "paged_attention.py:105")):
@@ -3456,6 +3788,8 @@ def main():
                         "launches": slice6_launches[name],
                         "max_abs_err": slice6_err[name],
                         **slice6_timing[name]})
+    if any(k["route"] not in ("cuda", "triton") for k in kernels):
+        raise AssertionError("a kernel's route is not cuda or triton")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

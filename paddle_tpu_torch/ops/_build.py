@@ -5,9 +5,9 @@ library with a plain C interface (`lib<name>-<hash>.so`) that the op
 modules load with ctypes. The build runs at first use, from the sources
 in the checkout, into `paddle_tpu_torch/_build/` (listed in
 .gitignore); the file name carries a hash of the source, of the csrc/
-headers it includes (`tc_tile.cuh`, `decode_attention.cuh`) and of the
-flags, so an edited source or header rebuilds and an unchanged one is
-reused.
+headers it includes (`tc_tile.cuh`, `decode_attention.cuh`,
+`adamw.cuh`) and of the flags, so an edited source or header rebuilds
+and an unchanged one is reused.
 `build_all` starts one nvcc per source together, so the build takes as
 long as the slowest source, not the sum.
 """

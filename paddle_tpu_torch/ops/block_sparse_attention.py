@@ -17,12 +17,22 @@ Two implementations of the forward:
     JAX kernel's padded slot leaves m, l and acc unchanged bit for bit:
     alpha = exp(0) = 1, p = 0), acc / max(l, 1e-30), so a count-0 row
     emits zeros;
-  * the hand-written CUDA kernel `csrc/block_sparse_attention.cu`.
+  * the hand-written CUDA kernel `csrc/block_sparse_attention.cu`, with
+    two bodies: bf16 at block sizes 16-128 and head_dim 64 or 128 runs
+    on the tensor cores, everything else (f32, bs 8, other head dims)
+    on the SIMT body, which follows `_bs_fwd_ref`'s arithmetic.
+    `paddle_tpu_torch.testing.bs_tc_walk` writes the tensor-core body's
+    rounding points out in plain torch ((q.k) * scale, 64-key tiles, P.V
+    = p_hi.V + p_lo.V with p_hi = bf16(p), p_lo = bf16(p - p_hi)); they
+    sit within f32 noise of `_bs_fwd_ref`, which stays the plain version
+    the kernel is held to.
 A wrapper takes the plain version only for tensors on the CPU; on CUDA
 tensors it launches the kernel or raises — there is no fallback.
-`kernel_launches` / `plain_launches` count the calls of each. Column ids
-are clamped into [0, nk) by both, so a bad id reads a block of the
-sequence, never memory outside it.
+`kernel_launches` / `plain_launches` count the calls of each, and
+`route_launches` the kernel's launches by body, block size and head_dim
+("tc,bs128,d128", "simt,bs8,d64"). Column ids are clamped into [0, nk)
+by both, so a bad id reads a block of the sequence, never memory outside
+it.
 
 The backward is autograd of `_dense_recompute`, the dense masked
 attention with the same sparsity: the JAX custom VJP, O(L^2) in memory
@@ -45,20 +55,27 @@ from . import _build
 __all__ = ["block_sparse_attention", "block_mask_from_csr",
            "csr_element_mask", "csr_to_block_layout",
            "dense_mask_sparse_attention", "kernel_launches",
-           "plain_launches", "reset_counts", "BLOCK_SIZES"]
+           "plain_launches", "route_launches", "reset_counts",
+           "BLOCK_SIZES", "TC_BLOCK_SIZES", "TC_HEAD_DIMS"]
 
 _NEG = -1e30
 _DENOM_EPS = 1e-30
 BLOCK_SIZES = (128, 64, 32, 16, 8)    # csr_to_block_layout's search order
+# the bf16 launches the tensor-core body takes
+TC_BLOCK_SIZES = (128, 64, 32, 16)
+TC_HEAD_DIMS = (64, 128)
+TC_KEYS = 64                           # keys a tile of that body
 
 kernel_launches = 0
 plain_launches = 0
+route_launches = {}
 
 
 def reset_counts():
     global kernel_launches, plain_launches
     kernel_launches = 0
     plain_launches = 0
+    route_launches.clear()
 
 
 def block_mask_from_csr(block_cols, block_counts, nk):
@@ -147,7 +164,8 @@ def _kernel_lib():
         lib.bsa_forward.argtypes = ([ctypes.c_void_p] * 6
                                     + [ctypes.c_int] * 7
                                     + [ctypes.c_float, ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_void_p])
+                                       ctypes.c_int, ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_int)])
         lib.bsa_forward.restype = ctypes.c_int
         lib.bsa_error_string.argtypes = [ctypes.c_int]
         lib.bsa_error_string.restype = ctypes.c_char_p
@@ -185,19 +203,28 @@ def _launch(q, k, v, block_cols, block_counts, block_size, scale):
         raise ValueError(f"block_sparse_attention kernel takes block sizes "
                          f"{BLOCK_SIZES} and head_dim <= 256, got "
                          f"{block_size}, {D}")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core body copies 16-byte runs: a view off that
+        # alignment is copied first
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     lib = _kernel_lib()
+    route = ctypes.c_int(-1)
     rc = lib.bsa_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), block_cols.data_ptr(),
         block_counts.data_ptr(), out.data_ptr(), B, H, L, D, block_size,
         max_nnz, int(G == B * H), float(scale), _CODES[q.dtype],
-        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream)
+        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream,
+        ctypes.byref(route))
     if rc:
         raise RuntimeError("block_sparse_attention kernel launch failed: "
                            f"{lib.bsa_error_string(rc).decode()} ({rc})")
     kernel_launches += 1
+    key = f"{'tc' if route.value == 1 else 'simt'},bs{block_size},d{D}"
+    route_launches[key] = route_launches.get(key, 0) + 1
     return out
 
 

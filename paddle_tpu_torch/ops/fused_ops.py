@@ -38,7 +38,7 @@ from . import _build
 from .attention import _K_COL, _K_ROW, _hash32, _mul32
 
 __all__ = ["can_fuse_xent", "fused_softmax_cross_entropy", "adamw_update_",
-           "fused_adamw", "fused_dropout_residual_layer_norm",
+           "adamw_update_multi", "adamw_capacity", "fused_adamw", "fused_dropout_residual_layer_norm",
            "kernel_launches", "plain_launches", "adamw_kernel_launches",
            "adamw_plain_launches", "drln_kernel_launches",
            "drln_plain_launches", "reset_counts"]
@@ -243,26 +243,40 @@ def _adamw_kernel_lib():
     global _adamw_lib
     if _adamw_lib is None:
         lib = _build.load("adamw")
-        lib.adamw_update.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-            + [ctypes.c_float] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        lib.adamw_update.restype = ctypes.c_int
+        lib.adamw_update_multi.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_float] * 9 + [ctypes.c_int] * 5
+            + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+        lib.adamw_update_multi.restype = ctypes.c_int
+        lib.adamw_capacity.argtypes = []
+        lib.adamw_capacity.restype = ctypes.c_int
         lib.adamw_error_string.argtypes = [ctypes.c_int]
         lib.adamw_error_string.restype = ctypes.c_char_p
         _adamw_lib = lib
     return _adamw_lib
 
 
-def _adamw_launch(p, g, m, v, master, scale, hyper):
-    global adamw_kernel_launches
-    tensors = [t for t in (p, g, m, v, master, scale) if t is not None]
-    for t in tensors:
-        if t.device != p.device:
+def adamw_capacity():
+    """The most tensors one launch of the multi-tensor kernel takes (the
+    kernel-parameter space of the toolkit it was built with)."""
+    return _adamw_kernel_lib().adamw_capacity()
+
+
+def _adamw_group_key(p, g, m, master):
+    """The kernel's template arguments: (p, g, slot dtypes, master)."""
+    return p.dtype, g.dtype, m.dtype, master is not None
+
+
+def _adamw_check(p, g, m, v, master):
+    for t in (g, m, v, master):
+        if t is not None and t.device != p.device:
             raise ValueError(f"adamw: operands on {t.device} and {p.device}")
-        if not t.is_contiguous():
+    for t in (p, g, m, v, master):
+        if t is not None and not t.is_contiguous():
             raise ValueError("adamw: operands must be contiguous")
-    if any(t.numel() != p.numel() for t in (g, m, v)) or (
-            master is not None and master.numel() != p.numel()):
+    n = p.numel()
+    if g.numel() != n or m.numel() != n or v.numel() != n or (
+            master is not None and master.numel() != n):
         raise ValueError("adamw: p, g, m, v (and master) must have one size")
     if p.dtype not in _CODES or g.dtype not in _CODES or \
             m.dtype not in _CODES or v.dtype != m.dtype:
@@ -271,24 +285,68 @@ def _adamw_launch(p, g, m, v, master, scale, hyper):
                         f"{g.dtype}, {m.dtype}/{v.dtype}")
     if master is not None and master.dtype != torch.float32:
         raise TypeError("adamw: the master copy must be float32")
-    if scale is not None and (scale.dtype != torch.float32 or
+
+
+def _adamw_launch_multi(group, scale, hyper):
+    """One update of every (p, g, m, v, master) of `group`, all of one
+    `_adamw_group_key`, by the multi-tensor kernel: one launch for up to
+    `adamw_capacity()` tensors. Returns the launches made."""
+    global adamw_kernel_launches
+    p0, g0, m0, _, ma0 = group[0]
+    key = _adamw_group_key(p0, g0, m0, ma0)
+    for p, g, m, v, master in group:
+        _adamw_check(p, g, m, v, master)
+        if p.device != p0.device or \
+                _adamw_group_key(p, g, m, master) != key:
+            raise ValueError("adamw: a group's tensors must share their "
+                             "device, dtypes and master copy")
+    if scale is not None and (scale.device != p0.device or
+                              scale.dtype != torch.float32 or
                               scale.numel() != 1):
-        raise TypeError("adamw: the clip scale must be one float32 value")
-    if p.numel() == 0:
-        return
+        raise TypeError("adamw: the clip scale must be one float32 value "
+                        "on the tensors' device")
+    live = [e for e in group if e[0].numel()]
+    if not live:
+        return 0
+    ptrs = (ctypes.c_void_p * (5 * len(live)))(*[
+        None if t is None else t.data_ptr() for e in live for t in e])
+    numels = (ctypes.c_longlong * len(live))(*[e[0].numel() for e in live])
     lib = _adamw_kernel_lib()
     lr, b1, b2, eps, wd, bc1, bc2 = hyper
-    rc = lib.adamw_update(
-        p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-        None if master is None else master.data_ptr(),
-        None if scale is None else scale.data_ptr(), p.numel(),
+    launches = ctypes.c_int(0)
+    rc = lib.adamw_update_multi(
+        ptrs, numels, len(live), None if scale is None else scale.data_ptr(),
         lr, b1, 1.0 - b1, b2, 1.0 - b2, eps, wd, bc1, bc2,
-        _CODES[p.dtype], _CODES[g.dtype], _CODES[m.dtype],
-        *_stream(p))
+        _CODES[p0.dtype], _CODES[g0.dtype], _CODES[m0.dtype],
+        int(ma0 is not None), *_stream(p0), ctypes.byref(launches))
+    adamw_kernel_launches += launches.value
     if rc:
         raise RuntimeError("adamw kernel launch failed: "
                            f"{lib.adamw_error_string(rc).decode()} ({rc})")
-    adamw_kernel_launches += 1
+    return launches.value
+
+
+def _adamw_launch(p, g, m, v, master, scale, hyper):
+    """One tensor's update: the multi-tensor kernel over a list of one."""
+    return _adamw_launch_multi([(p, g, m, v, master)], scale, hyper)
+
+
+def _adamw_plain(p, g, m, v, master, scale, hyper):
+    """The plain version of one tensor's update, written in place."""
+    global adamw_plain_launches
+    adamw_plain_launches += 1
+    p_new, m_new, v_new = _adamw_kernel_ref(
+        p if master is None else master, g, m, v, *hyper, scale=scale)
+    if master is not None:
+        master.copy_(p_new)
+    p.copy_(p_new)
+    m.copy_(m_new)
+    v.copy_(v_new)
+
+
+def _hyper(lr, beta1, beta2, eps, weight_decay, bc1, bc2):
+    return (float(lr), float(beta1), float(beta2), float(eps),
+            float(weight_decay), float(bc1), float(bc2))
 
 
 @torch.no_grad()
@@ -298,20 +356,35 @@ def adamw_update_(p, g, m, v, lr, beta1, beta2, eps, weight_decay, bc1, bc2,
     update p then takes, rounded) are overwritten. `bc1`/`bc2` are the
     bias corrections 1 - beta^step, `scale` an optional f32 0-d clip
     factor on the card (read there, never fetched)."""
-    global adamw_plain_launches
-    hyper = (float(lr), float(beta1), float(beta2), float(eps),
-             float(weight_decay), float(bc1), float(bc2))
+    hyper = _hyper(lr, beta1, beta2, eps, weight_decay, bc1, bc2)
     if p.device.type == "cpu":
-        adamw_plain_launches += 1
-        p_new, m_new, v_new = _adamw_kernel_ref(
-            p if master is None else master, g, m, v, *hyper, scale=scale)
-        if master is not None:
-            master.copy_(p_new)
-        p.copy_(p_new)
-        m.copy_(m_new)
-        v.copy_(v_new)
+        _adamw_plain(p, g, m, v, master, scale, hyper)
         return
     _adamw_launch(p, g, m, v, master, scale, hyper)
+
+
+@torch.no_grad()
+def adamw_update_multi(params, grads, ms, vs, lr, beta1, beta2, eps,
+                       weight_decay, bc1, bc2, masters=None, scale=None):
+    """`adamw_update_` of every tensor of the lists, in place, which must
+    share their device, dtypes (p, g, the slots) and whether they have
+    an f32 master (`masters`: a list beside `params`, or None). On the
+    card one launch of the multi-tensor kernel for up to
+    `adamw_capacity()` tensors; on the CPU the plain version tensor by
+    tensor. Every element gets the bits `adamw_update_` gives it."""
+    masters = [None] * len(params) if masters is None else list(masters)
+    group = list(zip(params, grads, ms, vs, masters))
+    if not (len(group) == len(params) == len(grads) == len(ms) == len(vs)
+            == len(masters)):
+        raise ValueError("adamw_update_multi: lists of unequal length")
+    if not group:
+        return
+    hyper = _hyper(lr, beta1, beta2, eps, weight_decay, bc1, bc2)
+    if params[0].device.type == "cpu":
+        for p, g, m, v, master in group:
+            _adamw_plain(p, g, m, v, master, scale, hyper)
+        return
+    _adamw_launch_multi(group, scale, hyper)
 
 
 def fused_adamw(p, g, m, v, step, lr, beta1=0.9, beta2=0.999, eps=1e-8,

@@ -8,12 +8,16 @@ bf16/fp16); moment slots are stored in `accumulator_dtype` (default
 f32); the result is cast back to the parameter's dtype and written in
 place. The learning rate is a constant (schedulers are not ported).
 
-`AdamW` makes one call of `ops.fused_ops.adamw_update_` per parameter:
-on the card, one launch of the hand-written AdamW kernel, which reads
-and writes p, m, v (and the master) in place and folds in the
-global-norm clip's scale, read on the card, so the clip no longer
-rewrites every gradient; on the CPU, the kernel's plain version, the
-same arithmetic. It differs from the JAX `AdamW` rule only in rounding:
+`AdamW` groups its parameters by the AdamW kernel's template arguments
+(parameter, gradient and slot dtypes, master copy or not) and makes one
+call of `ops.fused_ops.adamw_update_multi` per group: on the card, one
+launch of the hand-written multi-tensor AdamW kernel for the whole
+group (GPT's and BERT's lists are each one group), which reads and
+writes p, m, v (and the master) in place and folds in the global-norm
+clip's scale, read on the card, so the clip no longer rewrites every
+gradient; on the CPU, the kernel's plain version tensor by tensor, the
+same arithmetic. Every element's bits are those of a per-tensor
+`adamw_update_`. It differs from the JAX `AdamW` rule only in rounding:
 the decoupled decay sits inside the update's bracket, `p - lr *
 (mhat / (sqrt(vhat) + eps) + wd * p)`, as in the JAX `fused_adamw`
 kernel, not in a second subtraction. `Adam` (L2 decay added to the
@@ -23,7 +27,7 @@ f32 rule of `Optimizer.apply_gradients`.
 import numpy as np
 import torch
 
-from ..ops.fused_ops import adamw_update_
+from ..ops.fused_ops import adamw_update_multi
 
 __all__ = ["Optimizer", "Adam", "AdamW"]
 
@@ -149,15 +153,24 @@ class AdamW(Adam):
     @torch.no_grad()
     def apply_gradients(self, params, grads, lr=None):
         """One update of `params` (in place) from `grads`: the clip's
-        scale, then one fused AdamW update per parameter."""
+        scale, then one fused multi-tensor AdamW update per group of
+        parameters that share their dtypes and master copy."""
         lr = self.get_lr() if lr is None else float(lr)
         self._step_count += 1
         params, grads = list(params), list(grads)
         scale = (self._grad_clip.scale(grads)
                  if self._grad_clip is not None and grads else None)
         bc1, bc2 = self._bias_corrections(self._step_count)
+        groups = {}
         for p, g in zip(params, grads):
             slots = self._slots(p)
-            adamw_update_(p, g, slots["moment1"], slots["moment2"], lr,
-                          self._beta1, self._beta2, self._epsilon, self._wd,
-                          bc1, bc2, master=slots.get("master"), scale=scale)
+            master = slots.get("master")
+            key = (p.device, p.dtype, g.dtype, slots["moment1"].dtype,
+                   master is not None)
+            groups.setdefault(key, []).append(
+                (p, g, slots["moment1"], slots["moment2"], master))
+        for group in groups.values():
+            ps, gs, ms, vs, masters = zip(*group)
+            adamw_update_multi(ps, gs, ms, vs, lr, self._beta1, self._beta2,
+                               self._epsilon, self._wd, bc1, bc2,
+                               masters=masters, scale=scale)
