@@ -6,12 +6,12 @@
 Builds every hand-written kernel from the sources in the checkout, holds
 each against its plain PyTorch version at the shapes of the path that
 runs it (serving: ragged paged attention over bf16, int8 and int4 pools,
-the W4A16 matmul; training: flash attention forward/dQ/dK-dV, LayerNorm,
-streaming cross-entropy forward/backward) and times it beside its bound
-and a library yardstick; serves GPT-1.3B (gpt_1p3b at full width, random
-weights from seed 0) through the port's default engine, profiles a short
-serving window and checks the streams against the port's per-tick
-decoder; serves it again from an int8 pool, an int4 pool and int4
+the W4A16 matmul; training: flash attention forward/dQ/dK-dV, LayerNorm
+forward and backward, streaming cross-entropy forward/backward) and times
+it beside its bound and a library yardstick; serves GPT-1.3B (gpt_1p3b at
+full width, random weights from seed 0) through the port's default
+engine, profiles a short serving window and checks the streams against
+the port's per-tick decoder; serves it again from an int8 pool, an int4 pool and int4
 (W4A16) weights, each checked against its per-tick engine and, by the
 teacher-forced NLL of the bf16 run's streams, against the bf16 pool;
 trains gpt_1p3b (full depth, bf16,
@@ -62,7 +62,15 @@ tensor-core body. The ragged and paged decode attention (one split page
 walk, chunks merged in order) are held on rows across up to eight
 chunks, with two launches and the split and unsplit launches bit-equal,
 no register spills in any of their bodies, and a chunked-prefill timing
-row beside the decode one. Every phase raises on failure. The output
+row beside the decode one. The LayerNorm forward and backward and the
+RMSNorm forward (one row walk for both forwards) are held against their
+plain versions at GPT's and BERT's rows and at widths 128-8192, ragged
+row counts and mixed dtypes, the backward at its rounding points with its
+bits within LN_BWD_FLIP of the plain version's, two launches bit-equal,
+and a control with one rounding point moved rejected; they are timed
+eagerly and as device time beside F.layer_norm, aten's LayerNorm backward
+and F.rms_norm; the training phases require every LayerNorm backward of a
+step to take the kernel. Every phase raises on failure. The output
 is one line per phase, then one JSON line with the kernels' numbers, the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the package next
@@ -179,8 +187,11 @@ def phase_environment():
             _ptxas_decode(name, entries)
         if name == "block_sparse_attention":
             _ptxas_bsa(entries)
+        if name == "layer_norm":
+            _ptxas_norm(entries)
     for name, line in (("flash_attention", "ptxas_bwd"),
-                       ("block_sparse_attention", "ptxas_bsa")) + tuple(
+                       ("block_sparse_attention", "ptxas_bsa"),
+                       ("layer_norm", "ptxas_norm")) + tuple(
                            (d, "ptxas_decode") for d in DECODE_SOURCES):
         if name not in _build.build_logs:
             log(line, source=name, checked=False,
@@ -208,6 +219,39 @@ def _ptxas_bsa(entries):
             raise RuntimeError(f"ptxas: {kern}...> has {len(got)} of its "
                                f"{want} instantiations in the report, spill "
                                f"stores {spill} bytes (0 required)")
+
+
+# The norm kernels of csrc/layer_norm.cu and their instantiations: the row
+# walk for LayerNorm and for RMSNorm (x f32 and bf16 at 6 lane widths,
+# each with f32 and bf16 weights), LayerNorm's backward (4 and 2) and its
+# partials' sum (one per dtype pair); with the place of x's type among the
+# template arguments.
+_NORM_BODIES = (("norm_fwd_kernel<false", 24, 1), ("norm_fwd_kernel<true", 24, 1),
+                ("layer_norm_bwd_kernel<", 12, 0), ("layer_norm_bwd_finish<", 4, 0))
+
+
+def _ptxas_norm(entries):
+    """One line per norm kernel: instantiations, registers and spill
+    stores, over all of them and over those for bf16 x (the training
+    paths' bodies). Raises if one is missing from ptxas's report or a
+    bf16-x instantiation spills."""
+    for kern, want, x_arg in _NORM_BODIES:
+        got = [(_ptxas_number(r"Used (\d+) registers", regs),
+                _ptxas_number(r"(\d+) bytes spill stores", spill),
+                fn.split("<", 1)[1].split(", ")[x_arg].rstrip(">"))
+               for fn, regs, spill in entries if fn and fn.startswith(kern)]
+        spill = max((b for _, b, _ in got), default=None)
+        bf16_spill = max((b for _, b, x in got if x == "__nv_bfloat16"),
+                         default=None)
+        log("ptxas_norm", kernel=kern.rstrip("<"), instantiations=len(got),
+            registers=(f"{min(r for r, _, _ in got)}-"
+                       f"{max(r for r, _, _ in got)}" if got else "none"),
+            spill_store_bytes=spill, bf16_x_spill_store_bytes=bf16_spill)
+        if len(got) != want or bf16_spill:
+            raise RuntimeError(f"ptxas: {kern}...> has {len(got)} of its "
+                               f"{want} instantiations in the report, bf16-x "
+                               f"spill stores {bf16_spill} bytes (0 "
+                               "required)")
 
 
 # The split decode-attention bodies (csrc/decode_attention.cuh) by source:
@@ -1802,7 +1846,7 @@ def phase_train_kernel_checks(A, LN, X):
         x = _rand(gen, (TN, THID), dtype, 2.0)
         w, b = _rand(gen, (THID,), dtype), _rand(gen, (THID,), dtype)
         plain32 = LN._ln_kernel_ref(x.float(), w.float(), b.float(), 1e-5)
-        check("layer_norm", LN._launch(x, w, b, 1e-5), plain32.to(dtype),
+        check("layer_norm", LN._launch(x, w, b, 1e-5)[0], plain32.to(dtype),
               plain32)
         del x, plain32
         logits = _rand(gen, (TN, TV), dtype, 3.0)
@@ -1831,13 +1875,13 @@ def _bound(nbytes, flops, peak=H100_BF16_FLOPS):
     return max((bytes_ms, "bytes"), (ops_ms, "operations"))
 
 
-def phase_train_kernel_timing(A, LN, X):
+def phase_train_kernel_timing(A, X):
     """Each training kernel at the main path's shape and dtype (bf16
-    attention and LayerNorm, f32 logits), against its plain version and
-    one PyTorch call computing the same function (never called by the
-    port): SDPA's flash backend forward and backward, F.layer_norm,
-    F.cross_entropy forward and backward. Bounds: bytes over 3.35 TB/s
-    or flops over 989 TFLOP/s (bf16 dense), the larger."""
+    attention, f32 logits), against its plain version and one PyTorch
+    call computing the same function (never called by the port): SDPA's
+    flash backend forward and backward, F.cross_entropy forward and
+    backward (LayerNorm: `phase_norm_timing`). Bounds: bytes over 3.35
+    TB/s or flops over 989 TFLOP/s (bf16 dense), the larger."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     bf = torch.bfloat16
@@ -1874,14 +1918,6 @@ def phase_train_kernel_timing(A, LN, X):
                                             sc),
             sdpa_bwd, 6 * io + 2 * rows, 8 * TD * pairs),
     }
-    x = _rand(gen, (TN, THID), bf, 2.0)
-    w, b = _rand(gen, (THID,), bf), _rand(gen, (THID,), bf)
-    specs["layer_norm"] = (
-        lambda i=0: LN._launch(x, w, b, 1e-5),
-        lambda i=0: LN._ln_kernel_ref(x, w, b, 1e-5),
-        cuda_ms(lambda i=0: torch.nn.functional.layer_norm(
-            x, (THID,), w, b, 1e-5), 20),
-        2 * TN * THID * 2 + 2 * THID * 2, 8 * TN * THID)
     logits = _rand(gen, (TN, TV), torch.float32, 3.0)
     labels = torch.randint(0, TV, (TN,), generator=gen, device="cuda",
                            dtype=torch.int32)
@@ -2003,22 +2039,25 @@ def _flash_ptrs(q, k, v, do, lse, delta, kvb=None, fb=None):
 TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 # a training step of gpt_1p3b under remat 'full' launches: 24 attention
 # forwards + 24 recomputed, one dQ and one dK/dV per layer, 2 LayerNorms
-# per block twice + ln_f, one cross-entropy forward and backward
-# per step, and one AdamW update per parameter (`adamw` is set to
-# len(trainer.params) by the phase); the norm kernels of slice 5 run on
-# neither training path
+# per block twice + ln_f, one LayerNorm backward for each LayerNorm of the
+# recomputed blocks and ln_f, one cross-entropy forward and backward per
+# step, and the multi-tensor AdamW launches (`adamw` is set by the phase);
+# the norm kernels of slice 5 run on neither training path
 EXPECTED_PER_STEP = {"flash_fwd": 48, "flash_bwd_dq": 24,
-                     "flash_bwd_dkv": 24, "layer_norm": 97, "rms_norm": 0,
+                     "flash_bwd_dkv": 24, "layer_norm": 97,
+                     "layer_norm_bwd": 49, "rms_norm": 0,
                      "xent_fwd": 1, "xent_bwd": 1,
                      "dropout_residual_layer_norm": 0}
 
 
 def _train_counts(A, LN, X):
     k = {**A.kernel_launches, "layer_norm": LN.kernel_launches,
+         "layer_norm_bwd": LN.bwd_kernel_launches,
          "rms_norm": LN.rms_kernel_launches, **X.kernel_launches,
          "adamw": X.adamw_kernel_launches,
          "dropout_residual_layer_norm": X.drln_kernel_launches}
     p = {**A.plain_launches, "layer_norm": LN.plain_launches,
+         "layer_norm_bwd": LN.bwd_plain_launches,
          "rms_norm": LN.rms_plain_launches, **X.plain_launches,
          "adamw": X.adamw_plain_launches,
          "dropout_residual_layer_norm": X.drln_plain_launches}
@@ -2134,8 +2173,11 @@ def phase_training(A, LN, X, smi):
     return trainer, batch, kern, losses
 
 
+# kernel families by name: the LayerNorm forward is the norm row walk's
+# LayerNorm instantiation, `norm_fwd_kernel<false, ...>`
 _FAMILIES = (("flash_attention", ("flash_fwd", "flash_dq", "flash_dkv")),
-             ("layer_norm", ("layer_norm_kernel",)),
+             ("layer_norm", ("norm_fwd_kernel<false",)),
+             ("layer_norm_bwd", ("layer_norm_bwd",)),
              ("xent", ("xent_fwd", "xent_bwd")),
              ("adamw", ("adamw_kernel",)),
              ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")))
@@ -2367,7 +2409,7 @@ def phase_bert_kernel_checks(A, LN):
         for eps in (1e-5, 1e-12):
             plain32 = LN._ln_kernel_ref(x.float(), w.float(), b.float(), eps)
             ln_err = max(ln_err, _check_close(
-                "layer_norm", LN._launch(x, w, b, eps), plain32.to(dtype),
+                "layer_norm", LN._launch(x, w, b, eps)[0], plain32.to(dtype),
                 plain32))
         log("kernel", form=f"layer_norm [{BB * BL}, {BHID}] eps 1e-5, 1e-12",
             dtype=str(dtype)[6:], ln_err=f"{ln_err:.3e}")
@@ -2381,12 +2423,12 @@ _BROWS = BB * BH * BL * 4
 _BPAIRS = BB * BH * BL * BL
 
 
-def phase_bert_kernel_timing(A, LN):
+def phase_bert_kernel_timing(A):
     """Each masked branch of the three flash kernels at the BERT shape in
     bf16 (kvb, fb, dropout, kvb+dropout — the last is BERT's), against
     its plain version and one PyTorch call with the same additive mask
     and rate (SDPA forward, and its backward for dQ, dK and dV together;
-    timed only, never called by the port); LayerNorm at [16384, 768].
+    timed only, never called by the port).
     Bytes: each input read once, each output written once (q, k, v, dO,
     out, dq, dk, dv bf16; lse, delta f32 rows; the bias f32); operations:
     4, 6 and 8 x D a (query, key) pair for the forward, dQ and dK/dV (no
@@ -2460,31 +2502,16 @@ def phase_bert_kernel_timing(A, LN):
                       f"{MASKED}", dq_run, dkv_run,
                       7 * _BIO + 2 * _BROWS + bias_bytes, _BPAIRS, BD)
         del o, lse, delta, so, qt, kt, vt, kvb, fb, dq_run, dkv_run
-    x = _rand(gen, (BB * BL, BHID), bf, 2.0)
-    w, b = _rand(gen, (BHID,), bf), _rand(gen, (BHID,), bf)
-    ms = cuda_ms(lambda i=0: LN._launch(x, w, b, 1e-12), 20)
-    plain_ms = cuda_ms(lambda i=0: LN._ln_kernel_ref(x, w, b, 1e-12), 5)
-    library_ms = cuda_ms(lambda i=0: torch.nn.functional.layer_norm(
-        x, (BHID,), w, b, 1e-12), 20)
-    bound_ms, bound_by = _bound(2 * x.numel() * 2 + 2 * BHID * 2,
-                                8 * x.numel())
-    out["layer_norm[h768]"] = {"ms": ms, "plain_ms": plain_ms,
-                               "bound_ms": bound_ms, "bound_by": bound_by,
-                               "library_ms": library_ms}
-    log("kernel_time", kernel="layer_norm[h768]",
-        shape=f"[{BB * BL}, {BHID}] bf16", ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
     return out
 
 
 # a bert_base training step launches, per layer, one attention forward,
-# dQ and dK/dV (kvb + dropout) and two LayerNorms, plus the embeddings'
-# and the MLM head's LayerNorm; the vocabulary (30522) has no 128-multiple
+# dQ and dK/dV (kvb + dropout) and two LayerNorms, forward and backward,
+# plus the embeddings' and the MLM head's LayerNorm; the vocabulary (30522) has no 128-multiple
 # block, so the criterion takes F.cross_entropy, not the xent kernels
 BERT_EXPECTED_PER_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12,
                           "flash_bwd_dkv": 12, "layer_norm": 26,
-                          "rms_norm": 0, "xent_fwd": 0, "xent_bwd": 0,
+                          "layer_norm_bwd": 26, "rms_norm": 0, "xent_fwd": 0, "xent_bwd": 0,
                           "dropout_residual_layer_norm": 0}
 
 
@@ -2595,8 +2622,8 @@ def phase_bert_training(A, LN, X, smi):
     return trainer, batch, kern, losses
 
 
-_BERT_FAMILIES = ("flash_attention", "cublas", "layer_norm", "dropout_hash",
-                  "xent_logits", "optimizer", "other")
+_BERT_FAMILIES = ("flash_attention", "cublas", "layer_norm", "layer_norm_bwd",
+                  "dropout_hash", "xent_logits", "optimizer", "other")
 
 
 def _bert_family(ev):
@@ -2619,7 +2646,8 @@ def _bert_family(ev):
 
 def phase_bert_split(trainer, batch):
     """Where one bert_base step's device time goes, by family: kernels are
-    named for the flash kernels, cuBLAS and LayerNorm; the rest are
+    named for the flash kernels, cuBLAS and LayerNorm's forward and
+    backward; the rest are
     priced by the op that launched them (the hash ranges of F.dropout,
     the optimizer's range, the ops on the [16384, 30522] f32 logits);
     and the device's busy share (device time over the step's wall
@@ -2636,7 +2664,8 @@ def phase_bert_split(trainer, batch):
         wall = time.perf_counter() - t0
     fam = dict.fromkeys(_BERT_FAMILIES, 0.0)
     named = {"flash_attention": ("flash_fwd", "flash_dq", "flash_dkv"),
-             "layer_norm": ("layer_norm_kernel",),
+             "layer_norm": ("norm_fwd_kernel<false",),
+             "layer_norm_bwd": ("layer_norm_bwd",),
              "optimizer": ("adamw_kernel",),
              "cublas": ("gemm", "nvjet", "cutlass", "xmma", "cublas")}
 
@@ -2889,16 +2918,16 @@ def _adamw_probe(mode, p, g, m, v, scale, hyper):
                            f"{_probe_lib.adamw_probe_error_string(rc)}")
 
 
-def phase_slice5_kernel_timing(LN, X):
-    """The three kernels at the main paths' shapes (bf16), beside their
-    plain versions and one PyTorch call computing the same function
-    (never called by the port): `torch._fused_adamw_` on the same
-    tensors (without the clip scale), `F.rms_norm`; no single PyTorch
-    call computes dropout + residual + LayerNorm and the pre-LN sum.
-    Bounds: each input read once and each output written once over 3.35
-    TB/s, or the f32 flops over 67 TFLOP/s, the larger. The JSON rows
-    take the GPT width for RMSNorm and the BERT width for the dropout
-    op, the shapes of the norm entry-point phase."""
+def phase_slice5_kernel_timing(X):
+    """AdamW and the dropout + residual + LayerNorm kernel at the main
+    paths' shapes (bf16), beside their plain versions and one PyTorch call
+    computing the same function (never called by the port):
+    `torch._fused_adamw_` on the same tensors (without the clip scale);
+    no single PyTorch call computes dropout + residual + LayerNorm and the
+    pre-LN sum (RMSNorm: `phase_norm_timing`). Bounds: each input read
+    once and each output written once over 3.35 TB/s, or the f32 flops
+    over 67 TFLOP/s, the larger. The JSON row of the dropout op takes the
+    BERT width, the shape of the norm entry-point phase."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
     out = {}
     bc = _adamw_bc(ADAMW_STEP)
@@ -2928,12 +2957,6 @@ def phase_slice5_kernel_timing(LN, X):
         x = _rand(gen, (n, h), _BF16, 2.0)
         w, b = _rand(gen, (h,), _BF16), _rand(gen, (h,), _BF16)
         r = _rand(gen, (n, h), _BF16)
-        specs[f"rms_norm[{n}x{h}]"] = (
-            lambda i=0, x=x, w=w: LN._rms_launch(x, w, RMS_EPS),
-            lambda i=0, x=x, w=w: LN._rms_kernel_ref(x, w, RMS_EPS),
-            lambda i=0, x=x, w=w, h=h: torch.nn.functional.rms_norm(
-                x, (h,), w, RMS_EPS),
-            4 * n * h + 2 * h, 4 * n * h, f"[{n}, {h}] bf16")
         specs[f"dropout_residual_layer_norm[{n}x{h}]"] = (
             lambda i=0, x=x, r=r, w=w, b=b: X._drln_launch(
                 x, r, w, b, DRLN_RATE, 1e-5, DRLN_SEED, None),
@@ -3154,6 +3177,176 @@ def phase_norm_entry_points(LN, X):
         drln_err=f"{derr:.3e}",
         **{f"{k}_launches": v for k, v in launches.items()}, plain=plain)
     return launches
+
+
+# ---------------------------------------------------------------- phase 9b
+
+# The LayerNorm and RMSNorm kernels' checks: (label, rows, width, x dtype,
+# weight dtype, eps, control). GPT's and BERT's rows at full width (the
+# control run there), width 128 and 8192, 8 rows, row counts that are no
+# multiple of the rows a block takes, widths whose vectors leave lanes
+# idle (640) or need 3 warps a row (6144), and mixed x and weight dtypes
+# (the 64 KB of f32 w and b at 8192 take the opt-in shared memory).
+NORM_CASES = (("gpt", TN, THID, _BF16, _BF16, 1e-5, True),
+              ("gpt f32", TN, THID, _F32, _F32, 1e-5, False),
+              ("bert", BB * BL, BHID, _BF16, _BF16, 1e-12, True),
+              ("h128", 1024, 128, _BF16, _BF16, 1e-5, False),
+              ("h8192", 512, 8192, _BF16, _BF16, 1e-5, False),
+              ("h8192 f32", 512, 8192, _F32, _F32, 1e-5, False),
+              ("h8192 f32 w", 64, 8192, _BF16, _F32, 1e-5, False),
+              ("n8", 8, THID, _BF16, _BF16, 1e-5, False),
+              ("ragged", 1001, BHID, _BF16, _BF16, 1e-12, False),
+              ("ragged f32 w", 1001, BHID, _BF16, _F32, 1e-12, False),
+              ("ragged bf16 w", 999, THID, _F32, _BF16, 1e-5, False),
+              ("h640", 333, 640, _BF16, _BF16, 1e-5, False),
+              ("h6144", 96, 6144, _BF16, _BF16, 1e-5, False),
+              ("h6144 f32", 96, 6144, _F32, _F32, 1e-5, False))
+
+
+def phase_norm_checks(LN):
+    """At every NORM_CASES shape: the LayerNorm forward kernel against its
+    plain version (`_check_close`), its saved mean and rstd against
+    `_mean_rstd` (atol 1e-6, rtol 1e-5: f32 sums in another order), the
+    RMSNorm forward against its plain version, and LayerNorm's backward
+    kernel against its plain version on the kernel's own mean and rstd
+    (`testing.check_ln_bwd`), launched twice, bit-equal. Where a case
+    says so, the control (dw from f32 xhat, `testing.ln_bwd_control`)
+    must fail that check."""
+    from paddle_tpu_torch import testing
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    err = dict.fromkeys(("layer_norm", "layer_norm_bwd", "rms_norm"), 0.0)
+    for label, n, h, dt, wd, eps, control in NORM_CASES:
+        x = _rand(gen, (n, h), dt, 2.0)
+        w, b = _rand(gen, (h,), wd), _rand(gen, (h,), wd)
+        g = _rand(gen, (n, h), dt)
+        out, mean, rstd = LN._launch(x, w, b, eps)
+        plain32, _, _ = LN._ln_fwd_ref(x.float(), w.float(), b.float(), eps)
+        e_fwd = _check_close(f"layer_norm {label}", out, plain32.to(dt),
+                             plain32)
+        mu, rs = LN._mean_rstd(x.float(), eps)
+        torch.testing.assert_close(mean, mu.reshape(-1), atol=1e-6,
+                                   rtol=1e-5)
+        torch.testing.assert_close(rstd, rs.reshape(-1), atol=1e-6,
+                                   rtol=1e-5)
+        rms32 = LN._rms_kernel_ref(x.float(), w.float(), RMS_EPS)
+        e_rms = _check_close(f"rms_norm {label}",
+                             LN._rms_launch(x, w, RMS_EPS), rms32.to(dt),
+                             rms32)
+        got = LN._bwd_launch(x, g, w, mean, rstd)
+        again = LN._bwd_launch(x, g, w, mean, rstd)
+        if not all(_bits_equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"layer_norm_bwd {label}: two launches "
+                                 "differ")
+        e_bwd, flips = testing.check_ln_bwd(f"layer_norm_bwd {label}", got,
+                                            x, g, w, mean, rstd)
+        rejected = None
+        if control:
+            try:
+                testing.check_ln_bwd("control", testing.ln_bwd_control(
+                    x, g, w, mean, rstd), x, g, w, mean, rstd)
+                rejected = False
+            except AssertionError:
+                rejected = True
+            if not rejected:
+                raise AssertionError(f"layer_norm_bwd {label}: the control "
+                                     "(dw from f32 xhat) passed the check")
+        for name, e in (("layer_norm", e_fwd), ("layer_norm_bwd", e_bwd),
+                        ("rms_norm", e_rms)):
+            err[name] = max(err[name], e)
+        log("kernel", form=f"norms {label} [{n}, {h}] eps {eps}",
+            dtype=str(dt)[6:], weights=str(wd)[6:], ln_err=f"{e_fwd:.3e}",
+            rms_err=f"{e_rms:.3e}", ln_bwd_err=f"{e_bwd:.3e}",
+            ln_bwd_bits_off_plain=f"{flips:.5f}", bwd_bit_equal=True,
+            **({} if rejected is None else {"control_rejected": rejected}))
+        del x, g, out, plain32, got, again
+    torch.cuda.synchronize()
+    return err
+
+
+# The norm kernels' device times (CUDA graph) before this design, at GPT's
+# and BERT's rows (bf16): the 256-threads-a-row forwards and, for the
+# backward, autograd of `_ln_ref` (the route the kernel replaced), timed by
+# tools/kernel_ab.py on the tree before it (NVIDIA H100 80GB HBM3, 700 W;
+# the [kernel_time] lines only).
+NORM_EARLIER_DEVICE_MS = {
+    "layer_norm": {THID: 0.0293, BHID: 0.0319},
+    "layer_norm_bwd": {THID: 1.3459, BHID: 1.0642},
+    "rms_norm": {THID: 0.0267, BHID: 0.0258}}
+
+
+def phase_norm_timing(LN):
+    """The LayerNorm forward and backward and the RMSNorm forward at GPT's
+    and BERT's rows in bf16, each eager (CUDA events around a loop of
+    calls, Python wrapper included) and as device time (CUDA-graph
+    replay), beside the plain version (eager) and one PyTorch call
+    computing the same function (never called by the port), timed both
+    ways: F.layer_norm, aten's native_layer_norm_backward, F.rms_norm.
+    Bound: each input read once and each output written once over 3.35
+    TB/s, or the f32 operations over 67 TFLOP/s, the larger; the
+    backward's line also gives its f32 partials (2 x grid x h, written
+    and read once) and the bound with them."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    out = {}
+    for n, h in NORM_SHAPES:
+        eps = 1e-5 if h == THID else 1e-12
+        x = _rand(gen, (n, h), _BF16, 2.0)
+        w, b = _rand(gen, (h,), _BF16), _rand(gen, (h,), _BF16)
+        g = _rand(gen, (n, h), _BF16)
+        _, mean, rstd = LN._launch(x, w, b, eps)
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [h], w, b, eps)
+        grid = LN._bwd_grid(n, h, 1, 1, torch.cuda.current_device())
+        part_bytes = 2 * grid * h * 4
+        io, wb = n * h * 2, h * 2
+        specs = {
+            "layer_norm": (
+                lambda i=0: LN._launch(x, w, b, eps),
+                lambda i=0: LN._ln_fwd_ref(x, w, b, eps),
+                lambda i=0: F.layer_norm(x, (h,), w, b, eps),
+                2 * io + 2 * wb + 8 * n, 8 * n * h, {}),
+            "layer_norm_bwd": (
+                lambda i=0: LN._bwd_launch(x, g, w, mean, rstd),
+                lambda i=0: LN._ln_bwd_kernel_ref(x, g, w, mean, rstd),
+                lambda i=0: torch.ops.aten.native_layer_norm_backward(
+                    g, x, [h], lmean, lrstd, w, b, [True, True, True]),
+                3 * io + 3 * wb + 8 * n, 15 * n * h,
+                {"grid": grid, "partial_MB": f"{part_bytes / 1e6:.2f}"}),
+            "rms_norm": (
+                lambda i=0: LN._rms_launch(x, w, RMS_EPS),
+                lambda i=0: LN._rms_kernel_ref(x, w, RMS_EPS),
+                lambda i=0: F.rms_norm(x, (h,), w, RMS_EPS),
+                2 * io + wb, 4 * n * h, {}),
+        }
+        for name, (kern, plain, library, nbytes, flops, extra) in \
+                specs.items():
+            row = {"ms": cuda_ms(kern, 20), "device_ms": cuda_graph_ms(kern, 20),
+                   "plain_ms": cuda_ms(plain, 3),
+                   "library_ms": cuda_ms(library, 20),
+                   "library_device_ms": cuda_graph_ms(library, 20)}
+            row["bound_ms"], row["bound_by"] = _bound(nbytes, flops,
+                                                      H100_F32_FLOPS)
+            out[f"{name}[{n}x{h}]"] = row
+            if name == "layer_norm_bwd":
+                extra["bound_with_partials_ms"] = (
+                    f"{_bound(nbytes + 2 * part_bytes, flops, H100_F32_FLOPS)[0]:.4f}")
+            earlier = NORM_EARLIER_DEVICE_MS[name][h]
+            share = row["bound_ms"] / row["device_ms"]
+            goal = {"layer_norm": ("goal_70pct_of_bound", share >= 0.7),
+                    "rms_norm": ("goal_no_slower_than_library_device",
+                                 row["device_ms"] <= row["library_device_ms"]),
+                    "layer_norm_bwd": ("goal_below_library_device",
+                                       row["device_ms"]
+                                       <= row["library_device_ms"])}[name]
+            log("kernel_time", kernel=name, shape=f"[{n}, {h}] bf16",
+                **{k: f"{v:.4f}" if isinstance(v, float) else v
+                   for k, v in row.items()},
+                bound_share_device=f"{share:.3f}",
+                earlier_device_ms=earlier,
+                achieved_GBps_device=f"{nbytes / row['device_ms'] / 1e6:.1f}",
+                **extra, **{goal[0]: "met" if goal[1] else "missed"})
+        del x, g, mean, rstd, lmean, lrstd, specs
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------- phase 10
@@ -3649,11 +3842,20 @@ TRAIN_KERNELS = {   # name: (source, TPU kernel it replaces)
                       "paddle_tpu/ops/attention.py:322"),
     "layer_norm": ("paddle_tpu_torch/ops/csrc/layer_norm.cu",
                    "paddle_tpu/ops/layer_norm.py:20"),
+    # no Pallas kernel: the counterpart of the XLA-fused custom VJP
+    # `_ln_bwd` (layer_norm.py:91), the vjp of `_ln_ref`
+    "layer_norm_bwd": ("paddle_tpu_torch/ops/csrc/layer_norm.cu",
+                       "paddle_tpu/ops/layer_norm.py:91"),
     "xent_fwd": ("paddle_tpu_torch/ops/csrc/softmax_cross_entropy.cu",
                  "paddle_tpu/ops/fused_ops.py:65"),
     "xent_bwd": ("paddle_tpu_torch/ops/csrc/softmax_cross_entropy.cu",
                  "paddle_tpu/ops/fused_ops.py:99"),
 }
+
+
+# the training kernels whose rows come from `phase_norm_timing`, at GPT's
+# rows and, as `<name>[h768]`, at BERT's
+NORM_KERNELS = ("layer_norm", "layer_norm_bwd")
 
 
 def main():
@@ -3690,7 +3892,7 @@ def main():
     torch.cuda.empty_cache()
     phase_small_reference()
     slice5_err = phase_slice5_kernel_checks(LN, X)
-    slice5_timing = phase_slice5_kernel_timing(LN, X)
+    slice5_timing = phase_slice5_kernel_timing(X)
     norm_launches = phase_norm_entry_points(LN, X)
     torch.cuda.empty_cache()
     slice6_err = phase_slice6_kernel_checks(bsa, pa)
@@ -3700,7 +3902,9 @@ def main():
                        "paged_attention": phase_paged_entry(pa)}
     torch.cuda.empty_cache()
     train_err = phase_train_kernel_checks(A, LN, X)
-    train_timing = phase_train_kernel_timing(A, LN, X)
+    train_timing = phase_train_kernel_timing(A, X)
+    norm_err = phase_norm_checks(LN)
+    norm_timing = phase_norm_timing(LN)
     trainer, batch, train_launches, losses = phase_training(A, LN, X, smi)
     phase_train_profile(trainer, batch)
     phase_train_split(trainer, batch)
@@ -3714,7 +3918,7 @@ def main():
     phase_train_small_reference()
     torch.cuda.empty_cache()
     masked_err, ln768_err = phase_bert_kernel_checks(A, LN)
-    bert_timing = phase_bert_kernel_timing(A, LN)
+    bert_timing = phase_bert_kernel_timing(A)
     torch.cuda.empty_cache()
     trainer, batch, bert_launches, losses = phase_bert_training(A, LN, X,
                                                                 smi)
@@ -3743,12 +3947,16 @@ def main():
                     "replaces": "paddle_tpu/ops/w4_matmul.py:59",
                     "launches": quant_launches["w4a16"]["w4_matmul"],
                     "max_abs_err": w4_err, **w4_timing})
+    gpt_rows, bert_rows = (f"{n}x{h}" for n, h in NORM_SHAPES)
     for name, (source, replaces) in TRAIN_KERNELS.items():
+        timing = (norm_timing[f"{name}[{gpt_rows}]"] if name in NORM_KERNELS
+                  else train_timing[name])
+        err = (max(train_err.get(name, 0.0), norm_err[name])
+               if name in NORM_KERNELS else train_err[name])
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": train_launches[name],
-                        "max_abs_err": train_err[name],
-                        **train_timing[name]})
+                        "max_abs_err": err, **timing})
     for name in A.KERNELS:
         source, replaces = TRAIN_KERNELS[name]
         kernels.append({"name": f"{name}[{MASKED}]", "route": "cuda",
@@ -3756,17 +3964,24 @@ def main():
                         "launches": bert_launches[name],
                         "max_abs_err": masked_err[name],
                         **bert_timing[f"{name}[{MASKED}]"]})
-    source, replaces = TRAIN_KERNELS["layer_norm"]
-    kernels.append({"name": "layer_norm[h768]", "route": "cuda",
-                    "source": source, "replaces": replaces,
-                    "launches": bert_launches["layer_norm"],
-                    "max_abs_err": ln768_err,
-                    **bert_timing["layer_norm[h768]"]})
+    for name in NORM_KERNELS:
+        source, replaces = TRAIN_KERNELS[name]
+        kernels.append({"name": f"{name}[h{BHID}]", "route": "cuda",
+                        "source": source, "replaces": replaces,
+                        "launches": bert_launches[name],
+                        "max_abs_err": max(norm_err[name], ln768_err
+                                           if name == "layer_norm" else 0.0),
+                        **norm_timing[f"{name}[{bert_rows}]"]})
+    kernels.append({"name": "rms_norm", "route": "cuda",
+                    "source": "paddle_tpu_torch/ops/csrc/layer_norm.cu",
+                    "replaces": "paddle_tpu/ops/layer_norm.py:29",
+                    "launches": norm_launches["rms_norm"],
+                    "max_abs_err": max(slice5_err["rms_norm"],
+                                       norm_err["rms_norm"]),
+                    **norm_timing[f"rms_norm[{gpt_rows}]"]})
     for name, source, replaces, launches, timing in (
             ("adamw", "adamw.cu", "fused_ops.py:215",
              train_launches["adamw"] + bert_launches["adamw"], "adamw"),
-            ("rms_norm", "layer_norm.cu", "layer_norm.py:29",
-             norm_launches["rms_norm"], f"rms_norm[{TN}x{THID}]"),
             ("dropout_residual_layer_norm", "dropout_residual_layer_norm.cu",
              "fused_ops.py:288", norm_launches["dropout_residual_layer_norm"],
              f"dropout_residual_layer_norm[{BB * BL}x{BHID}]")):

@@ -3,55 +3,70 @@
 
 `fused_layer_norm(x, w, b, eps)` normalises the last axis. Its forward is
 the hand-written CUDA kernel `csrc/layer_norm.cu` (the JAX `_ln_kernel`:
-f32 mean and variance, `y*w + b` in f32, then the cast); its plain
-version `_ln_kernel_ref` does the same arithmetic in PyTorch. The
-backward is PyTorch autograd of `_ln_ref`, which casts first and then
-scales — the JAX `_ln_bwd`, which has no kernel either.
+f32 mean and variance, `y*w + b` in f32, then the cast), which also
+writes each row's mean and rstd; its plain version `_ln_fwd_ref` does the
+same arithmetic in PyTorch. The backward is the vjp of `_ln_ref`, which
+casts first and then scales (the JAX `_ln_bwd`, a custom VJP that XLA
+fuses on the TPU): the kernel `layer_norm_backward` of the same source,
+from the saved mean and rstd, and its plain version `_ln_bwd_kernel_ref`.
 
 `fused_rms_norm(x, w, eps)` is the same for RMSNorm: the kernel
-`rms_norm_kernel` of the same source (the JAX `_rms_kernel`: f32
+`rms_norm_forward` of the same source (the JAX `_rms_kernel`: f32
 mean(x^2), `x * rsqrt(var + eps) * w` in f32, one cast), its plain
 version `_rms_kernel_ref`, and a backward by autograd of `_rms_ref` (the
-JAX `_rms_bwd`).
+JAX `_rms_bwd`; no model calls it).
 
 The JAX shape rule stands: rows of a width that is not a multiple of 128,
-or fewer than 8 rows, take `_ln_ref` / `_rms_ref` in the forward too. A
-wrapper takes the plain version only for tensors on the CPU; on CUDA
-tensors it launches the kernel or raises. `kernel_launches` counts the
-LayerNorm kernel, `plain_launches` every LayerNorm forward that did not
-launch it; `rms_kernel_launches` / `rms_plain_launches` count RMSNorm's
-apart.
+or fewer than 8 rows, take `_ln_ref` / `_rms_ref` in the forward and
+autograd of them in the backward. A wrapper takes the plain version only
+for tensors on the CPU; on CUDA tensors it launches the kernel or raises.
+`kernel_launches` counts the LayerNorm forward kernel, `plain_launches`
+every LayerNorm forward that did not launch it; `bwd_kernel_launches` /
+`bwd_plain_launches` count LayerNorm's backwards the same way;
+`rms_kernel_launches` / `rms_plain_launches` count RMSNorm's forwards.
 """
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 
 __all__ = ["fused_layer_norm", "fused_rms_norm", "kernel_launches",
-           "plain_launches", "rms_kernel_launches", "rms_plain_launches",
-           "reset_counts"]
+           "plain_launches", "bwd_kernel_launches", "bwd_plain_launches",
+           "rms_kernel_launches", "rms_plain_launches", "reset_counts"]
 
 kernel_launches = 0
 plain_launches = 0
+bwd_kernel_launches = 0
+bwd_plain_launches = 0
 rms_kernel_launches = 0
 rms_plain_launches = 0
 
 
 def reset_counts():
     global kernel_launches, plain_launches
+    global bwd_kernel_launches, bwd_plain_launches
     global rms_kernel_launches, rms_plain_launches
     kernel_launches = 0
     plain_launches = 0
+    bwd_kernel_launches = 0
+    bwd_plain_launches = 0
     rms_kernel_launches = 0
     rms_plain_launches = 0
 
 
-def _stats(x, eps):
-    x32 = x.float()
+def _mean_rstd(x32, eps):
+    """Each row's mean and 1 / sqrt(var + eps) of f32 x32, [..., 1]."""
     mu = x32.mean(-1, keepdim=True)
     var = (x32 - mu).square().mean(-1, keepdim=True)
-    return (x32 - mu) * torch.rsqrt(var + eps)
+    return mu, torch.rsqrt(var + eps)
+
+
+def _stats(x, eps):
+    x32 = x.float()
+    mu, rstd = _mean_rstd(x32, eps)
+    return (x32 - mu) * rstd
 
 
 def _ln_ref(x, w, b, eps):
@@ -60,10 +75,47 @@ def _ln_ref(x, w, b, eps):
     return _stats(x, eps).to(x.dtype) * w.to(x.dtype) + b.to(x.dtype)
 
 
+def _ln_fwd_ref(x, w, b, eps):
+    """Plain version of the forward kernel (the JAX `_ln_kernel`): the
+    affine in f32, then one cast; with each row's mean and rstd, [n] f32
+    over the rows of x's leading axes."""
+    x32 = x.float()
+    mu, rstd = _mean_rstd(x32, eps)
+    out = ((x32 - mu) * rstd * w.float() + b.float()).to(x.dtype)
+    return out, mu.reshape(-1), rstd.reshape(-1)
+
+
 def _ln_kernel_ref(x, w, b, eps):
-    """Plain version of the kernel (the JAX `_ln_kernel`): the affine in
-    f32, then one cast."""
-    return (_stats(x, eps) * w.float() + b.float()).to(x.dtype)
+    """The forward kernel's output in plain PyTorch."""
+    return _ln_fwd_ref(x, w, b, eps)[0]
+
+
+def _ln_bwd_f32(x, g, w, mean, rstd):
+    """The backward's f32 values before their last casts: dx, and the
+    column sums of dw's and db's terms (see `_ln_bwd_kernel_ref`)."""
+    dt, h = x.dtype, x.shape[-1]
+    mu = mean.reshape(*x.shape[:-1], 1)
+    rs = rstd.reshape(*x.shape[:-1], 1)
+    xhat = (x.float() - mu) * rs
+    dxh = (g * w.to(dt)).float()
+    dx = rs * (dxh - dxh.mean(-1, keepdim=True)
+               - xhat * (dxh * xhat).mean(-1, keepdim=True))
+    dw = (g * xhat.to(dt)).float().reshape(-1, h).sum(0)
+    db = g.float().reshape(-1, h).sum(0)
+    return dx, dw, db
+
+
+def _ln_bwd_kernel_ref(x, g, w, mean, rstd):
+    """Plain version of the backward kernel: the vjp of `_ln_ref` (cast
+    first, then scale and shift in x's dtype, the JAX `_ln_bwd`) at its
+    rounding points, written out. With c() a cast to x's dtype and xhat
+    = (x - mean) * rstd in f32: dxh = f32(c(g * c(w))); dx = c(rstd *
+    (dxh - mean(dxh) - xhat * mean(dxh * xhat))); dw = c(sum over rows of
+    f32(c(g * c(xhat)))) and db = c(sum over rows of f32(g)), both then
+    cast to w's dtype. Returns (dx, dw, db)."""
+    dt = x.dtype
+    dx, dw, db = _ln_bwd_f32(x, g, w, mean, rstd)
+    return dx.to(dt), dw.to(dt).to(w.dtype), db.to(dt).to(w.dtype)
 
 
 def _rms_ref(x, w, eps):
@@ -91,9 +143,15 @@ def _kernel_lib():
     if _lib is None:
         lib = _build.load("layer_norm")
         lib.layer_norm_forward.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.layer_norm_forward.restype = ctypes.c_int
+        lib.layer_norm_backward_grid.argtypes = (
+            [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)])
+        lib.layer_norm_backward_grid.restype = ctypes.c_int
+        lib.layer_norm_backward.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.layer_norm_backward.restype = ctypes.c_int
         lib.rms_norm_forward.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -124,46 +182,121 @@ def _check(name, x, *params):
         raise ValueError(f"{name} kernel takes width <= 8192, got {h}")
 
 
+def _aligned(t):
+    """t, or a copy of it if its data is not 16-byte aligned (the kernels
+    read and write 16-byte vectors)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(x, w, b, eps):
+    """The forward kernel: (out, mean, rstd), mean and rstd [n] f32."""
     global kernel_launches
     h = x.shape[-1]
     _check("fused_layer_norm", x, w, b)
+    x, w, b = (_aligned(t) for t in (x, w, b))
+    n = x.numel() // h
     out = torch.empty_like(x)
+    mean, rstd = torch.empty((2, n), dtype=torch.float32, device=x.device)
     lib = _kernel_lib()
     rc = lib.layer_norm_forward(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        x.numel() // h, h, float(eps), _CODES[x.dtype], _CODES[w.dtype],
-        x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
+        mean.data_ptr(), rstd.data_ptr(), n, h, float(eps), _CODES[x.dtype],
+        _CODES[w.dtype], x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc:
         raise RuntimeError(
             "layer_norm kernel launch failed: "
             f"{lib.layer_norm_error_string(rc).decode()} ({rc})")
     kernel_launches += 1
-    return out
+    return out, mean, rstd
 
 
-def _forward(x, w, b, eps):
-    global plain_launches
+@functools.lru_cache(maxsize=None)
+def _bwd_grid(n, h, dtype, wdtype, device):
+    """The backward kernel's grid for [n, h] on `device` (its partials
+    are [2, grid, h] f32)."""
+    lib = _kernel_lib()
+    grid = ctypes.c_int(0)
+    rc = lib.layer_norm_backward_grid(n, h, dtype, wdtype, device,
+                                      ctypes.byref(grid))
+    if rc:
+        raise RuntimeError(
+            "layer_norm backward: no launch shape: "
+            f"{lib.layer_norm_error_string(rc).decode()} ({rc})")
+    return grid.value
+
+
+def _bwd_launch(x, g, w, mean, rstd):
+    """The backward kernel: (dx, dw, db)."""
+    global bwd_kernel_launches
     h = x.shape[-1]
-    n = x.numel() // max(h, 1)
-    if h % 128 or n < 8:
-        plain_launches += 1
-        return _ln_ref(x, w, b, eps)
-    if x.device.type == "cpu":
-        plain_launches += 1
-        return _ln_kernel_ref(x, w, b, eps)
-    return _launch(x, w, b, eps)
+    _check("layer_norm backward", x, w)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"layer_norm backward: gradient {g.dtype} "
+                         f"{tuple(g.shape)} for x {x.dtype} "
+                         f"{tuple(x.shape)}")
+    x, g, w = (_aligned(t.contiguous()) for t in (x, g, w))
+    n = x.numel() // h
+    dev = x.device.index or 0
+    grid = _bwd_grid(n, h, _CODES[x.dtype], _CODES[w.dtype], dev)
+    dx = torch.empty_like(x)
+    dw, db = torch.empty((2, h), dtype=w.dtype, device=x.device)
+    part = torch.empty((2, grid, h), dtype=torch.float32, device=x.device)
+    lib = _kernel_lib()
+    rc = lib.layer_norm_backward(
+        x.data_ptr(), g.data_ptr(), w.data_ptr(), mean.data_ptr(),
+        rstd.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+        part.data_ptr(), grid, n, h, _CODES[x.dtype], _CODES[w.dtype], dev,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc:
+        raise RuntimeError(
+            "layer_norm backward kernel launch failed: "
+            f"{lib.layer_norm_error_string(rc).decode()} ({rc})")
+    bwd_kernel_launches += 1
+    return dx, dw, db
+
+
+def _on_grid(x):
+    """The kernels' shape rule (the JAX one): h % 128 == 0, n >= 8."""
+    h = x.shape[-1]
+    return h % 128 == 0 and x.numel() // max(h, 1) >= 8
 
 
 class _FusedLayerNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, eps):
-        ctx.save_for_backward(x, w, b)
+        global plain_launches
         ctx.eps = eps
-        return _forward(x, w, b, eps)
+        ctx.on_grid = False
+        if not _on_grid(x):
+            plain_launches += 1
+            ctx.save_for_backward(x, w, b)
+            return _ln_ref(x, w, b, eps)
+        if x.device.type == "cpu":
+            plain_launches += 1
+            out, mean, rstd = _ln_fwd_ref(x, w, b, eps)
+        else:
+            out, mean, rstd = _launch(x, w, b, eps)
+        # the backward kernel returns db in w's dtype: the kernels take w
+        # and b of one dtype, and the CPU takes autograd of `_ln_ref` for
+        # mixed ones
+        ctx.on_grid = w.dtype == b.dtype
+        ctx.save_for_backward(*((x, w, mean, rstd) if ctx.on_grid
+                                else (x, w, b)))
+        return out
 
     @staticmethod
     def backward(ctx, g):
+        global bwd_plain_launches
+        if ctx.on_grid:
+            x, w, mean, rstd = ctx.saved_tensors
+            if x.device.type != "cpu":
+                dx, dw, db = _bwd_launch(x, g, w, mean, rstd)
+                return dx, dw, db, None
+            bwd_plain_launches += 1
+            dx, dw, db = _ln_bwd_kernel_ref(x, g, w, mean, rstd)
+            return dx, dw, db, None
+        bwd_plain_launches += 1
         x, w, b = ctx.saved_tensors
         with torch.enable_grad():
             xs, ws, bs = (t.detach().requires_grad_() for t in (x, w, b))
@@ -182,6 +315,7 @@ def _rms_launch(x, w, eps):
     global rms_kernel_launches
     h = x.shape[-1]
     _check("fused_rms_norm", x, w)
+    x, w = _aligned(x), _aligned(w)
     out = torch.empty_like(x)
     lib = _kernel_lib()
     rc = lib.rms_norm_forward(
@@ -198,9 +332,7 @@ def _rms_launch(x, w, eps):
 
 def _rms_forward(x, w, eps):
     global rms_plain_launches
-    h = x.shape[-1]
-    n = x.numel() // max(h, 1)
-    if h % 128 or n < 8:
+    if not _on_grid(x):
         rms_plain_launches += 1
         return _rms_ref(x, w, eps)
     if x.device.type == "cpu":

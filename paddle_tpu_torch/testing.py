@@ -8,14 +8,37 @@ Nothing on the port's main path imports this module.
 - `PerTensorAdamW`: the port's `AdamW` with its update made one
   `adamw_update_` a parameter (one launch each on the card), the route
   the multi-tensor update replaced.
+- `check_ln_bwd`: LayerNorm's backward (`ops/layer_norm.py`) against its
+  plain version; `ln_bwd_control`, the plain version with dw summed from
+  f32 xhat (c(xhat) skipped), which the check rejects in bf16.
 """
+import math
+
 import torch
 
 from .ops import block_sparse_attention as bsa
 from .ops import fused_ops as X
+from .ops import layer_norm as LN
 from .optimizer import AdamW
 
-__all__ = ["bs_tc_walk", "PerTensorAdamW"]
+__all__ = ["bs_tc_walk", "PerTensorAdamW", "check_ln_bwd", "ln_bwd_control",
+           "LN_BWD_FLIP", "LN_BWD_SUM_TOL"]
+
+# LayerNorm's backward against its plain version on the same x, g, w,
+# mean and rstd. Every output is the plain version's f32 value (dx, or a
+# column sum of dw's or db's terms) after one rounding, so a bf16 output
+# whose f32 sum went in another order may land one step away, but seldom:
+# only where the f32 value sits within the sums' rounding noise of a
+# rounding boundary. So: every element within one step of its dtype of
+# the plain f32 value (plus 1e-5 for dx, an output near zero being a sum
+# that cancels, and LN_BWD_SUM_TOL of the sum of its terms' magnitudes for
+# dw and db, f32 sums of up to a few thousand terms in another order), and
+# in bf16 at most LN_BWD_FLIP of the elements (or 2) with bits other than
+# the plain version's. A rounding point moved (a term rounded where the
+# vjp of `_ln_ref` does not, or not rounded where it does) moves about a
+# quarter of them.
+LN_BWD_FLIP = 0.02
+LN_BWD_SUM_TOL = 2.0 ** -16
 
 
 def bs_tc_walk(q, k, v, block_cols, block_counts, block_size, scale,
@@ -63,6 +86,68 @@ def bs_tc_walk(q, k, v, block_cols, block_counts, block_size, scale,
             m = torch.where(valid, m_new, m)
     out = acc / l.clamp_min(bsa._DENOM_EPS)
     return out.reshape(B, H, L, D)
+
+
+def _step(x, dtype):
+    """One step of `dtype` (bf16 or f32) at |x|, as f32."""
+    mag = x.abs().float().clamp_min(2.0 ** -126)
+    bits = 7 if dtype == torch.bfloat16 else 23
+    return torch.exp2(torch.floor(torch.log2(mag)) - bits)
+
+
+def ln_bwd_control(x, g, w, mean, rstd):
+    """The backward's plain version with dw's terms taken from f32 xhat,
+    c(g * xhat) in place of c(g * c(xhat)): a control, not a result."""
+    dx, _, db = LN._ln_bwd_kernel_ref(x, g, w, mean, rstd)
+    dt, h = x.dtype, x.shape[-1]
+    xhat = ((x.float() - mean.reshape(*x.shape[:-1], 1))
+            * rstd.reshape(*x.shape[:-1], 1))
+    dw = (g.float() * xhat).to(dt).float().reshape(-1, h).sum(0)
+    return dx, dw.to(dt).to(w.dtype), db
+
+
+def check_ln_bwd(name, got, x, g, w, mean, rstd):
+    """Holds got = (dx, dw, db) against the plain version on the same
+    inputs (see LN_BWD_FLIP); raises AssertionError if it is off.
+    Returns the largest absolute difference from the plain outputs and
+    the share of bf16 elements whose bits differ from them."""
+    plain = LN._ln_bwd_kernel_ref(x, g, w, mean, rstd)
+    f32 = LN._ln_bwd_f32(x, g, w, mean, rstd)
+    h, dt = x.shape[-1], x.dtype
+    xhat = ((x.float() - mean.reshape(*x.shape[:-1], 1))
+            * rstd.reshape(*x.shape[:-1], 1))
+    mags = (None, (g * xhat.to(dt)).float().abs().reshape(-1, h).sum(0),
+            g.float().abs().reshape(-1, h).sum(0))
+    err, flips = 0.0, 0.0
+    for what, o, p, v32, mag in zip(("dx", "dw", "db"), got, plain, f32,
+                                    mags):
+        rounding = (torch.bfloat16 if torch.bfloat16 in (dt, o.dtype)
+                    else torch.float32)
+        if o.dtype != p.dtype or o.shape != p.shape:
+            raise AssertionError(f"{name} {what}: {o.dtype} "
+                                 f"{tuple(o.shape)}, plain {p.dtype} "
+                                 f"{tuple(p.shape)}")
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"{name} {what}: non-finite output")
+        allow = _step(v32, rounding) + (1e-5 if mag is None
+                                        else LN_BWD_SUM_TOL * mag)
+        if rounding == torch.float32 and mag is None:
+            allow = 1e-5 + 1e-5 * v32.abs()
+        off = (o.float() - v32).abs()
+        if not bool((off <= allow).all()):
+            raise AssertionError(
+                f"{name} {what}: {int((off > allow).sum())} elements beyond "
+                f"one step of {rounding} of the plain f32 value")
+        if rounding == torch.bfloat16:
+            n_diff = int((o.float() != p.float()).sum())
+            share = n_diff / o.numel()
+            if n_diff > max(math.floor(LN_BWD_FLIP * o.numel()), 2):
+                raise AssertionError(
+                    f"{name} {what}: {share:.4f} of the elements differ from "
+                    f"the plain version's bits (at most {LN_BWD_FLIP})")
+            flips = max(flips, share)
+        err = max(err, float((o.float() - p.float()).abs().max()))
+    return err, flips
 
 
 class PerTensorAdamW(AdamW):

@@ -1,22 +1,33 @@
-"""Times the block-sparse attention kernel and the single-tensor AdamW
-update of several checkouts of the port on one card, in one call, on the
-same inputs, so that two versions are compared within one run.
+"""Times the block-sparse attention kernel, the single-tensor AdamW
+update and the LayerNorm / RMSNorm kernels of several checkouts of the
+port on one card, in one call, on the same inputs, so that two versions
+are compared within one run.
 
 The inputs are chip_smoke.py's timing inputs, drawn by its own helpers
 from the same seeds: block-sparse at B 4 x 16 x 4096 x 128 bf16, bs 128,
 one BigBird pattern per (batch, head); AdamW at one [2048, 8192] bf16
-p/g/m/v with a clip scale. A tree is a directory holding a
+p/g/m/v with a clip scale; the norms at GPT's [8192, 2048] and BERT's
+[16384, 768] bf16 rows (eps 1e-5 and 1e-12), bf16 weights. For the norms
+each tree is timed through its own entry points: the LayerNorm forward
+(`fused_layer_norm` without grad), the LayerNorm backward a CUDA tensor
+takes in that tree (its kernel where the tree has one, else autograd of
+`_ln_ref`), the eager chain (autograd of `_ln_ref`, in every tree), the
+forward and backward through the entry point together, and the RMSNorm
+forward; beside them the library calls (`F.layer_norm`, aten's
+`native_layer_norm_backward`, the two through autograd, `F.rms_norm`),
+which no tree calls. A tree is a directory holding a
 `paddle_tpu_torch/` package (the repo root, or an unpacked `git archive`
 of another commit). Each tree is timed in a process of its own that
 imports the package from that tree, so its kernels are built from its own
 sources into its own `_build/`; the builds of all trees run first, side
 by side. List a tree more than once (A B B A) to bracket drift.
 
-    python3 tools/kernel_ab.py [--out FILE] TREE [TREE ...]
+    python3 tools/kernel_ab.py [--out FILE] [--kernels bsa,adamw,norm] TREE ...
 
 Prints one JSON line per run (CUDA-event ms of eager calls, as
-chip_smoke.py times them, and CUDA-graph device ms), then the card's name
-and power limit. Needs one card.
+chip_smoke.py times them, and CUDA-graph device ms; a norm entry is
+[eager ms, device ms]), then the card's name and power limit. Needs one
+card.
 """
 import argparse
 import json
@@ -25,7 +36,8 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-KERNELS = ["block_sparse_attention", "adamw"]
+GROUPS = {"bsa": "block_sparse_attention", "adamw": "adamw",
+          "norm": "layer_norm"}
 
 
 def _import_tree(tree):
@@ -36,22 +48,30 @@ def _import_tree(tree):
         raise RuntimeError(f"imported {pkg}, not the package of {tree}")
 
 
-def build(tree):
+def build(tree, groups):
     _import_tree(tree)
     from paddle_tpu_torch.ops import _build
-    return _build.build_all(KERNELS)
+    return _build.build_all([GROUPS[g] for g in groups])
 
 
-def time_tree(tree):
+def time_tree(tree, groups):
     """One JSON-able dict of the tree's timings."""
     _import_tree(tree)
+    row = {"tree": str(tree)}
+    if "bsa" in groups:
+        _time_bsa(row)
+    if "adamw" in groups:
+        _time_adamw(row)
+    if "norm" in groups:
+        _time_norms(row)
+    return row
+
+
+def _time_bsa(row):
     import torch
 
     import chip_smoke as S
     from paddle_tpu_torch.ops import block_sparse_attention as bsa
-    from paddle_tpu_torch.ops import fused_ops as X
-
-    row = {"tree": str(tree)}
     gen = torch.Generator(device="cuda").manual_seed(S.SEED + 31)
     q, k, v, cols, counts, visited, _ = S._bs_timing_inputs(bsa, gen)
     scale = 1.0 / S.D ** 0.5
@@ -72,8 +92,13 @@ def time_tree(tree):
         bs_within_ulp=bool((err <= S.bf16_ulp(plain32) + 1e-5).all()),
         bs_routes=dict(getattr(bsa, "route_launches", {})),
         bs_visited_blocks=visited)
-    del q, k, v, out, plain32, err
 
+
+def _time_adamw(row):
+    import torch
+
+    import chip_smoke as S
+    from paddle_tpu_torch.ops import fused_ops as X
     gen = torch.Generator(device="cuda").manual_seed(S.SEED + 21)
     p, g, m, v, _, clip = S._adamw_tensors(gen, S._BF16, S._BF16, S._BF16,
                                            False, True)
@@ -84,21 +109,88 @@ def time_tree(tree):
 
     row.update(adamw_ms=[S.cuda_ms(adamw, 20) for _ in range(3)],
                adamw_device_ms=S.cuda_graph_ms(adamw, 20))
-    return row
+
+
+def _time_norms(row):
+    import torch
+
+    import chip_smoke as S
+    from paddle_tpu_torch.ops import layer_norm as LN
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(S.SEED + 32)
+    for n, h in S.NORM_SHAPES:
+        eps = 1e-5 if h == S.THID else 1e-12
+        x = S._rand(gen, (n, h), S._BF16, 2.0)
+        w, b = S._rand(gen, (h,), S._BF16), S._rand(gen, (h,), S._BF16)
+        g = S._rand(gen, (n, h), S._BF16)
+        xg, wg, bg = (t.detach().requires_grad_() for t in (x, w, b))
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [h], w, b, eps)
+
+        def eager_bwd(i=0):
+            with torch.enable_grad():
+                xs, ws, bs = (t.detach().requires_grad_() for t in (x, w, b))
+                return torch.autograd.grad(LN._ln_ref(xs, ws, bs, eps),
+                                           (xs, ws, bs), g)
+
+        if hasattr(LN, "_bwd_launch"):
+            _, mean, rstd = LN._launch(x, w, b, eps)
+
+            def tree_bwd(i=0):
+                return LN._bwd_launch(x, g, w, mean, rstd)
+        else:
+            tree_bwd = eager_bwd
+
+        def fwd_bwd(i=0, fn=LN.fused_layer_norm):
+            with torch.enable_grad():
+                return torch.autograd.grad(fn(xg, wg, bg, eps), (xg, wg, bg),
+                                           g)
+
+        def no_grad(fn, *args):
+            def run(i=0):
+                with torch.no_grad():
+                    return fn(*args)
+            return run
+
+        runs = {
+            "ln_fwd": (no_grad(LN.fused_layer_norm, x, w, b, eps), 20),
+            "ln_bwd": (tree_bwd, 20),
+            "ln_bwd_eager": (eager_bwd, 5),
+            "ln_fwd_bwd": (fwd_bwd, 10),
+            "rms_fwd": (no_grad(LN.fused_rms_norm, x, w, 1e-6), 20),
+            "lib_ln_fwd": (no_grad(F.layer_norm, x, (h,), w, b, eps), 20),
+            "lib_ln_bwd": (lambda i=0: torch.ops.aten.
+                           native_layer_norm_backward(
+                               g, x, [h], lmean, lrstd, w, b,
+                               [True, True, True]), 20),
+            "lib_ln_fwd_bwd": (lambda i=0: fwd_bwd(
+                fn=lambda a, c, d, e: F.layer_norm(a, (h,), c, d, e)), 10),
+            "lib_rms_fwd": (no_grad(F.rms_norm, x, (h,), w, 1e-6), 20),
+        }
+        for name, (fn, iters) in runs.items():
+            row[f"{name}[{n}x{h}]"] = [S.cuda_ms(fn, iters),
+                                       S.cuda_graph_ms(fn, iters)]
+        del x, g, xg, lmean, lrstd, runs
+        torch.cuda.empty_cache()
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--out", help="also append the JSON lines here")
+    ap.add_argument("--kernels", default=",".join(GROUPS),
+                    help="groups to time, of " + ",".join(GROUPS))
     ap.add_argument("--build", help=argparse.SUPPRESS)
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    groups = args.kernels.split(",")
+    if set(groups) - set(GROUPS):
+        ap.error(f"--kernels takes {','.join(GROUPS)}")
     if args.build:
-        build(Path(args.build).resolve())
+        build(Path(args.build).resolve(), groups)
         return 0
     if args.one:
-        print(json.dumps(time_tree(Path(args.one).resolve())), flush=True)
+        print(json.dumps(time_tree(Path(args.one).resolve(), groups)),
+              flush=True)
         return 0
     if not args.trees:
         ap.error("give at least one tree")
@@ -108,6 +200,7 @@ def main():
         return 1
     trees = [Path(t).resolve() for t in args.trees]
     me = [sys.executable, str(Path(__file__).resolve())]
+    me += ["--kernels", args.kernels]
     builds = [subprocess.Popen(me + ["--build", str(t)])
               for t in dict.fromkeys(trees)]
     if any([b.wait() for b in builds]):
