@@ -32,10 +32,17 @@ real parameter list and timed against those launches and
 are replayed with one launch a parameter and must give the same losses
 bit for bit. That kernel (in eight variants of dtypes, master copy and
 clip scale, beside a copy probe and a cheap-division probe of its loop),
-the RMSNorm kernel and the dropout + residual + LayerNorm kernel
-are held against their plain versions and timed at full width, and the
-two norm ops are driven through their entry points (nn.RMSNorm forward
-and backward, the dropout op in training and eval). The two legacy
+the RMSNorm kernel and the dropout + residual + LayerNorm kernel (a mode
+of the norms' row walk) are held against their plain versions and timed
+at full width (the latter beside its earlier design's device time), and
+the two norm ops are driven through their entry points (nn.RMSNorm
+forward and backward, the dropout op in training and eval). F.dropout's
+hash dropout kernel is held bit-equal to its plain version, forward and
+backward, at BERT's hidden states (f32 and bf16, p 0.1-0.9, both modes;
+f16), an odd element count and a view off 16-byte alignment, two
+launches bit-equal, the earlier f32-divisor arithmetic rejected, its mask
+kernel equal to the plain mask, and timed beside its bound; every BERT
+step must take it 25 times forward and 25 backward. The two legacy
 kernels, block-sparse attention and paged decode attention, are held
 against their plain versions (every block size, head dims 8-256,
 count-0 rows, seq_len 0, -1 page ids) and timed at full width, and their
@@ -189,9 +196,12 @@ def phase_environment():
             _ptxas_bsa(entries)
         if name == "layer_norm":
             _ptxas_norm(entries)
+        if name == "hash_dropout":
+            _ptxas_dropout(entries)
     for name, line in (("flash_attention", "ptxas_bwd"),
                        ("block_sparse_attention", "ptxas_bsa"),
-                       ("layer_norm", "ptxas_norm")) + tuple(
+                       ("layer_norm", "ptxas_norm"),
+                       ("hash_dropout", "ptxas_dropout")) + tuple(
                            (d, "ptxas_decode") for d in DECODE_SOURCES):
         if name not in _build.build_logs:
             log(line, source=name, checked=False,
@@ -222,11 +232,12 @@ def _ptxas_bsa(entries):
 
 
 # The norm kernels of csrc/layer_norm.cu and their instantiations: the row
-# walk for LayerNorm and for RMSNorm (x f32 and bf16 at 6 lane widths,
-# each with f32 and bf16 weights), LayerNorm's backward (4 and 2) and its
-# partials' sum (one per dtype pair); with the place of x's type among the
-# template arguments.
-_NORM_BODIES = (("norm_fwd_kernel<false", 24, 1), ("norm_fwd_kernel<true", 24, 1),
+# walk for LayerNorm, for RMSNorm and for dropout + residual + LayerNorm
+# (modes 0, 1, 2; x f32 and bf16 at 6 lane widths, each with f32 and bf16
+# weights), LayerNorm's backward (4 and 2) and its partials' sum (one per
+# dtype pair); with the place of x's type among the template arguments.
+_NORM_BODIES = (("norm_fwd_kernel<0,", 24, 1), ("norm_fwd_kernel<1,", 24, 1),
+                ("norm_fwd_kernel<2,", 24, 1),
                 ("layer_norm_bwd_kernel<", 12, 0), ("layer_norm_bwd_finish<", 4, 0))
 
 
@@ -243,7 +254,7 @@ def _ptxas_norm(entries):
         spill = max((b for _, b, _ in got), default=None)
         bf16_spill = max((b for _, b, x in got if x == "__nv_bfloat16"),
                          default=None)
-        log("ptxas_norm", kernel=kern.rstrip("<"), instantiations=len(got),
+        log("ptxas_norm", kernel=kern.rstrip("<,"), instantiations=len(got),
             registers=(f"{min(r for r, _, _ in got)}-"
                        f"{max(r for r, _, _ in got)}" if got else "none"),
             spill_store_bytes=spill, bf16_x_spill_store_bytes=bf16_spill)
@@ -252,6 +263,29 @@ def _ptxas_norm(entries):
                                f"{want} instantiations in the report, bf16-x "
                                f"spill stores {bf16_spill} bytes (0 "
                                "required)")
+
+
+# The hash dropout kernels of csrc/hash_dropout.cu: the pass (x f32, bf16,
+# f16, each upscaling or not) and the mask.
+_DROPOUT_BODIES = (("hash_dropout_kernel<", 6), ("hash_keep_kernel", 1))
+
+
+def _ptxas_dropout(entries):
+    """One line per hash dropout kernel: instantiations, registers and
+    spill stores. Raises if one is missing from ptxas's report or
+    spills."""
+    for kern, want in _DROPOUT_BODIES:
+        got = [(_ptxas_number(r"Used (\d+) registers", regs),
+                _ptxas_number(r"(\d+) bytes spill stores", spill))
+               for fn, regs, spill in entries if fn and fn.startswith(kern)]
+        spill = max((b for _, b in got), default=None)
+        log("ptxas_dropout", kernel=kern.rstrip("<"), instantiations=len(got),
+            registers=(f"{min(r for r, _ in got)}-{max(r for r, _ in got)}"
+                       if got else "none"), spill_store_bytes=spill)
+        if len(got) != want or spill:
+            raise RuntimeError(f"ptxas: {kern}...> has {len(got)} of its "
+                               f"{want} instantiations in the report, spill "
+                               f"stores {spill} bytes (0 required)")
 
 
 # The split decode-attention bodies (csrc/decode_attention.cuh) by source:
@@ -2047,25 +2081,30 @@ EXPECTED_PER_STEP = {"flash_fwd": 48, "flash_bwd_dq": 24,
                      "flash_bwd_dkv": 24, "layer_norm": 97,
                      "layer_norm_bwd": 49, "rms_norm": 0,
                      "xent_fwd": 1, "xent_bwd": 1,
-                     "dropout_residual_layer_norm": 0}
+                     "dropout_residual_layer_norm": 0, "hash_dropout": 0,
+                     "hash_dropout_bwd": 0, "hash_dropout_mask": 0}
 
 
 def _train_counts(A, LN, X):
+    from paddle_tpu_torch.ops import dropout as D
     k = {**A.kernel_launches, "layer_norm": LN.kernel_launches,
          "layer_norm_bwd": LN.bwd_kernel_launches,
          "rms_norm": LN.rms_kernel_launches, **X.kernel_launches,
          "adamw": X.adamw_kernel_launches,
-         "dropout_residual_layer_norm": X.drln_kernel_launches}
+         "dropout_residual_layer_norm": X.drln_kernel_launches,
+         **D.dropout_kernel_launches}
     p = {**A.plain_launches, "layer_norm": LN.plain_launches,
          "layer_norm_bwd": LN.bwd_plain_launches,
          "rms_norm": LN.rms_plain_launches, **X.plain_launches,
          "adamw": X.adamw_plain_launches,
-         "dropout_residual_layer_norm": X.drln_plain_launches}
+         "dropout_residual_layer_norm": X.drln_plain_launches,
+         **D.dropout_plain_launches}
     return k, p
 
 
 def _reset_train_counts(A, LN, X):
-    for mod in (A, LN, X):
+    from paddle_tpu_torch.ops import dropout as D
+    for mod in (A, LN, X, D):
         mod.reset_counts()
 
 
@@ -2174,9 +2213,9 @@ def phase_training(A, LN, X, smi):
 
 
 # kernel families by name: the LayerNorm forward is the norm row walk's
-# LayerNorm instantiation, `norm_fwd_kernel<false, ...>`
+# LayerNorm instantiation, `norm_fwd_kernel<0, ...>`
 _FAMILIES = (("flash_attention", ("flash_fwd", "flash_dq", "flash_dkv")),
-             ("layer_norm", ("norm_fwd_kernel<false",)),
+             ("layer_norm", ("norm_fwd_kernel<0,",)),
              ("layer_norm_bwd", ("layer_norm_bwd",)),
              ("xent", ("xent_fwd", "xent_bwd")),
              ("adamw", ("adamw_kernel",)),
@@ -2506,13 +2545,17 @@ def phase_bert_kernel_timing(A):
 
 
 # a bert_base training step launches, per layer, one attention forward,
-# dQ and dK/dV (kvb + dropout) and two LayerNorms, forward and backward,
-# plus the embeddings' and the MLM head's LayerNorm; the vocabulary (30522) has no 128-multiple
+# dQ and dK/dV (kvb + dropout), two LayerNorms, forward and backward, and
+# two hidden dropouts (after attention and after the feed-forward),
+# forward and backward, plus the embeddings' and the MLM head's LayerNorm
+# and the embeddings' dropout; the vocabulary (30522) has no 128-multiple
 # block, so the criterion takes F.cross_entropy, not the xent kernels
 BERT_EXPECTED_PER_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12,
                           "flash_bwd_dkv": 12, "layer_norm": 26,
                           "layer_norm_bwd": 26, "rms_norm": 0, "xent_fwd": 0, "xent_bwd": 0,
-                          "dropout_residual_layer_norm": 0}
+                          "dropout_residual_layer_norm": 0,
+                          "hash_dropout": 25, "hash_dropout_bwd": 25,
+                          "hash_dropout_mask": 0}
 
 
 def _bert_batch(cfg, seed=0):
@@ -2646,14 +2689,16 @@ def _bert_family(ev):
 
 def phase_bert_split(trainer, batch):
     """Where one bert_base step's device time goes, by family: kernels are
-    named for the flash kernels, cuBLAS and LayerNorm's forward and
-    backward; the rest are
+    named for the flash kernels, cuBLAS, LayerNorm's forward and backward
+    and the hash dropout (forward and backward: the `dropout_hash`
+    family); the rest are
     priced by the op that launched them (the hash ranges of F.dropout,
     the optimizer's range, the ops on the [16384, 30522] f32 logits);
-    and the device's busy share (device time over the step's wall
-    time)."""
+    the device's busy share (device time over the step's wall time); and
+    the step's peak device memory."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.perf_counter()
@@ -2664,8 +2709,9 @@ def phase_bert_split(trainer, batch):
         wall = time.perf_counter() - t0
     fam = dict.fromkeys(_BERT_FAMILIES, 0.0)
     named = {"flash_attention": ("flash_fwd", "flash_dq", "flash_dkv"),
-             "layer_norm": ("norm_fwd_kernel<false",),
+             "layer_norm": ("norm_fwd_kernel<0,",),
              "layer_norm_bwd": ("layer_norm_bwd",),
+             "dropout_hash": ("hash_dropout_kernel",),
              "optimizer": ("adamw_kernel",),
              "cublas": ("gemm", "nvjet", "cutlass", "xmma", "cublas")}
 
@@ -2699,6 +2745,7 @@ def phase_bert_split(trainer, batch):
     log("bert_split", wall_ms=f"{wall * 1e3:.2f}",
         device_ms=f"{total / 1e3:.2f}",
         device_busy_share=f"{total / 1e6 / wall:.3f}",
+        peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
         **{f"{k}_ms": f"{v / 1e3:.2f}" for k, v in fam.items()})
 
 
@@ -2765,7 +2812,19 @@ ADAMW_STEP = 10
 # 16 blocks), on these inputs, timed by tools/kernel_ab.py on the tree
 # before it (H100 80GB HBM3, 700 W); the [kernel_time] line only
 ADAMW_EARLIER_MS = 0.0974
+# the dropout + residual + LayerNorm kernel's device time (CUDA graph) in
+# its earlier design (a block of 256 threads a row, scalar loads), on these
+# inputs, timed by tools/kernel_ab.py on the tree before the row walk took
+# it (median of 6 runs, NVIDIA H100 80GB HBM3, 700 W); the [kernel_time]
+# lines only
+DRLN_EARLIER_DEVICE_MS = {
+    "dropout_residual_layer_norm[8192x2048]": 0.1117,
+    "dropout_residual_layer_norm[16384x768]": 0.0759,
+    "dropout_residual_layer_norm[16384x768, host bits]": 0.0943}
 NORM_SHAPES = ((TN, THID), (BB * BL, BHID))
+# the dropout op's checks also at the widest row (8 warps a row, 8
+# vectors a lane in f32) and at a width whose vectors leave lanes idle
+DRLN_EXTRA_SHAPES = ((64, 8192), (333, 640))
 RMS_EPS, DRLN_RATE, DRLN_SEED = 1e-6, 0.1, 1234
 # AdamW variants: (name, p dtype, g dtype, slot dtype, f32 master, clip)
 _F32, _BF16 = torch.float32, torch.bfloat16
@@ -2819,9 +2878,10 @@ def phase_slice5_kernel_checks(LN, X):
     """The AdamW kernel in every variant against its plain version (one
     update, in place, compared with the plain f32 results); the RMSNorm
     kernel and the dropout + residual + LayerNorm kernel against theirs
-    in f32 and bf16 at both widths, the latter with its keep-mask equal to
-    the plain hash mask, its kept fraction near 1 - p, and caller bits
-    equal to its own hash giving bit-equal outputs."""
+    in f32 and bf16 at both widths and at DRLN_EXTRA_SHAPES, the latter
+    with its keep-mask equal to the plain hash mask, its kept fraction
+    near 1 - p, and caller bits equal to its own hash giving bit-equal
+    outputs."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     err = dict.fromkeys(("adamw", "rms_norm", "dropout_residual_layer_norm"),
                         0.0)
@@ -2843,7 +2903,7 @@ def phase_slice5_kernel_checks(LN, X):
             max_err=f"{e:.3e}")
         del p, g, m, v, ms, before, pp, pm, pv
     for dtype in (_F32, _BF16):
-        for n, h in NORM_SHAPES:
+        for n, h in NORM_SHAPES + DRLN_EXTRA_SHAPES:
             x = _rand(gen, (n, h), dtype, 2.0)
             w = _rand(gen, (h,), dtype)
             plain32 = LN._rms_kernel_ref(x.float(), w.float(), RMS_EPS)
@@ -3000,6 +3060,15 @@ def phase_slice5_kernel_timing(X):
             extra.update(earlier_ms=ADAMW_EARLIER_MS,
                          goal_no_slower_than_library="met" if
                          ms <= library_ms else "missed")
+        else:
+            # the row walk's device time (CUDA graph), beside the earlier
+            # design's on the same inputs and its 70% goal
+            dev = out[name]["device_ms"] = cuda_graph_ms(kern, 20)
+            extra = {"device_ms": f"{dev:.4f}",
+                     "bound_share_device": f"{bound_ms / dev:.3f}",
+                     "earlier_device_ms": DRLN_EARLIER_DEVICE_MS[name],
+                     "goal_70pct_of_bound": "met" if bound_ms / dev >= 0.7
+                     else "missed"}
         log("kernel_time", kernel=name, form=repr(form), ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.4f}",
             library_ms="none (no single PyTorch call)" if library is None
@@ -3345,6 +3414,136 @@ def phase_norm_timing(LN):
                 achieved_GBps_device=f"{nbytes / row['device_ms'] / 1e6:.1f}",
                 **extra, **{goal[0]: "met" if goal[1] else "missed"})
         del x, g, mean, rstd, lmean, lrstd, specs
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 9c
+
+# F.dropout's hash dropout kernel (csrc/hash_dropout.cu): BERT's hidden
+# states [32, 512, 768] at every rate of the checks, the timing at the same
+# elements as [16384, 768] bf16 (BERT's rate 0.1), one salt.
+DROP_SHAPE = (BB, BL, BHID)
+DROP_RATES = (0.1, 0.3, 0.5, 0.9)
+DROP_SALT = 123456789
+
+
+def phase_dropout_checks(D):
+    """The hash dropout kernel against its plain version on the card, bits
+    compared exactly, forward (x) and backward (a gradient g: the same
+    function of g): f32 and bf16 at BERT's [32, 512, 768] at p 0.1, 0.3,
+    0.5 and 0.9 in both modes, f16 at p 0.1, an element count that is no
+    multiple of a vector (1,000,003 bf16) and a view one element off
+    16-byte alignment (the scalar path); each case launched twice, bits
+    equal, and its kept fraction near 1 - p; the `axis` form's mask kernel
+    against the plain mask. The control, the earlier arithmetic (a bf16 x
+    divided by f32(1 - p), not by f32(bf16(1 - p))), must differ from
+    the kernel at bf16, p 0.1."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    cases = [(f"bert {str(dt)[6:]}", DROP_SHAPE, dt, p, up, 0)
+             for dt in (_F32, _BF16) for p in DROP_RATES
+             for up in (True, False)]
+    cases += [("bert float16", DROP_SHAPE, torch.float16, 0.1, True, 0),
+              ("odd n", (1_000_003,), _BF16, 0.1, True, 0),
+              ("offset view", (1_000_000,), _BF16, 0.1, True, 1)]
+    err = 0.0
+    for label, shape, dt, p, up, off in cases:
+        n = int(np.prod(shape))
+        x = _rand(gen, (n + off,), dt, 2.0)[off:].view(shape)
+        g = _rand(gen, shape, dt)
+        y = D._launch("hash_dropout", x, DROP_SALT, p, up)
+        again = D._launch("hash_dropout", x, DROP_SALT, p, up)
+        dx = D._launch("hash_dropout_bwd", g, DROP_SALT, p, up)
+        py = D._hash_dropout_ref(x, DROP_SALT, p, up)
+        pdx = D._hash_dropout_ref(g, DROP_SALT, p, up)
+        if not (_bits_equal(y, py) and _bits_equal(dx, pdx)
+                and _bits_equal(y, again)):
+            raise AssertionError(
+                f"hash_dropout {label} p={p} upscale={up}: kernel and plain "
+                f"version differ (forward {not _bits_equal(y, py)}, backward "
+                f"{not _bits_equal(dx, pdx)}, two launches "
+                f"{not _bits_equal(y, again)})")
+        kept = float(D._hash_keep_ref(DROP_SALT, shape, p, "cuda")
+                     .float().mean())
+        if abs(kept - (1 - p)) > (KEEP_FRACTION_TOL if n > 10 ** 7
+                                  else 0.01):
+            raise AssertionError(f"hash_dropout {label}: kept {kept}")
+        err = max(err, float((y.float() - py.float()).abs().max()),
+                  float((dx.float() - pdx.float()).abs().max()))
+        extra = {}
+        if label == "bert bfloat16" and p == 0.1 and up:
+            keep = D._hash_keep_ref(DROP_SALT, shape, p, "cuda")
+            div = torch.full((), np.float32(1.0 - p), device="cuda")
+            control = torch.where(keep, (x.float() / div).to(dt),
+                                  torch.zeros((), dtype=dt, device="cuda"))
+            differ = int((control != y).sum())
+            if not differ:
+                raise AssertionError("hash_dropout: the control (divide by "
+                                     "f32(1 - p)) equals the kernel")
+            extra = {"control_rejected": True,
+                     "control_elements_differing": differ}
+        log("kernel", form=f"hash_dropout {label} {list(shape)} p={p}",
+            dtype=str(dt)[6:], mode="upscale_in_train" if up else
+            "downscale_in_infer", aligned=x.data_ptr() % 16 == 0,
+            fwd_bits_equal=True, bwd_bits_equal=True, two_launches_equal=True,
+            kept=f"{kept:.6f}", **extra)
+        del x, g, y, again, dx, py, pdx
+    for shape in ((BB, 1, BHID), (7, 1, 33)):
+        keep = D.hash_keep_mask(DROP_SALT, shape, 0.1, "cuda")
+        if not torch.equal(keep, D._hash_keep_ref(DROP_SALT, shape, 0.1,
+                                                  "cuda")):
+            raise AssertionError(f"hash_dropout_mask {shape}: differs from "
+                                 "the plain mask")
+        log("kernel", form=f"hash_dropout_mask {list(shape)} p=0.1",
+            mask_equal=True)
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_dropout_timing(D):
+    """The hash dropout forward and backward at [16384, 768] bf16, p 0.1:
+    eager (CUDA events around a loop of calls, the wrapper included) and
+    device time (CUDA-graph replay), beside the plain version (the eager
+    int64 chain of the earlier F.dropout, eager). No PyTorch call computes
+    this function (`F.dropout` draws a Philox mask): library none; the
+    line gives F.dropout's time as another function, for scale. Bound:
+    x (or g) read once and the output written once, 2 x 2 bytes an
+    element over 3.35 TB/s (one f32 divide an element over 67 TFLOP/s is
+    far below it)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    shape, p = (BB * BL, BHID), BERT_RATE
+    x, g = _rand(gen, shape, _BF16), _rand(gen, shape, _BF16)
+    n = x.numel()
+    out = {}
+    for name, t in (("hash_dropout", x), ("hash_dropout_bwd", g)):
+        def kern(i=0, t=t, name=name):
+            return D._launch(name, t, DROP_SALT, p, True)
+
+        def plain(i=0, t=t):
+            return D._hash_dropout_ref(t, DROP_SALT, p, True)
+
+        row = {"ms": cuda_ms(kern, 20), "device_ms": cuda_graph_ms(kern, 20),
+               "plain_ms": cuda_ms(plain, 3), "library_ms": None}
+        row["bound_ms"], row["bound_by"] = _bound(4 * n, n, H100_F32_FLOPS)
+        out[name] = row
+        other = {}
+        if name == "hash_dropout":
+            philox = torch.nn.functional.dropout
+            other = {"other_function_torch_F_dropout_philox_ms":
+                     f"{cuda_ms(lambda i=0: philox(x, p), 20):.4f}",
+                     "other_function_torch_F_dropout_philox_device_ms":
+                     f"{cuda_graph_ms(lambda i=0: philox(x, p), 20):.4f}"}
+        log("kernel_time", kernel=name, shape=f"{list(shape)} bf16 p={p}",
+            ms=f"{row['ms']:.4f}", device_ms=f"{row['device_ms']:.4f}",
+            plain_ms=f"{row['plain_ms']:.4f}",
+            library_ms="none (no PyTorch call computes this mask)",
+            bound_ms=f"{row['bound_ms']:.4f}", bound_by=row["bound_by"],
+            MB_moved=f"{4 * n / 1e6:.1f}",
+            bound_share_device=f"{row['bound_ms'] / row['device_ms']:.3f}",
+            achieved_GBps_device=f"{4 * n / row['device_ms'] / 1e6:.1f}",
+            goal_60pct_of_bound="met" if row["bound_ms"] / row["device_ms"]
+            >= 0.6 else "missed", **other)
+    del x, g
     torch.cuda.empty_cache()
     return out
 
@@ -3864,6 +4063,7 @@ def main():
         return 2
     from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.ops import block_sparse_attention as bsa
+    from paddle_tpu_torch.ops import dropout as D
     from paddle_tpu_torch.ops import fused_ops as X
     from paddle_tpu_torch.ops import layer_norm as LN
     from paddle_tpu_torch.ops import paged_attention as pa
@@ -3905,6 +4105,8 @@ def main():
     train_timing = phase_train_kernel_timing(A, X)
     norm_err = phase_norm_checks(LN)
     norm_timing = phase_norm_timing(LN)
+    dropout_err = phase_dropout_checks(D)
+    dropout_timing = phase_dropout_timing(D)
     trainer, batch, train_launches, losses = phase_training(A, LN, X, smi)
     phase_train_profile(trainer, batch)
     phase_train_split(trainer, batch)
@@ -3982,7 +4184,7 @@ def main():
     for name, source, replaces, launches, timing in (
             ("adamw", "adamw.cu", "fused_ops.py:215",
              train_launches["adamw"] + bert_launches["adamw"], "adamw"),
-            ("dropout_residual_layer_norm", "dropout_residual_layer_norm.cu",
+            ("dropout_residual_layer_norm", "layer_norm.cu",
              "fused_ops.py:288", norm_launches["dropout_residual_layer_norm"],
              f"dropout_residual_layer_norm[{BB * BL}x{BHID}]")):
         extra = {} if name != "adamw" else {
@@ -3994,6 +4196,15 @@ def main():
                         "launches": launches,
                         "max_abs_err": slice5_err[name],
                         **slice5_timing[timing], **extra})
+    # no Pallas kernel: the counterpart of the XLA-fused JAX `_hash_keep`
+    # + `dropout`; BERT's launches
+    for name in ("hash_dropout", "hash_dropout_bwd"):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "paddle_tpu_torch/ops/csrc/hash_dropout.cu",
+                        "replaces": "paddle_tpu/nn/functional/common.py:42",
+                        "launches": bert_launches[name],
+                        "max_abs_err": dropout_err,
+                        **dropout_timing[name]})
     for name, replaces in (
             ("block_sparse_attention", "block_sparse_attention.py:35"),
             ("paged_attention", "paged_attention.py:105")):

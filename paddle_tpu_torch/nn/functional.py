@@ -3,7 +3,8 @@ attention (counterparts of `paddle_tpu/nn/functional`): Paddle's
 signatures and layouts, PyTorch inside. `layer_norm`, `rms_norm`,
 `scaled_dot_product_attention` and `sparse_attention` route to the
 port's kernels by the JAX package's own rules; `dropout` draws its mask
-from the JAX package's counter hash, bit for bit."""
+from the JAX package's counter hash and scales as it does, bit for bit,
+through the hash dropout kernel (`ops/dropout.py`)."""
 import functools
 
 import numpy as np
@@ -11,9 +12,9 @@ import torch
 import torch.nn.functional as TF
 
 from ..ops import block_sparse_attention as _bsa
-from ..ops.attention import (_next_seed, _rate_thresh, flash_attention,
+from ..ops import dropout as _drop
+from ..ops.attention import (_next_seed, flash_attention,
                              flash_attention_available, mha_reference)
-from ..ops.fused_ops import _hash_bits
 from ..ops.layer_norm import fused_layer_norm, fused_rms_norm
 
 __all__ = ["linear", "embedding", "gelu", "tanh", "relu", "dropout",
@@ -63,7 +64,7 @@ def _hash_keep(salt, shape, p, device=None):
     (the JAX `_hash_keep` after its salt draw): keep element i iff
     h32((i * 0x9E3779B1) ^ (salt * 0x85EBCA77)) >= min(int(p * 2^32),
     2^32 - 1), all mod 2^32."""
-    return _hash_bits(salt, shape, device) >= _rate_thresh(p)
+    return _drop._hash_keep_ref(salt, shape, p, device)
 
 
 def _draw_salt(generator=None):
@@ -77,32 +78,33 @@ _DROPOUT_MODES = ("upscale_in_train", "downscale_in_infer")
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
             name=None, *, generator=None):
-    """Paddle's dropout with the JAX package's mask: a salt in
-    [0, 2^31 - 1) drawn per call from the CPU `generator` (None: torch's
-    default CPU generator), then `_hash_keep(salt, mask_shape, p)`.
-    The mask covers x, or with `axis` (an int or a list) only the listed
-    axes, broadcast over the others (axes are matched as given, as in
-    JAX). `mode="upscale_in_train"` gives where(keep, x / (1 - p), 0) —
-    divide, then select; "downscale_in_infer" keeps without scaling.
-    In eval or at p 0, x itself."""
+    """Paddle's dropout with the JAX package's mask and arithmetic: a salt
+    in [0, 2^31 - 1) drawn per call from the CPU `generator` (None:
+    torch's default CPU generator), then `_hash_keep(salt, mask_shape,
+    p)`. The mask covers x, or with `axis` (an int or a list) only the
+    listed axes, broadcast over the others (axes are matched as given, as
+    in JAX). `mode="upscale_in_train"` gives where(keep, c(f32(x) /
+    f32(c(1 - p))), 0), c() a cast to x's dtype (the JAX scalar 1 - p
+    takes x's dtype); "downscale_in_infer" keeps without scaling. In eval
+    or at p 0, x itself. Over the whole of x, the hash dropout kernel and
+    its backward (`ops.dropout.hash_dropout`, which reads x contiguous);
+    with `axis`, the mask kernel, then a broadcast `where`."""
     if mode not in _DROPOUT_MODES:
         raise ValueError(f"mode must be one of {_DROPOUT_MODES}, got "
                          f"{mode!r}")
     if not training or p == 0.0:
         return x
-    if axis is None:
-        mask_shape = tuple(x.shape)
-    else:
+    upscale = mode == "upscale_in_train"
+    salt = _draw_salt(generator)
+    # a named range, so a profile can price the hash
+    with torch.profiler.record_function("dropout_hash"):
+        if axis is None:
+            return _drop.hash_dropout(x, p, salt, upscale)
         axes = axis if isinstance(axis, (list, tuple)) else [axis]
         mask_shape = tuple(x.shape[i] if i in axes else 1
                            for i in range(x.dim()))
-    salt = _draw_salt(generator)
-    # a named range, so a profile can price the hash ops
-    with torch.profiler.record_function("dropout_hash"):
-        keep = _hash_keep(salt, mask_shape, p, x.device)
-    kept = x / (1.0 - p) if mode == "upscale_in_train" else x
-    return torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
-                                               device=x.device))
+        keep = _drop.hash_keep_mask(salt, mask_shape, p, x.device)
+    return _drop._apply_keep(x, keep, p, upscale)
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):

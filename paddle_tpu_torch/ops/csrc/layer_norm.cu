@@ -1,18 +1,31 @@
 // Row LayerNorm and RMSNorm for Hopper (sm_90a), f32 and bf16: the two
-// forwards on one row walk, and LayerNorm's backward.
+// forwards and dropout + residual + LayerNorm on one row walk, and
+// LayerNorm's backward.
 //
 // Forwards. They replace the TPU kernels `_ln_kernel` and `_rms_kernel` of
-// paddle_tpu/ops/layer_norm.py: x [n, h] -> out [n, h] in x's dtype, f32
+// paddle_tpu/ops/layer_norm.py and `_dropout_res_ln_kernel` of
+// paddle_tpu/ops/fused_ops.py: x [n, h] -> out [n, h] in x's dtype, f32
 // statistics, the affine in f32 before the one cast.
 //   LayerNorm: mu = mean(x), var = mean((x - mu)^2) (two passes over the
 //     row in registers), rstd = 1 / sqrt(var + eps),
 //     out = cast((x - mu) * rstd * w + b); each row's mu and rstd are
 //     written too ([n] f32 each) for the backward.
 //   RMSNorm: rstd = 1 / sqrt(mean(x^2) + eps), out = cast(x * rstd * w).
+//   Dropout + residual + LayerNorm: as the row is loaded, in f32,
+//     v = (bits <= thresh ? x / f32(1 - p) : 0) + r   (v = x + r at p 0),
+//     with thresh = int((1 - p) * (2^32 - 1)), the TPU kernel's keep rule;
+//     cast(v) is written as h [n, h], and LayerNorm runs on v (mean and
+//     rstd not written). The TPU kernel draws its bits from the chip's
+//     generator, which nothing else reproduces; the bits here are the
+//     caller's uint32 [n, h] or counter_hash.cuh's hash of the flat index
+//     row * h + col and the salt (seed mod 2^31), so the mask does not
+//     depend on which warp takes which row.
 // w and b are [h] in their own dtype (f32 or bf16), read as f32.
 // Bound: bytes (h = 2048 bf16 is 4 KB read and 4 KB written a row for ~8
-// flops an element, far left of the card's ridge). Design: a row belongs
-// to a group of `wpr` warps: one warp where the row fits 8 vectors a lane
+// flops an element, far left of the card's ridge; the dropout mode reads
+// and writes twice that, with ~12 integer operations an element for the
+// hash and an IEEE divide). Design: a row belongs to a group of `wpr`
+// warps: one warp where the row fits 8 vectors a lane
 // (h <= 2048 in bf16, 1024 in f32), more above. A lane loads its part of
 // the row in 16-byte vectors (8 bf16 or 4 f32), neighbouring lanes on
 // neighbouring vectors, and keeps them in registers for both passes and
@@ -56,6 +69,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "counter_hash.cuh"
 
 namespace {
 
@@ -185,16 +200,40 @@ __device__ __forceinline__ void group_sum(float (&v)[K], float* red, int wpr,
   }
 }
 
-// The forward row walk. RMS: rms_norm (b, mean, rstd unused), else
-// LayerNorm. N vectors of T a lane; a lane's k-th vector is
-// (k * wpr + warp in group) * 32 + lane, so a warp reads 512 contiguous
-// bytes at each k.
-template <bool RMS, typename T, typename W, int N>
+// The forwards' modes.
+enum Mode : int { kLayer = 0, kRms = 1, kDropRes = 2 };
+
+// The dropout + residual mode's rule (unused in the other modes).
+struct DropRule {
+  float keep_div;          // f32(1 - p): a kept x is divided by it
+  uint32_t thresh;         // keep iff bits <= thresh
+  uint32_t salt_col;       // salt * kCol mod 2^32 (the hash bits)
+  int on;                  // 0: no dropout (p 0 or not training)
+};
+
+// The dropout + residual mode's operands and rule as the host passes
+// them; the kernel takes the pointers as restrict parameters, so that it
+// may load a row's next vectors before it stores h.
+struct Drop {
+  const void* r;           // residual [n, h], x's dtype
+  const uint32_t* bits;    // the caller's bits [n, h], or null: the hash
+  void* hout;              // h = dropout(x) + r [n, h], x's dtype
+  DropRule rule;
+};
+
+// The forward row walk: LayerNorm, RMSNorm (b, mean, rstd unused) or
+// dropout + residual + LayerNorm (mean, rstd unused). N vectors of T a
+// lane; a lane's k-th vector is (k * wpr + warp in group) * 32 + lane, so
+// a warp reads 512 contiguous bytes at each k.
+template <int MODE, typename T, typename W, int N>
 __global__ void __launch_bounds__(kFwdWarps * 32, 2) norm_fwd_kernel(
     const T* __restrict__ x, const W* __restrict__ w,
     const W* __restrict__ b, T* __restrict__ out, float* __restrict__ mean,
-    float* __restrict__ rstd, int n, int h, int wpr, float eps) {
+    float* __restrict__ rstd, int n, int h, int wpr, float eps,
+    const T* __restrict__ r, const uint32_t* __restrict__ bits,
+    T* __restrict__ hout, DropRule d) {
   constexpr int V = Vec<T>::kN;
+  constexpr bool kRmsMode = MODE == kRms;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[2 * kFwdWarps];
   W* ws = reinterpret_cast<W*>(smem);
@@ -202,7 +241,7 @@ __global__ void __launch_bounds__(kFwdWarps * 32, 2) norm_fwd_kernel(
   const int chunks = h * static_cast<int>(sizeof(W)) / 16;
   for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
     reinterpret_cast<uint4*>(ws)[i] = reinterpret_cast<const uint4*>(w)[i];
-    if constexpr (!RMS)
+    if constexpr (!kRmsMode)
       reinterpret_cast<uint4*>(bs)[i] = reinterpret_cast<const uint4*>(b)[i];
   }
   __syncthreads();
@@ -213,14 +252,45 @@ __global__ void __launch_bounds__(kFwdWarps * 32, 2) norm_fwd_kernel(
   int slot = 0;
   for (int row = blockIdx.x * groups + grp; row < n;
        row += gridDim.x * groups) {
-    const T* xr = x + static_cast<size_t>(row) * h;
+    const size_t at = static_cast<size_t>(row) * h;
     float v[N][V];
     float s[1] = {0.f};
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       const int c = (k * wpr + sub) * 32 + lane;
       if (c < nvec) {
-        load_f32<V>(xr + c * V, v[k]);
+        load_f32<V>(x + at + c * V, v[k]);
+        if constexpr (MODE == kDropRes) {
+          float rv[V];
+          load_f32<V>(r + at + c * V, rv);
+          if (d.on) {
+            uint32_t kb[V];
+            if (bits) {
+#pragma unroll
+              for (int j = 0; j < V; j += 4) {
+                const uint4 u =
+                    *reinterpret_cast<const uint4*>(bits + at + c * V + j);
+                kb[j] = u.x;
+                kb[j + 1] = u.y;
+                kb[j + 2] = u.z;
+                kb[j + 3] = u.w;
+              }
+            } else {
+#pragma unroll
+              for (int j = 0; j < V; ++j)
+                kb[j] = counter_hash::element_bits(
+                    static_cast<uint32_t>(at + c * V + j), d.salt_col);
+            }
+#pragma unroll
+            for (int j = 0; j < V; ++j)
+              v[k][j] = kb[j] <= d.thresh ? __fdiv_rn(v[k][j], d.keep_div)
+                                          : 0.f;
+          }
+#pragma unroll
+          for (int j = 0; j < V; ++j) v[k][j] = __fadd_rn(v[k][j], rv[j]);
+          *reinterpret_cast<uint4*>(hout + at + c * V) =
+              pack(v[k], static_cast<T*>(nullptr));
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < V; ++j) v[k][j] = 0.f;
@@ -229,7 +299,7 @@ __global__ void __launch_bounds__(kFwdWarps * 32, 2) norm_fwd_kernel(
       for (int j = 0; j < V; ++j) s[0] += v[k][j];
     }
     float mu = 0.f;
-    if constexpr (!RMS) {
+    if constexpr (!kRmsMode) {
       group_sum(s, red + slot * kFwdWarps + grp * wpr, wpr, grp, sub, lane);
       slot ^= 1;
       mu = s[0] / h;
@@ -240,22 +310,22 @@ __global__ void __launch_bounds__(kFwdWarps * 32, 2) norm_fwd_kernel(
       if ((k * wpr + sub) * 32 + lane < nvec) {
 #pragma unroll
         for (int j = 0; j < V; ++j) {
-          const float d = v[k][j] - mu;
-          q[0] = fmaf(d, d, q[0]);
+          const float dl = v[k][j] - mu;
+          q[0] = fmaf(dl, dl, q[0]);
         }
       }
     }
     group_sum(q, red + slot * kFwdWarps + grp * wpr, wpr, grp, sub, lane);
     slot ^= 1;
     const float inv = 1.f / sqrtf(q[0] / h + eps);
-    T* orow = out + static_cast<size_t>(row) * h;
+    T* orow = out + at;
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       const int c = (k * wpr + sub) * 32 + lane;
       if (c >= nvec) continue;
       float wv[V], o[V];
       load_f32<V>(ws + c * V, wv);
-      if constexpr (RMS) {
+      if constexpr (kRmsMode) {
 #pragma unroll
         for (int j = 0; j < V; ++j) o[j] = v[k][j] * inv * wv[j];
       } else {
@@ -266,7 +336,7 @@ __global__ void __launch_bounds__(kFwdWarps * 32, 2) norm_fwd_kernel(
       }
       *reinterpret_cast<uint4*>(orow + c * V) = pack(o, static_cast<T*>(nullptr));
     }
-    if constexpr (!RMS) {
+    if constexpr (MODE == kLayer) {
       if (sub == 0 && lane == 0) {
         mean[row] = mu;
         rstd[row] = inv;
@@ -477,14 +547,16 @@ cudaError_t resident(K kernel, int threads, size_t smem, int device, int h,
   return cudaSuccess;
 }
 
-template <bool RMS, typename T, typename W, int N>
+template <int MODE, typename T, typename W, int N>
 cudaError_t launch_fwd(const void* x, const void* w, const void* b,
                        void* out, float* mean, float* rstd, int n, int h,
-                       int wpr, float eps, int device, cudaStream_t st) {
+                       int wpr, float eps, const Drop& d, int device,
+                       cudaStream_t st) {
   static int cache[8][kMaxH / 128 + 1];
-  auto kernel = norm_fwd_kernel<RMS, T, W, N>;
+  auto kernel = norm_fwd_kernel<MODE, T, W, N>;
   const int groups = kFwdWarps / wpr, threads = groups * wpr * 32;
-  const size_t smem = static_cast<size_t>(h) * sizeof(W) * (RMS ? 1 : 2);
+  const size_t smem =
+      static_cast<size_t>(h) * sizeof(W) * (MODE == kRms ? 1 : 2);
   int blocks = 0;
   cudaError_t err = resident(kernel, threads, smem, device, h, cache, &blocks);
   if (err != cudaSuccess) return err;
@@ -493,22 +565,24 @@ cudaError_t launch_fwd(const void* x, const void* w, const void* b,
   kernel<<<grid, threads, smem, st>>>(
       static_cast<const T*>(x), static_cast<const W*>(w),
       static_cast<const W*>(b), static_cast<T*>(out), mean, rstd, n, h, wpr,
-      eps);
+      eps, static_cast<const T*>(d.r), d.bits, static_cast<T*>(d.hout),
+      d.rule);
   return cudaGetLastError();
 }
 
 // The forward for x of T and weights of W: the instantiation of the
 // smallest vectors-a-lane count that holds the lane's part of the row.
-template <bool RMS, typename T, typename W>
+template <int MODE, typename T, typename W>
 cudaError_t dispatch_fwd(const void* x, const void* w, const void* b,
                          void* out, float* mean, float* rstd, int n, int h,
-                         float eps, int device, cudaStream_t st) {
+                         float eps, const Drop& d, int device,
+                         cudaStream_t st) {
   int wpr, nv;
   row_split<T>(h, kFwdVecs, &wpr, &nv);
 #define FWD_CASE(P)                                                        \
   if (nv <= P)                                                             \
-    return launch_fwd<RMS, T, W, P>(x, w, b, out, mean, rstd, n, h, wpr,   \
-                                    eps, device, st);
+    return launch_fwd<MODE, T, W, P>(x, w, b, out, mean, rstd, n, h, wpr,  \
+                                     eps, d, device, st);
   FWD_CASE(1)
   FWD_CASE(2)
   FWD_CASE(3)
@@ -519,28 +593,28 @@ cudaError_t dispatch_fwd(const void* x, const void* w, const void* b,
   return cudaErrorInvalidValue;
 }
 
-template <bool RMS>
+template <int MODE>
 int forward(const void* x, const void* w, const void* b, void* out,
             float* mean, float* rstd, int n, int h, float eps, int dtype,
-            int wdtype, int device, void* stream) {
+            int wdtype, const Drop& d, int device, void* stream) {
   if (n < 1 || h < 128 || h > kMaxH || h % 128 || !aligned16(x) ||
-      !aligned16(w) || !aligned16(out) || (!RMS && !aligned16(b)))
+      !aligned16(w) || !aligned16(out) || (MODE != kRms && !aligned16(b)))
+    return cudaErrorInvalidValue;
+  if (MODE == kDropRes && (!aligned16(d.r) || !aligned16(d.hout) ||
+                           (d.bits && !aligned16(d.bits))))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && wdtype == 0)
-    return dispatch_fwd<RMS, float, float>(x, w, b, out, mean, rstd, n, h,
-                                           eps, device, st);
-  if (dtype == 0 && wdtype == 1)
-    return dispatch_fwd<RMS, float, __nv_bfloat16>(x, w, b, out, mean, rstd,
-                                                   n, h, eps, device, st);
-  if (dtype == 1 && wdtype == 0)
-    return dispatch_fwd<RMS, __nv_bfloat16, float>(x, w, b, out, mean, rstd,
-                                                   n, h, eps, device, st);
-  if (dtype == 1 && wdtype == 1)
-    return dispatch_fwd<RMS, __nv_bfloat16, __nv_bfloat16>(
-        x, w, b, out, mean, rstd, n, h, eps, device, st);
+#define FWD_TYPES(C, WC, TT, WT)                                           \
+  if (dtype == C && wdtype == WC)                                          \
+    return dispatch_fwd<MODE, TT, WT>(x, w, b, out, mean, rstd, n, h, eps, \
+                                      d, device, st);
+  FWD_TYPES(0, 0, float, float)
+  FWD_TYPES(0, 1, float, __nv_bfloat16)
+  FWD_TYPES(1, 0, __nv_bfloat16, float)
+  FWD_TYPES(1, 1, __nv_bfloat16, __nv_bfloat16)
+#undef FWD_TYPES
   return cudaErrorInvalidValue;
 }
 
@@ -644,16 +718,37 @@ extern "C" int layer_norm_forward(const void* x, const void* w,
                                   float* rstd, int n, int h, float eps,
                                   int dtype, int wdtype, int device,
                                   void* stream) {
-  return forward<false>(x, w, b, out, mean, rstd, n, h, eps, dtype, wdtype,
-                        device, stream);
+  return forward<kLayer>(x, w, b, out, mean, rstd, n, h, eps, dtype, wdtype,
+                         Drop{}, device, stream);
 }
 
 // RMSNorm: the same codes, shapes and return value, no bias or statistics.
 extern "C" int rms_norm_forward(const void* x, const void* w, void* out,
                                 int n, int h, float eps, int dtype,
                                 int wdtype, int device, void* stream) {
-  return forward<true>(x, w, nullptr, out, nullptr, nullptr, n, h, eps,
-                       dtype, wdtype, device, stream);
+  return forward<kRms>(x, w, nullptr, out, nullptr, nullptr, n, h, eps,
+                       dtype, wdtype, Drop{}, device, stream);
+}
+
+// Dropout + residual + LayerNorm: out = LN(h) and h = dropout(x) + r, both
+// [n, h] in x's dtype, from x and r [n, h] (x's dtype) and w, b [h]; the
+// same codes and shapes as layer_norm_forward, r, hout and bits 16-byte
+// aligned too. bits: the caller's uint32 [n, h], or null for the hash of
+// `salt` (seed mod 2^31); p <= 0 skips the mask. Returns the cudaError_t of
+// the launch (0 = launched).
+extern "C" int dropout_res_ln_forward(const void* x, const void* r,
+                                      const void* w, const void* b,
+                                      const void* bits, void* out,
+                                      void* hout, int n, int h, float eps,
+                                      double p, unsigned int salt, int dtype,
+                                      int wdtype, int device, void* stream) {
+  const bool on = p > 0.0;
+  const Drop d{r, static_cast<const uint32_t*>(bits), hout,
+               DropRule{static_cast<float>(1.0 - p),
+                        on ? counter_hash::keep_thresh(p) : 0u,
+                        salt * counter_hash::kCol, on}};
+  return forward<kDropRes>(x, w, b, out, nullptr, nullptr, n, h, eps, dtype,
+                           wdtype, d, device, stream);
 }
 
 // The grid of LayerNorm's backward for [n, h] on `device` (the blocks

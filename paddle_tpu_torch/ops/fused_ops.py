@@ -18,9 +18,10 @@ kernel `csrc/adamw.cu` (the JAX `_adamw_kernel`), optionally through an
 f32 master copy and with a device clip scale; `_adamw_kernel_ref` is its
 plain version. `fused_adamw` is the JAX op's signature on top of it: it
 returns new tensors. `fused_dropout_residual_layer_norm` is
-LN(dropout(x) + residual) and the pre-LN sum, by the CUDA kernel
-`csrc/dropout_residual_layer_norm.cu` (the JAX `_dropout_res_ln_kernel`),
-with `_dropout_res_ln_kernel_ref` as its plain version.
+LN(dropout(x) + residual) and the pre-LN sum, by the dropout + residual
+mode of the norms' row walk in `csrc/layer_norm.cu` (the JAX
+`_dropout_res_ln_kernel`), with `_dropout_res_ln_kernel_ref` as its plain
+version.
 
 A wrapper takes the plain version only for tensors on the CPU; on CUDA
 tensors it launches the kernel or raises. `kernel_launches` /
@@ -35,7 +36,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .attention import _K_COL, _K_ROW, _hash32, _mul32
+from .dropout import _apply_keep, _hash_bits
+from .layer_norm import _aligned, _kernel_lib as _norm_lib
 
 __all__ = ["can_fuse_xent", "fused_softmax_cross_entropy", "adamw_update_",
            "adamw_update_multi", "adamw_capacity", "fused_adamw", "fused_dropout_residual_layer_norm",
@@ -401,24 +403,10 @@ def fused_adamw(p, g, m, v, step, lr, beta1=0.9, beta2=0.999, eps=1e-8,
 
 # ------------------------------------- dropout + residual + LayerNorm
 
-_M31 = (1 << 31) - 1
-
-
 def _keep_thresh(p):
     """The JAX kernel's keep threshold: keep iff bits <= int((1 - p) *
     (2^32 - 1))."""
     return int((1.0 - p) * (2 ** 32 - 1))
-
-
-def _hash_bits(seed, shape, device=None):
-    """The counter hash's 32 bits for each element of `shape` (int64
-    values in [0, 2^32)): h32((i * 0x9E3779B1) ^ (salt * 0x85EBCA77)) of
-    the flat index i, salt = seed mod 2^31, all mod 2^32 — the kernel's
-    own mask bits, and the bits `nn.functional._hash_keep` keeps by."""
-    n = int(np.prod(shape, dtype=np.int64))
-    idx = _mul32(torch.arange(n, dtype=torch.int64, device=device), _K_ROW)
-    salt = (int(seed) % (1 << 31) * _K_COL) & 0xFFFFFFFF
-    return _hash32(idx ^ salt).reshape(shape)
 
 
 def _bits_or_hash(bits, seed, shape, device):
@@ -430,14 +418,17 @@ def _bits_or_hash(bits, seed, shape, device):
 def _dropout_res_ln_kernel_ref(x, residual, weight, bias, p, eps, seed=0,
                                bits=None):
     """Plain version of the kernel: (out, h) in x's dtype, h = the masked
-    x / (1 - p) plus the residual and the LayerNorm over it, all in f32
-    (mean, then mean((h - mean)^2)). `bits` (uint32 or int [n, h]) are
-    the mask's bits; without them the kernel's hash of `seed`."""
+    x / f32(1 - p) plus the residual and the LayerNorm over it, all in
+    f32 (mean, then mean((h - mean)^2)). `bits` (uint32 or int [n, h])
+    are the mask's bits; without them the kernel's hash of `seed`."""
     xv = x.float()
     if p > 0:
         keep = _bits_or_hash(bits, seed, x.shape, x.device) <= \
             _keep_thresh(p)
-        xv = torch.where(keep, xv / np.float32(1.0 - p), 0.0)
+        # a divisor tensor, as the kernel divides (a Python number would
+        # be a multiply by its reciprocal on the card)
+        div = torch.full((), np.float32(1.0 - p), device=x.device)
+        xv = torch.where(keep, xv / div, 0.0)
     hv = xv + residual.float()
     mean = hv.mean(-1, keepdim=True)
     var = (hv - mean).square().mean(-1, keepdim=True)
@@ -449,14 +440,14 @@ def _dropout_res_ln_kernel_ref(x, residual, weight, bias, p, eps, seed=0,
 def _dropout_res_ln_ref(x, residual, weight, bias, p, eps, seed=0,
                         bits=None):
     """The JAX `_dropout_res_ln_ref`'s arithmetic (widths off the 128
-    grid): dropout and the sum in x's dtype, the LayerNorm in f32. Its
-    mask is the kernel's (host bits or the hash): the JAX ref draws a
-    threefry bernoulli that the port does not reproduce."""
+    grid): dropout and the sum in x's dtype (a kept x is c(f32(x) /
+    f32(c(1 - p))), c() a cast to x's dtype, as F.dropout), the LayerNorm
+    in f32. Its mask is the kernel's (host bits or the hash): the JAX ref
+    draws a threefry bernoulli that the port does not reproduce."""
     if p > 0:
         keep = _bits_or_hash(bits, seed, x.shape, x.device) <= \
             _keep_thresh(p)
-        x = torch.where(keep, x / (1.0 - p),
-                        torch.zeros((), dtype=x.dtype, device=x.device))
+        x = _apply_keep(x, keep, p, True)
     hv = x + residual
     h32 = hv.float()
     mean = h32.mean(-1, keepdim=True)
@@ -464,24 +455,6 @@ def _dropout_res_ln_ref(x, residual, weight, bias, p, eps, seed=0,
     out = (h32 - mean) * torch.rsqrt(var + eps) * weight.float() \
         + bias.float()
     return out.to(x.dtype), hv
-
-
-_drln_lib = None
-
-
-def _drln_kernel_lib():
-    global _drln_lib
-    if _drln_lib is None:
-        lib = _build.load("dropout_residual_layer_norm")
-        lib.dropout_res_ln_forward.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_float]
-            + [ctypes.c_int, ctypes.c_float, ctypes.c_uint, ctypes.c_uint]
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.dropout_res_ln_forward.restype = ctypes.c_int
-        lib.dropout_res_ln_error_string.argtypes = [ctypes.c_int]
-        lib.dropout_res_ln_error_string.restype = ctypes.c_char_p
-        _drln_lib = lib
-    return _drln_lib
 
 
 def _drln_launch(x, residual, weight, bias, p, eps, seed, bits):
@@ -512,19 +485,21 @@ def _drln_launch(x, residual, weight, bias, p, eps, seed, bits):
     if h > 8192:
         raise ValueError(f"dropout_residual_layer_norm kernel takes width "
                          f"<= 8192, got {h}")
+    x, residual, weight, bias = (_aligned(t) for t in
+                                 (x, residual, weight, bias))
+    bits = None if bits is None else _aligned(bits)
     out, hv = torch.empty_like(x), torch.empty_like(x)
-    lib = _drln_kernel_lib()
+    lib = _norm_lib()
     rc = lib.dropout_res_ln_forward(
         x.data_ptr(), residual.data_ptr(), weight.data_ptr(),
         bias.data_ptr(), None if bits is None else bits.data_ptr(),
-        out.data_ptr(), hv.data_ptr(), n, h, float(eps), int(p > 0),
-        float(np.float32(1.0 - p)), _keep_thresh(p) if p > 0 else 0,
+        out.data_ptr(), hv.data_ptr(), n, h, float(eps), float(p),
         int(seed) % (1 << 31), _CODES[x.dtype], _CODES[weight.dtype],
         *_stream(x))
     if rc:
         raise RuntimeError(
             "dropout_residual_layer_norm kernel launch failed: "
-            f"{lib.dropout_res_ln_error_string(rc).decode()} ({rc})")
+            f"{lib.layer_norm_error_string(rc).decode()} ({rc})")
     drln_kernel_launches += 1
     return out, hv
 
@@ -562,7 +537,7 @@ def fused_dropout_residual_layer_norm(x, residual, weight=None, bias=None,
     Weight and bias default to ones and zeros; `p` counts only in
     training. The mask keeps an element iff its 32 bits are <= int((1 -
     p) * (2^32 - 1)); the bits are the counter hash of the flat index
-    and `seed` (see `csrc/dropout_residual_layer_norm.cu`). `_host_bits`
+    and `seed` (see `csrc/layer_norm.cu`). `_host_bits`
     (uint32/int32 [n, h]) replaces them: the JAX interpret-mode
     contract, for parity tests."""
     if x.dim() != 2:

@@ -156,6 +156,12 @@ def _kernel_lib():
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.rms_norm_forward.restype = ctypes.c_int
+        # the dropout + residual + LayerNorm mode (ops/fused_ops.py)
+        lib.dropout_res_ln_forward.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+            + [ctypes.c_float, ctypes.c_double, ctypes.c_uint]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.dropout_res_ln_forward.restype = ctypes.c_int
         lib.layer_norm_error_string.argtypes = [ctypes.c_int]
         lib.layer_norm_error_string.restype = ctypes.c_char_p
         _lib = lib

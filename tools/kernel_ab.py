@@ -1,7 +1,7 @@
 """Times the block-sparse attention kernel, the single-tensor AdamW
-update and the LayerNorm / RMSNorm kernels of several checkouts of the
-port on one card, in one call, on the same inputs, so that two versions
-are compared within one run.
+update, the LayerNorm / RMSNorm kernels and the dropout kernels of
+several checkouts of the port on one card, in one call, on the same
+inputs, so that two versions are compared within one run.
 
 The inputs are chip_smoke.py's timing inputs, drawn by its own helpers
 from the same seeds: block-sparse at B 4 x 16 x 4096 x 128 bf16, bs 128,
@@ -15,14 +15,20 @@ takes in that tree (its kernel where the tree has one, else autograd of
 forward and backward through the entry point together, and the RMSNorm
 forward; beside them the library calls (`F.layer_norm`, aten's
 `native_layer_norm_backward`, the two through autograd, `F.rms_norm`),
-which no tree calls. A tree is a directory holding a
+which no tree calls. The dropout group times F.dropout at BERT's
+[16384, 768] bf16, p 0.1, through the entry point (forward alone, and
+forward and backward: the hash dropout kernel where the tree has one,
+else the eager int64 chain and autograd of its `where`), and the dropout
++ residual + LayerNorm op's launch (`fused_ops._drln_launch`) at GPT's
+and BERT's rows with the in-kernel hash and at BERT's with the caller's
+bits, on chip_smoke.py's timing inputs. A tree is a directory holding a
 `paddle_tpu_torch/` package (the repo root, or an unpacked `git archive`
 of another commit). Each tree is timed in a process of its own that
 imports the package from that tree, so its kernels are built from its own
 sources into its own `_build/`; the builds of all trees run first, side
 by side. List a tree more than once (A B B A) to bracket drift.
 
-    python3 tools/kernel_ab.py [--out FILE] [--kernels bsa,adamw,norm] TREE ...
+    python3 tools/kernel_ab.py [--out FILE] [--kernels bsa,adamw,norm,dropout] TREE ...
 
 Prints one JSON line per run (CUDA-event ms of eager calls, as
 chip_smoke.py times them, and CUDA-graph device ms; a norm entry is
@@ -36,8 +42,11 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-GROUPS = {"bsa": "block_sparse_attention", "adamw": "adamw",
-          "norm": "layer_norm"}
+# the kernel sources each group builds, where the tree has them
+GROUPS = {"bsa": ("block_sparse_attention",), "adamw": ("adamw",),
+          "norm": ("layer_norm",),
+          "dropout": ("hash_dropout", "layer_norm",
+                      "dropout_residual_layer_norm")}
 
 
 def _import_tree(tree):
@@ -51,7 +60,8 @@ def _import_tree(tree):
 def build(tree, groups):
     _import_tree(tree)
     from paddle_tpu_torch.ops import _build
-    return _build.build_all([GROUPS[g] for g in groups])
+    return _build.build_all([n for g in groups for n in GROUPS[g]
+                             if (_build.CSRC / f"{n}.cu").exists()])
 
 
 def time_tree(tree, groups):
@@ -64,6 +74,8 @@ def time_tree(tree, groups):
         _time_adamw(row)
     if "norm" in groups:
         _time_norms(row)
+    if "dropout" in groups:
+        _time_dropout(row)
     return row
 
 
@@ -171,6 +183,50 @@ def _time_norms(row):
                                        S.cuda_graph_ms(fn, iters)]
         del x, g, xg, lmean, lrstd, runs
         torch.cuda.empty_cache()
+
+
+def _time_dropout(row):
+    import torch
+
+    import chip_smoke as S
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import fused_ops as X
+    gen = torch.Generator(device="cuda").manual_seed(S.SEED + 26)
+    shape, p = (S.BB * S.BL, S.BHID), S.BERT_RATE
+    x, g = S._rand(gen, shape, S._BF16), S._rand(gen, shape, S._BF16)
+    xg = x.detach().requires_grad_()
+
+    def fwd(i=0):
+        with torch.no_grad():
+            return F.dropout(x, p)
+
+    def fwd_bwd(i=0):
+        with torch.enable_grad():
+            return torch.autograd.grad(F.dropout(xg, p), xg, g)
+
+    runs = {f"dropout_fwd[{shape[0]}x{shape[1]}]": (fwd, 20),
+            f"dropout_fwd_bwd[{shape[0]}x{shape[1]}]": (fwd_bwd, 20)}
+    # phase_slice5_kernel_timing's inputs, drawn in its order
+    gen = torch.Generator(device="cuda").manual_seed(S.SEED + 21)
+    S._adamw_tensors(gen, S._BF16, S._BF16, S._BF16, False, True)
+    for n, h in S.NORM_SHAPES:
+        xd = S._rand(gen, (n, h), S._BF16, 2.0)
+        wd, bd = S._rand(gen, (h,), S._BF16), S._rand(gen, (h,), S._BF16)
+        rd = S._rand(gen, (n, h), S._BF16)
+        runs[f"drln_hash[{n}x{h}]"] = (
+            lambda i=0, a=(xd, rd, wd, bd): X._drln_launch(
+                *a, S.DRLN_RATE, 1e-5, S.DRLN_SEED, None), 20)
+    n, h = S.NORM_SHAPES[1]
+    bits = torch.zeros((n, h), dtype=torch.int32, device="cuda")
+    xd, rd = (S._rand(gen, (n, h), S._BF16) for _ in range(2))
+    wd, bd = (S._rand(gen, (h,), S._BF16) for _ in range(2))
+    runs[f"drln_bits[{n}x{h}]"] = (
+        lambda i=0: X._drln_launch(xd, rd, wd, bd, S.DRLN_RATE, 1e-5, 0,
+                                   bits), 20)
+    for name, (fn, iters) in runs.items():
+        row[name] = [S.cuda_ms(fn, iters), S.cuda_graph_ms(fn, iters)]
+    del runs
+    torch.cuda.empty_cache()
 
 
 def main():
