@@ -77,7 +77,14 @@ bits within LN_BWD_FLIP of the plain version's, two launches bit-equal,
 and a control with one rounding point moved rejected; they are timed
 eagerly and as device time beside F.layer_norm, aten's LayerNorm backward
 and F.rms_norm; the training phases require every LayerNorm backward of a
-step to take the kernel. Every phase raises on failure. The output
+step to take the kernel. ResNet-50 (bench.py's run_resnet50: NHWC,
+bf16, Momentum, batch 128 x 224 x 224, random weights from seed 0; no
+kernel of the port on its path) trains for 2 warm-up and 8 timed steps
+with finite losses and every BatchNorm buffer moved, one step is
+profiled by family (cuDNN convolutions, batch norm, pooling, residual add
++ ReLU, the optimizer), and resnet18 in f32 (TF32 off) is held against
+the port's CPU run, with max-pool tie gradients and the bf16 running
+statistics' update bit-equal. Every phase raises on failure. The output
 is one line per phase, then one JSON line with the kernels' numbers, the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the package next
@@ -4057,6 +4064,245 @@ TRAIN_KERNELS = {   # name: (source, TPU kernel it replaces)
 NORM_KERNELS = ("layer_norm", "layer_norm_bwd")
 
 
+# ---------------------------------------------------------------- phase 12
+
+# ResNet-50 (bench.py's run_resnet50, the BASELINE imgs/s metric):
+# resnet50(num_classes 1000, NHWC) in bf16, training mode,
+# Momentum(0.1, 0.9, weight_decay 1e-4), F.cross_entropy, batch 128 x
+# 224 x 224 x 3 f32 images and labels from seed 0; 2 warm-up and 8 timed
+# steps. MFU: bench.py's count, 3 x 8.2 GFLOP an image (4.09e9 MACs
+# forward), over the H100's dense bf16 peak. No kernel of the port lies
+# on this path (the JAX package's conv, batch norm and pooling are XLA
+# code): convolutions are cuDNN's, the rest eager PyTorch.
+RB, RS, RC = 128, 224, 1000
+RESNET_FWD_FLOPS = 8.2e9
+
+
+def _resnet_trainer(model, lr=0.1, weight_decay=1e-4):
+    from paddle_tpu_torch.distributed import Trainer
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    opt = Momentum(learning_rate=lr, momentum=0.9, weight_decay=weight_decay)
+    return Trainer(model, opt,
+                   lambda m, b: F.cross_entropy(m(b["image"]), b["label"]),
+                   device=next(model.parameters()).device)
+
+
+def _resnet_batch(B, S, classes, seed=SEED):
+    rng = np.random.RandomState(seed)
+    return {"image": rng.randn(B, S, S, 3).astype("float32"),
+            "label": rng.randint(0, classes, (B,)).astype("int64")}
+
+
+def phase_resnet_training(smi):
+    from paddle_tpu_torch.distributed import LossBuffer
+    from paddle_tpu_torch.vision.models import resnet50
+    t0 = time.perf_counter()
+    model = resnet50(num_classes=RC, data_format="NHWC", seed=SEED)
+    model.bfloat16().train()
+    trainer = _resnet_trainer(model)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _resnet_batch(RB, RS, RC).items()}
+    start = {k: b.clone() for k, b in model.named_buffers()}
+    buf = LossBuffer(drain_every=TRAIN_WARMUP + TRAIN_STEPS)
+    for _ in range(TRAIN_WARMUP):
+        buf.append(trainer.step(batch))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        buf.append(trainer.step(batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = buf.losses
+    if len(losses) != TRAIN_WARMUP + TRAIN_STEPS or buf.fetches != 1:
+        raise AssertionError(f"losses fetched {buf.fetches} times: {losses}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"resnet50 losses not finite: {losses}")
+    still = [k for k, b in model.named_buffers()
+             if torch.equal(b, start[k])]
+    if still or len(start) != 106:
+        raise AssertionError(f"BatchNorm buffers that did not move: {still} "
+                             f"(of {len(start)})")
+    if any(b.dtype != torch.bfloat16 for b in model.buffers()):
+        raise AssertionError("a bf16 model's buffers are not bf16")
+    step_ms = wall / TRAIN_STEPS * 1e3
+    imgs_s = RB / (step_ms / 1e3)
+    mfu = 3 * RESNET_FWD_FLOPS * imgs_s / H100_BF16_FLOPS
+    log("resnet_train", model="resnet50", layout="NHWC", dtype="bfloat16",
+        params_M=f"{n_params / 1e6:.3f}", batch=f"{RB}x{RS}x{RS}x3",
+        optimizer="Momentum(0.1, 0.9, wd 1e-4)", gpu=repr(smi),
+        setup_s=f"{setup_s:.2f}", steps=TRAIN_STEPS,
+        step_ms=f"{step_ms:.2f}", imgs_per_s=f"{imgs_s:.2f}",
+        mfu=f"{mfu:.4f}",
+        peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        losses=[round(x, 5) for x in losses],
+        bn_buffers_moved=f"{len(start) - len(still)}/{len(start)}")
+    return trainer, batch
+
+
+# profile families of a ResNet step: a CPU op's own device kernels go to
+# the family of its nearest enclosing match (named ranges of the port's
+# functionals, the optimizer's range, autograd's backward nodes)
+_RESNET_FAMILIES = (
+    ("optimizer", ("resnet_optimizer",)),
+    ("batch_norm", ("batch_norm", "_BatchStatsNorm")),
+    ("pooling", ("pooling", "MaxPool2DWithIndicesBackward")),
+    ("residual_add_relu", ("residual_add_relu", "ReluBackward",
+                           "ThresholdBackward")),
+    ("conv", ("convolution", "Convolution")))
+
+
+def _resnet_family(ev):
+    e = ev
+    while e is not None:
+        for fam, keys in _RESNET_FAMILIES:
+            if any(k in e.name for k in keys):
+                return fam
+        e = e.cpu_parent
+    return "other"
+
+
+def phase_resnet_profile(trainer, batch):
+    """Where one ResNet-50 step's device time goes, by family: cuDNN
+    convolutions (forward and both backward products), batch norm (its
+    eager chain with the JAX rounding points, forward and backward, the
+    affine's backward aside), pooling, the residual add + ReLU (forward,
+    and ReLU's backward), the Momentum update, and the other elementwise
+    ops (casts, the affine's and the add's backward, the loss); the busy
+    share (device time over the step's wall time); the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, grads = trainer._loss_and_grads(batch)
+        with torch.profiler.record_function("resnet_optimizer"):
+            trainer.optimizer.apply_gradients(trainer.params, grads)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fam = dict.fromkeys([f for f, _ in _RESNET_FAMILIES] + ["other"], 0.0)
+    launches = dict.fromkeys(fam, 0)
+    total, kernels = 0.0, {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for kern in getattr(ev, "kernels", []):
+            f = _resnet_family(ev)
+            fam[f] += kern.duration
+            launches[f] += 1
+            total += kern.duration
+            kernels[kern.name] = kernels.get(kern.name, 0.0) + kern.duration
+    if total <= 0:
+        raise AssertionError("the profiler saw no device kernels in a "
+                             "resnet50 step")
+    log("resnet_profile", wall_ms=f"{wall * 1e3:.2f}",
+        device_ms=f"{total / 1e3:.2f}",
+        device_busy_share=f"{total / 1e6 / wall:.3f}",
+        **{f"{k}_ms": f"{v / 1e3:.2f}" for k, v in fam.items()},
+        **{f"{k}_launches": v for k, v in launches.items()})
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+        log("resnet_profile_top", kernel=repr(name[:90]),
+            ms=f"{us / 1e3:.3f}")
+
+
+# ResNet-18, f32, TF32 off (the port's get_device sets it), card against
+# the port's CPU run on the same weights (seed 0), NHWC:
+#  * eval mode at 2 x 32 x 32: logits and every gradient within
+#    RESNET_EVAL_TOL of (1 + magnitude): the same f32 math, cuDNN's and
+#    the CPU's sums in other orders (the CPU tests hold the CPU run within
+#    1e-5 of the JAX package);
+#  * 2 steps of Trainer + Momentum(0.01, 0.9, wd 1e-4) in training mode at
+#    4 x 64 x 64: losses within 1e-4, buffers and parameters within
+#    RESNET_TRAIN_TOL (1e-3, a tenth of lr: batch statistics over few
+#    values make the f32 gradients ill-conditioned, a few % apart between
+#    two f32 evaluations on some parameters; tests/test_torch_resnet.py);
+#  * max pooling on tie windows (a post-ReLU map) and the bf16 running
+#    statistics' update on exact statistics: bit-equal to the CPU.
+RESNET_EVAL_TOL, RESNET_TRAIN_TOL = 1e-4, 1e-3
+
+
+def _close_rel(got, want, tol):
+    err = float((got.double() - want.double()).abs().max())
+    return err, err <= tol * (1 + float(want.double().abs().max()))
+
+
+def phase_resnet_small_reference():
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision.models import resnet18
+    state = resnet18(num_classes=10, data_format="NHWC", device="cpu",
+                     seed=SEED).state_dict()
+    eval_b = _resnet_batch(2, 32, 10, seed=SEED + 1)
+    train_b = _resnet_batch(4, 64, 10, seed=SEED + 2)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        m = resnet18(num_classes=10, data_format="NHWC", device=device)
+        m.load_state_dict(state)
+        m.eval()
+        x = torch.from_numpy(eval_b["image"]).to(device)
+        logits = m(x)
+        F.cross_entropy(logits, torch.from_numpy(eval_b["label"])
+                        .to(device)).backward()
+        grads = {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
+        m.train()
+        tr = _resnet_trainer(m, lr=0.01)
+        b = {k: torch.from_numpy(v).to(device) for k, v in train_b.items()}
+        losses = [float(tr.step(b)) for _ in range(2)]
+        runs[device] = (logits.detach().cpu(), grads, losses,
+                        {k: v.detach().cpu() for k, v in
+                         m.state_dict().items()})
+    (lc, gc, tc, sc), (lh, gh, th, sh) = runs["cuda"], runs["cpu"]
+    checks = [("logits", *_close_rel(lc, lh, RESNET_EVAL_TOL))]
+    checks += [(f"grad {k}", *_close_rel(gc[k], gh[k], RESNET_EVAL_TOL))
+               for k in gh]
+    checks += [(f"state {k}", *_close_rel(sc[k], sh[k], RESNET_TRAIN_TOL))
+               for k in sh]
+    loss_err = max(abs(a - b) for a, b in zip(tc, th))
+    checks.append(("train losses", loss_err, loss_err <= 1e-4))
+    # tie windows: zeros and a few values, as after a ReLU
+    rng = np.random.RandomState(SEED + 3)
+    ties = np.maximum(rng.randint(-3, 2, (2, 56, 56, 64)), 0).astype(
+        "float32")
+    g = rng.randn(2, 28, 28, 64).astype("float32")
+    pool = []
+    for device in ("cuda", "cpu"):
+        x = torch.from_numpy(ties).to(device).requires_grad_()
+        out = F.max_pool2d(x, 3, 2, 1, data_format="NHWC")
+        out.backward(torch.from_numpy(g).to(device))
+        pool.append((out.detach().cpu(), x.grad.cpu()))
+    pool_equal = all(torch.equal(a, b) for a, b in zip(*pool))
+    # bf16 running statistics from exact batch statistics (multiples of
+    # 1/16 over 32 values a channel): the update's bits alone
+    xb = torch.from_numpy(rng.randint(-8, 9, (2, 4, 4, 4096)) / 16.0)
+    rm0 = torch.from_numpy(rng.randn(4096)).bfloat16()
+    bufs = []
+    for device in ("cuda", "cpu"):
+        rm = rm0.to(device)
+        rv = torch.ones(4096, dtype=torch.bfloat16).to(device)
+        F.batch_norm(xb.bfloat16().to(device), rm, rv, training=True,
+                     data_format="NHWC")
+        bufs.append((rm.cpu(), rv.cpu()))
+    bn_equal = all(_bits_equal(a, b) for a, b in zip(*bufs))
+    worst = max(checks, key=lambda c: c[1])
+    bad = [c[0] for c in checks if not c[2]]
+    if bad or not pool_equal or not bn_equal:
+        raise AssertionError(f"resnet18 card vs CPU: failed {bad[:8]}, "
+                             f"max-pool ties equal {pool_equal}, bf16 "
+                             f"running stats equal {bn_equal}")
+    log("resnet_small_ref", model="resnet18 f32 NHWC",
+        eval_batch="2x32x32", train_batch="4x64x64", steps=2,
+        losses_card=[round(x, 6) for x in tc],
+        train_loss_max_abs_err=f"{loss_err:.3e}",
+        worst=repr(worst[0]), worst_abs_err=f"{worst[1]:.3e}",
+        eval_tolerance=RESNET_EVAL_TOL, train_tolerance=RESNET_TRAIN_TOL,
+        maxpool_ties_bit_equal=pool_equal,
+        bf16_running_stats_bit_equal=bn_equal,
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4134,6 +4380,11 @@ def main():
     del batch
     torch.cuda.empty_cache()
     phase_bert_small_reference()
+    trainer, batch = phase_resnet_training(smi)
+    phase_resnet_profile(trainer, batch)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    phase_resnet_small_reference()
     log("done", total_s=f"{time.perf_counter() - t_start:.1f}")
     serve_launches = {"bf16": launches["kernel"],
                       "int8": quant_launches["int8"]["ragged_paged_attention"],

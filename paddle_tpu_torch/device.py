@@ -18,10 +18,11 @@ def cuda_available():
 
 def get_device(device=None):
     """Resolve `device` to a `torch.device`: None means "cuda". A CUDA
-    device without CUDA raises. On CUDA, float32 matmuls are pinned to
-    full float32 (TF32 off): the serving path's f32 logits
-    (`x.float() @ lm_head`) and every f32 comparison against the JAX
-    reference assume it."""
+    device without CUDA raises. On CUDA, float32 matmuls and cuDNN
+    convolutions are pinned to full float32 (TF32 off; cuDNN's default
+    is on): the serving path's f32 logits (`x.float() @ lm_head`), f32
+    ResNets and every f32 comparison against the JAX reference assume
+    it."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -29,4 +30,5 @@ def get_device(device=None):
                 "CUDA is not available: pass device='cpu' to run on the "
                 "CPU explicitly")
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     return dev

@@ -8,6 +8,13 @@ such losses and fetches them in one sync. With `grad_accum_steps=N` the
 batch is split into N micro-batches along its first axis; their
 gradients are summed in f32 and averaged before the one update, and the
 loss is the mean of theirs (the JAX gradient merge).
+
+Buffers a forward updates in place (BatchNorm's running statistics) are
+carried across steps as the JAX `Trainer` carries its buffer updates:
+with one micro-batch, the step's forward updates them once; with N,
+every micro-batch's forward starts from the buffers the step began with,
+and the step ends with the update of the last micro-batch (the JAX
+trainer keeps the last of its scan's updates).
 """
 import numpy as np
 import torch
@@ -93,8 +100,14 @@ class Trainer:
                    for c, v in zip(micro.values(), batch.values())):
                 raise ValueError(f"batch does not split into {n} equal "
                                  "micro-batches")
+            bufs = list(self.model.buffers())
+            start = [b.clone() for b in bufs]
             loss, grads = 0.0, None
             for i in range(n):
+                if i:
+                    with torch.no_grad():
+                        for b, b0 in zip(bufs, start):
+                            b.copy_(b0)
                 lv, g = self._loss_and_grads(
                     {k: c[i] for k, c in micro.items()})
                 loss = loss + lv

@@ -2,11 +2,14 @@
 
 `state_dict_from_numpy` takes the dict `{name: numpy array}` exactly as
 the JAX package hands out a model's state
-(`{k: np.asarray(v._value) for k, v in model.state_dict().items()}`)
-and returns torch tensors under the same names, so the same weights
-compute the same thing in both packages: a port `GPT` takes them with
+(`{k: np.asarray(v._value) for k, v in model.state_dict().items()}`:
+parameters and persistable buffers, such as BatchNorm's `_mean` and
+`_variance`) and returns torch tensors under the same names, so the same
+weights compute the same thing in both packages: a port `GPT`, BERT or
+`ResNet` takes them with
 `model.load_state_dict(state_dict_from_numpy(np_state))`, each cast to
-its parameter's dtype.
+its parameter's or buffer's dtype (f32 or bf16, numpy's bfloat16
+exactly).
 """
 import numpy as np
 import torch

@@ -1,13 +1,21 @@
-"""Layers, functionals, initializers and gradient clipping of the GPT
-and BERT training paths (counterpart of `paddle_tpu/nn`)."""
-from . import functional, initializer
+"""Layers, functionals, initializers, layouts and gradient clipping of
+the GPT, BERT and ResNet training paths (counterpart of
+`paddle_tpu/nn`)."""
+from . import functional, initializer, layout
 from .clip import ClipGradByGlobalNorm
-from .initializer import Constant, Normal, XavierUniform
-from .layer import Dropout, Embedding, LayerList, LayerNorm, Linear, RMSNorm
+from .initializer import (Constant, KaimingUniform, Normal, Uniform,
+                          XavierUniform)
+from .layer import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout,
+                    Embedding, LayerList, LayerNorm, Linear, MaxPool2D,
+                    ReLU, RMSNorm, Sequential)
+from .layout import set_channels_last
 from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
 
-__all__ = ["functional", "initializer", "ClipGradByGlobalNorm", "Constant",
-           "Normal", "XavierUniform", "Dropout", "Embedding", "LayerList",
-           "LayerNorm", "Linear", "MultiHeadAttention", "RMSNorm",
-           "TransformerEncoder", "TransformerEncoderLayer"]
+__all__ = ["functional", "initializer", "layout", "ClipGradByGlobalNorm",
+           "Constant", "KaimingUniform", "Normal", "Uniform",
+           "XavierUniform", "AdaptiveAvgPool2D", "BatchNorm2D", "Conv2D",
+           "Dropout", "Embedding", "LayerList", "LayerNorm", "Linear",
+           "MaxPool2D", "MultiHeadAttention", "ReLU", "RMSNorm",
+           "Sequential", "TransformerEncoder", "TransformerEncoderLayer",
+           "set_channels_last"]

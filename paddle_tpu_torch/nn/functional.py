@@ -1,11 +1,18 @@
-"""Functionals of the GPT and BERT training paths and of sparse
+"""Functionals of the GPT, BERT and ResNet training paths and of sparse
 attention (counterparts of `paddle_tpu/nn/functional`): Paddle's
 signatures and layouts, PyTorch inside. `layer_norm`, `rms_norm`,
 `scaled_dot_product_attention` and `sparse_attention` route to the
 port's kernels by the JAX package's own rules; `dropout` draws its mask
 from the JAX package's counter hash and scales as it does, bit for bit,
-through the hash dropout kernel (`ops/dropout.py`)."""
+through the hash dropout kernel (`ops/dropout.py`). `conv2d`,
+`batch_norm`, `max_pool2d` and `adaptive_avg_pool2d` (ResNet's; XLA code
+in the JAX package, no Pallas kernel) take NCHW or NHWC tensors and
+return the layout they were given: an NHWC tensor runs through PyTorch
+as its NCHW permutation, a `channels_last` tensor, with no copy.
+Scalars enter low-precision arithmetic rounded to the tensor's dtype
+first, as JAX's weakly typed Python scalars do (`_weak`)."""
 import functools
+import math
 
 import numpy as np
 import torch
@@ -16,10 +23,22 @@ from ..ops import dropout as _drop
 from ..ops.attention import (_next_seed, flash_attention,
                              flash_attention_available, mha_reference)
 from ..ops.layer_norm import fused_layer_norm, fused_rms_norm
+from .layout import resolve_data_format
 
-__all__ = ["linear", "embedding", "gelu", "tanh", "relu", "dropout",
-           "layer_norm", "rms_norm", "scaled_dot_product_attention",
-           "sparse_attention", "cross_entropy"]
+__all__ = ["amp_compute_cast", "linear", "embedding", "gelu", "tanh",
+           "relu", "dropout", "layer_norm", "rms_norm",
+           "scaled_dot_product_attention", "sparse_attention",
+           "cross_entropy", "conv2d", "batch_norm", "max_pool2d",
+           "adaptive_avg_pool2d"]
+
+
+def amp_compute_cast(x, w):
+    """The JAX AMP rule shared by linear and conv: a bf16/fp16 weight
+    casts an f32 x down to its dtype; any other pair is left as it is."""
+    if w.dtype in (torch.bfloat16, torch.float16) and \
+            x.dtype == torch.float32:
+        return x.to(w.dtype)
+    return x
 
 
 def linear(x, weight, bias=None, name=None):
@@ -28,9 +47,7 @@ def linear(x, weight, bias=None, name=None):
     `amp_compute_cast`); any other mix of dtypes promotes, as `v @ w`
     does in JAX (a bf16 x and an f32 weight give f32), and the bias is
     added in the output's dtype."""
-    if weight.dtype in (torch.bfloat16, torch.float16) and \
-            x.dtype == torch.float32:
-        x = x.to(weight.dtype)
+    x = amp_compute_cast(x, weight)
     dtype = torch.promote_types(x.dtype, weight.dtype)
     return TF.linear(x.to(dtype), weight.t().to(dtype),
                      None if bias is None else bias.to(dtype))
@@ -230,3 +247,267 @@ def cross_entropy(input, label, weight=None, ignore_index=-100):
     loss = -logp.gather(-1, safe[..., None])[..., 0]
     loss = torch.where(valid, loss, 0.0)
     return loss.sum() / valid.sum().float().clamp_min(1.0)
+
+
+def _weak(value, dtype):
+    """A Python scalar as JAX's weak typing makes it beside a tensor of
+    `dtype`: rounded to that dtype (bf16(0.9) = 0.8984375), handed back
+    as a Python float. Exact in the f32 arithmetic PyTorch then does, so
+    `t * _weak(c, t.dtype)` rounds where JAX's `c * t` does."""
+    if not dtype.is_floating_point:
+        return value
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def _ntuple(v, n):
+    """The JAX `_tuple` (conv's and pooling's): an int repeated, a list
+    of n, or its first entry repeated."""
+    if isinstance(v, (list, tuple)):
+        return (tuple(int(x) for x in v) if len(v) == n
+                else tuple(int(v[0]) for _ in range(n)))
+    return (int(v),) * n
+
+
+def _same_pads(size, k, s, d=1):
+    """`lax.padtype_to_pads` "SAME" for one dim: out = ceil(size / s),
+    the total pad split low-first (the extra one on the high side)."""
+    eff = d * (k - 1) + 1
+    total = max((-(-size // s) - 1) * s + eff - size, 0)
+    return total // 2, total - total // 2
+
+
+def _spatial_pads(pad, size, k, s, d):
+    """[(lo, hi)] per spatial dim from a resolved padding (a list of
+    pairs, "SAME" or "VALID")."""
+    if pad == "SAME":
+        return [_same_pads(*a) for a in zip(size, k, s, d)]
+    if pad == "VALID":
+        return [(0, 0)] * len(size)
+    if isinstance(pad, str):
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {pad!r}")
+    return list(pad)
+
+
+def _symmetric(pads):
+    """The per-dim pad PyTorch's own `padding=` takes, or None where a pad
+    is uneven or negative (then the caller pads explicitly)."""
+    if all(lo == hi and lo >= 0 for lo, hi in pads):
+        return [lo for lo, _ in pads]
+    return None
+
+
+def _explicit_pad(v, pads, value=0.0):
+    """`v` [N, C, H, W] padded by [(lo, hi)] per spatial dim (negative
+    pads crop, as in lax)."""
+    flat = []
+    for lo, hi in reversed(pads):
+        flat += [lo, hi]
+    return TF.pad(v, flat, value=value)
+
+
+def _padding(padding, n):
+    """The JAX `_padding` (conv's; pooling's `_pads` is the same without
+    the nested form): a string upper-cased; n values; 2n values (lo, hi
+    per dim); the nested form [[lo, hi], ...], with or without the batch
+    and channel dims' pairs; an int. (The JAX functions test the lengths
+    n and 2n first, so for 2-D the nested forms, 2 or 4 pairs, raise
+    TypeError there; the port reads them as pairs.)"""
+    if isinstance(padding, str):
+        return padding.upper()
+    if isinstance(padding, (list, tuple)):
+        nested = any(isinstance(p, (list, tuple)) for p in padding)
+        if len(padding) == n and not nested:
+            return [(int(p), int(p)) for p in padding]
+        if len(padding) == 2 * n and not nested:
+            return [(int(padding[2 * i]), int(padding[2 * i + 1]))
+                    for i in range(n)]
+        flat = [tuple(int(q) for q in p) if isinstance(p, (list, tuple))
+                else (int(p), int(p)) for p in padding]
+        if len(flat) == n + 2:
+            flat = flat[2:]
+        return flat
+    return [(int(padding), int(padding))] * n
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format=None, name=None):
+    """2-D convolution with Paddle's weight [O, I/groups, kH, kW] in
+    either layout. The JAX rules: `amp_compute_cast`, then the weight
+    cast to x's dtype; the bias added after the convolution in its
+    dtype. Padding as an int, 2 values, 4 (lo, hi per dim), the nested
+    form, "SAME" (low-first, as lax) or "VALID"; an uneven pad is applied
+    by `F.pad` before the convolution. NHWC in, NHWC out (the convolution
+    runs on its channels_last NCHW view)."""
+    data_format = resolve_data_format(data_format, 2)
+    channel_last = data_format == "NHWC"
+    stride, dilation = _ntuple(stride, 2), _ntuple(dilation, 2)
+    x = amp_compute_cast(x, weight)
+    w = weight.to(x.dtype)
+    v = x.permute(0, 3, 1, 2) if channel_last else x
+    pads = _spatial_pads(_padding(padding, 2), v.shape[2:],
+                         w.shape[2:], stride, dilation)
+    sym = _symmetric(pads)
+    if sym is None:
+        v, sym = _explicit_pad(v, pads), [0, 0]
+    out = TF.conv2d(v, w, None, stride, sym, dilation, groups)
+    if bias is not None:
+        out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
+    return out.permute(0, 2, 3, 1) if channel_last else out
+
+
+class _BatchStatsNorm(torch.autograd.Function):
+    """(f32(x) - mean) * rsqrt(var + eps) over `dims`, cast to x's dtype,
+    with the batch's f32 mean and biased variance (returned beside it,
+    not differentiated) in jnp.var's order: mean = sum / n, var =
+    sum((x - mean)^2) / n, true divisions. Saves x, mean and rstd only;
+    the backward is the batch-statistics vjp in f32, rstd (dy - mean(dy)
+    - xhat mean(dy xhat))."""
+
+    @staticmethod
+    def forward(ctx, x, dims, shape, eps):
+        x32 = x.float()
+        n = torch.full((), x32.numel() // max(math.prod(shape), 1),
+                       dtype=torch.float32, device=x.device)
+        mean = x32.sum(dims) / n
+        xc = x32 - mean.reshape(shape)
+        var = xc.square().sum(dims) / n
+        rstd = torch.rsqrt(var + eps)
+        out = (xc * rstd.reshape(shape)).to(x.dtype)
+        ctx.save_for_backward(x, mean, rstd)
+        ctx.dims, ctx.shape = dims, shape
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, g, _gm, _gv):
+        x, mean, rstd = ctx.saved_tensors
+        dims, shape = ctx.dims, ctx.shape
+        rstd = rstd.reshape(shape)
+        xhat = (x.float() - mean.reshape(shape)) * rstd
+        g32 = g.float()
+        dx = rstd * (g32 - g32.mean(dims, keepdim=True)
+                     - xhat * (g32 * xhat).mean(dims, keepdim=True))
+        return dx.to(x.dtype), None, None, None
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-05,
+               data_format=None, use_global_stats=None, name=None):
+    """Batch norm with the JAX semantics. Channel axis 1 ("NC...") or -1.
+    Statistics: the batch's f32 mean and biased variance in training
+    (unless `use_global_stats`), the running buffers otherwise. x - mean
+    is normalized in f32 and cast to x's dtype, then scaled and shifted
+    in x's dtype (two roundings in bf16). In training the buffers are
+    updated in place, momentum * running + (1 - momentum) *
+    batch_stat.astype(running.dtype), Paddle's sense of momentum, the
+    biased variance, and each scalar rounded to the buffer's dtype first
+    (bf16: 0.8984375 and 0.10009765625 at momentum 0.9)."""
+    # a named range, so a profile can price the eager chain
+    with torch.profiler.record_function("batch_norm"):
+        return _batch_norm(x, running_mean, running_var, weight, bias,
+                           training, momentum, epsilon,
+                           resolve_data_format(data_format, 2),
+                           use_global_stats)
+
+
+def _batch_norm(x, running_mean, running_var, weight, bias, training,
+                momentum, epsilon, data_format, use_global_stats):
+    use_global = (not training) if use_global_stats is None \
+        else use_global_stats
+    ax = (1 if data_format.startswith("NC") else -1) % x.dim()
+    shape = [1] * x.dim()
+    shape[ax] = x.shape[ax]
+    dims = tuple(i for i in range(x.dim()) if i != ax)
+    if use_global:
+        var = running_var + _weak(epsilon, running_var.dtype)
+        out = ((x.float() - running_mean.reshape(shape))
+               * torch.rsqrt(var).reshape(shape)).to(x.dtype)
+    else:
+        out, mean, var = _BatchStatsNorm.apply(x, dims, shape, epsilon)
+    if weight is not None:
+        out = out * weight.reshape(shape).to(x.dtype)
+    if bias is not None:
+        out = out + bias.reshape(shape).to(x.dtype)
+    if training and not use_global:
+        with torch.no_grad():
+            for buf, stat in ((running_mean, mean), (running_var, var)):
+                dt = buf.dtype
+                buf.copy_(buf * _weak(momentum, dt)
+                          + stat.to(dt) * _weak(1 - momentum, dt))
+    return out
+
+
+def _ceil_extend(size, k, s, pad):
+    """The JAX `_ceil_extend`: ceil_mode's extra high pad, with the
+    torch/Paddle rule that a window starting past input + low pad is
+    dropped."""
+    pl, ph = pad
+    eff = size + pl + ph
+    out_floor = (eff - k) // s + 1
+    out_ceil = -(-(eff - k) // s) + 1
+    if out_ceil > out_floor and (out_ceil - 1) * s >= size + pl:
+        out_ceil -= 1
+    return pl, ph + max(0, (out_ceil - 1) * s + k - eff)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format=None, name=None):
+    """Max pooling over padding of -inf (the lowest integer for integer
+    x), in either layout; `ceil_mode` extends the high pad by the JAX
+    rule. A window's gradient goes to its first largest element in
+    row-major order, as the vjp of JAX's `reduce_window` max does.
+    `return_mask` is not ported and raises."""
+    if return_mask:
+        raise NotImplementedError("max_pool2d(return_mask=True) is not "
+                                  "ported")
+    data_format = resolve_data_format(data_format, 2)
+    channel_last = data_format == "NHWC"
+    k = _ntuple(kernel_size, 2)
+    s = _ntuple(stride if stride is not None else kernel_size, 2)
+    v = x.permute(0, 3, 1, 2) if channel_last else x
+    size = v.shape[2:]
+    pads = _spatial_pads(_padding(padding, 2), size, k, s, (1, 1))
+    if ceil_mode:
+        pads = [_ceil_extend(*a) for a in zip(size, k, s, pads)]
+    sym = _symmetric(pads)
+    with torch.profiler.record_function("pooling"):
+        if sym is None or any(p > kk // 2 for p, kk in zip(sym, k)):
+            low = (-float("inf") if v.dtype.is_floating_point
+                   else torch.iinfo(v.dtype).min)
+            v, sym = _explicit_pad(v, pads, low), [0, 0]
+        out = TF.max_pool2d(v, k, s, sym)
+    return out.permute(0, 2, 3, 1) if channel_last else out
+
+
+def _mean_keepdim(v, ax):
+    """jnp.mean over one axis, kept: summed in f32 (bf16/fp16 upcast),
+    divided by the count as a true division (a 0-d tensor on v's device:
+    PyTorch's division by a Python scalar multiplies by its reciprocal on
+    CUDA), then cast back to a floating v's dtype."""
+    s = v.sum(ax, keepdim=True, dtype=torch.float32)
+    out = s / torch.full((), v.shape[ax], dtype=torch.float32,
+                         device=v.device)
+    return out.to(v.dtype) if v.dtype.is_floating_point else out
+
+
+def adaptive_avg_pool2d(x, output_size, data_format=None, name=None):
+    """Adaptive average pooling as the JAX `_adaptive_avg`: one spatial
+    axis after the other (H, then W), bin i of o over [floor(i s / o),
+    ceil((i + 1) s / o)), each bin's mean rounded to x's dtype, so a bf16
+    x rounds after each axis. `output_size` an int or a pair (None keeps
+    that axis's size)."""
+    data_format = resolve_data_format(data_format, 2)
+    spatial = [1, 2] if data_format == "NHWC" else [x.dim() - 2, x.dim() - 1]
+    osz = (output_size if isinstance(output_size, (list, tuple))
+           else [output_size] * 2)
+    osz = [x.shape[ax] if o is None else int(o) for ax, o in zip(spatial, osz)]
+    out = x
+    with torch.profiler.record_function("pooling"):
+        for ax, o in zip(spatial, osz):
+            s_in = out.shape[ax]
+            bins = [_mean_keepdim(out.narrow(ax, (i * s_in) // o,
+                                             -(-(i + 1) * s_in // o)
+                                             - (i * s_in) // o), ax)
+                    for i in range(o)]
+            out = bins[0] if o == 1 else torch.cat(bins, dim=ax)
+    return out

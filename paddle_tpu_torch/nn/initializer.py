@@ -5,7 +5,7 @@ import math
 
 import torch
 
-__all__ = ["Normal", "Constant", "XavierUniform"]
+__all__ = ["Normal", "Constant", "XavierUniform", "Uniform", "KaimingUniform"]
 
 
 class Normal:
@@ -43,5 +43,43 @@ class XavierUniform:
         if tensor.dim() == 2:
             fo = tensor.shape[1]
         limit = math.sqrt(6.0 / (fi + fo))
+        with torch.no_grad():
+            return tensor.uniform_(-limit, limit, generator=generator)
+
+
+class Uniform:
+    """U(low, high)."""
+
+    def __init__(self, low=-1.0, high=1.0):
+        self.low, self.high = float(low), float(high)
+
+    def __call__(self, tensor, generator=None):
+        with torch.no_grad():
+            return tensor.uniform_(self.low, self.high, generator=generator)
+
+
+class KaimingUniform:
+    """U(-a, a) with a = gain * sqrt(3 / fan_in); `fan_in` given, or
+    Paddle's (a conv weight [O, I, *k] has I * prod(k), a [in, out]
+    weight in); the gain of "relu" or "leaky_relu" with
+    `negative_slope` (the JAX `calculate_gain`). Paddle's conv default,
+    leaky_relu at slope sqrt(5), gives a = 1 / sqrt(fan_in)."""
+
+    def __init__(self, fan_in=None, negative_slope=0.0, nonlinearity="relu"):
+        if nonlinearity not in ("relu", "leaky_relu"):
+            raise NotImplementedError(f"KaimingUniform({nonlinearity!r}) "
+                                      "is not ported")
+        self.fan_in, self.negative_slope = fan_in, negative_slope
+        self.nonlinearity = nonlinearity
+
+    def __call__(self, tensor, generator=None):
+        fi = self.fan_in
+        if fi is None:
+            fi = (tensor.shape[1] * math.prod(tensor.shape[2:])
+                  if tensor.dim() > 2 else tensor.shape[0])
+        slope = 0.01 if self.negative_slope is None else self.negative_slope
+        gain = (math.sqrt(2.0) if self.nonlinearity == "relu"
+                else math.sqrt(2.0 / (1 + slope ** 2)))
+        limit = gain * math.sqrt(3.0 / fi)
         with torch.no_grad():
             return tensor.uniform_(-limit, limit, generator=generator)

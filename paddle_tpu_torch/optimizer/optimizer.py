@@ -4,9 +4,13 @@ The update follows the JAX `Optimizer.apply_gradients_pytree`: the step
 count starts at 1; the gradient clip runs first, over all gradients;
 each parameter's update is computed in f32 from the parameter (or from
 its f32 `master` copy when `multi_precision` is set and the parameter is
-bf16/fp16); moment slots are stored in `accumulator_dtype` (default
-f32); the result is cast back to the parameter's dtype and written in
-place. The learning rate is a constant (schedulers are not ported).
+bf16/fp16); the gradient is multiplied by `rescale_grad` (Momentum's),
+then an L2 decay coeff * p is added to it (`weight_decay` a float, or a
+`regularizer` object whose coefficient is read, as in JAX); slots are
+stored in `accumulator_dtype` (default f32); the result is cast back to
+the parameter's dtype once and written in place. The learning rate is a
+constant (schedulers are not ported). `SGD`, `Momentum` and `Adam` run
+that rule per tensor, eagerly in f32 torch ops.
 
 `AdamW` groups its parameters by the AdamW kernel's template arguments
 (parameter, gradient and slot dtypes, master copy or not) and makes one
@@ -29,7 +33,7 @@ import torch
 
 from ..ops.fused_ops import adamw_update_multi
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
 
 _LOW = (torch.bfloat16, torch.float16)
 
@@ -40,8 +44,20 @@ def _dtype(name):
     return getattr(torch, str(name))
 
 
+def _decay_coeff(weight_decay):
+    """The L2 coefficient of `weight_decay`: None -> 0, a number, or a
+    decay object's `_coeff` (`coeff`), as the JAX `Optimizer` reads it."""
+    if weight_decay is None:
+        return 0.0
+    if isinstance(weight_decay, (int, float)):
+        return float(weight_decay)
+    return float(getattr(weight_decay, "_coeff",
+                         getattr(weight_decay, "coeff", 0.0)))
+
+
 class Optimizer:
     _slot_names = ()
+    _rescale_grad = 1.0
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=False,
@@ -55,7 +71,7 @@ class Optimizer:
         self._grad_clip = grad_clip
         self._multi_precision = multi_precision
         self._acc_dtype = _dtype(accumulator_dtype)
-        self._wd = float(weight_decay or 0.0)
+        self._wd = _decay_coeff(weight_decay)
         self._state = {}              # param -> {slot: tensor}
         self._step_count = 0
 
@@ -85,8 +101,8 @@ class Optimizer:
     @torch.no_grad()
     def apply_gradients(self, params, grads, lr=None):
         """One update of `params` (in place) from `grads`, in the same
-        order, eagerly in f32; weight decay is L2 (added to the
-        gradient)."""
+        order, eagerly in f32: the gradient rescaled, then the L2 decay
+        added to it."""
         lr = self.get_lr() if lr is None else float(lr)
         self._step_count += 1
         step = self._step_count
@@ -98,6 +114,8 @@ class Optimizer:
             master = slots.get("master")
             pv = master if master is not None else p.float()
             gv = g.float()
+            if self._rescale_grad != 1.0:
+                gv = gv * self._rescale_grad
             if self._wd:
                 gv = gv + self._wd * pv
             f32 = {n: slots[n].float() for n in self._slot_names}
@@ -107,6 +125,43 @@ class Optimizer:
             if master is not None:
                 slots["master"] = new_p
             p.copy_(new_p.to(p.dtype))
+
+
+class SGD(Optimizer):
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=False,
+                 name=None, accumulator_dtype=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, accumulator_dtype)
+
+    def _update_rule(self, p, g, slots, lr, step):
+        return p - lr * g, {}
+
+
+class Momentum(Optimizer):
+    """v = momentum * v + g; p - lr * v, or p - lr * (g + momentum * v)
+    with `use_nesterov`. The velocity is f32 (the JAX `Momentum` takes no
+    `accumulator_dtype`); `use_multi_tensor` is accepted and changes
+    nothing, as in JAX."""
+    _slot_names = ("velocity",)
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, rescale_grad=1.0,
+                 use_multi_tensor=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+        self._rescale_grad = float(rescale_grad)
+
+    def _update_rule(self, p, g, slots, lr, step):
+        v = self._momentum * slots["velocity"] + g
+        if self._nesterov:
+            new_p = p - lr * (g + self._momentum * v)
+        else:
+            new_p = p - lr * v
+        return new_p, {"velocity": v}
 
 
 class Adam(Optimizer):
