@@ -84,14 +84,31 @@ with finite losses and every BatchNorm buffer moved, one step is
 profiled by family (cuDNN convolutions, batch norm, pooling, residual add
 + ReLU, the optimizer), and resnet18 in f32 (TF32 off) is held against
 the port's CPU run, with max-pool tie gradients and the bf16 running
-statistics' update bit-equal. Every phase raises on failure. The output
-is one line per phase, then one JSON line with the kernels' numbers, the
-card's name and power limit, and as the last line
+statistics' update bit-equal. GPT's own path (no kernel of its own; its
+steps run the flash, LayerNorm, cross-entropy and AdamW kernels, its
+sampled serving the ragged attention): bench.py's headline variant
+(gpt_1p3b, remat 'dots', batch 6 x 1024) trains 2 + 8 steps under
+AdamW(LinearWarmup(CosineAnnealingDecay)), every AdamW launch given the
+schedule's lr, and again at batch 8 beside the 'full' run; at gpt_1p3b
+width and 2 layers one step's loss and gradients under 'dots' are
+bit-equal to 'full'; a run resumed after 3 of 6 steps from host numpy
+copies of `Trainer.state()` and the optimizer's `state_dict()` is
+bit-equal to the uninterrupted one; KV-cache generation (greedy, sampled,
+beam search with 4 beams; 4 prompts of 128 tokens, 64 new) has cached
+logits within CACHED_LOGIT_TOL of the full forward's; and sampled serving
+(temperature 0.8, top_k 50, top_p 0.95) runs the serving traffic beside
+the greedy run, its streams against the per-tick engine and against the
+same requests in reversed order (a stream may part only on a near-tie),
+and, for generation and serving, the card's draws equal the host's
+threefry draws from the card's logits. Every phase raises on failure.
+The output is one line per phase, then one JSON line with the kernels'
+numbers, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the package next
 to it, the script exits non-zero and prints no result. Imports only
 torch, numpy and the port (never jax or paddle_tpu).
 """
 import ctypes
+import functools
 import json
 import re
 import shutil
@@ -1139,16 +1156,17 @@ def phase_serving(rpa):
     if launches["kernel"] <= 0 or launches["plain"] != 0:
         raise AssertionError(f"attention launches on the card: {launches}")
     device = counts["device"][0]
+    fields = _serve_fields(eng, wall)
     log("serve", model="gpt_1p3b", layers=cfg.num_layers,
         hidden=cfg.hidden_size, requests=N_REQ, max_new=MAX_NEW,
         max_batch=16, k_max=K_MAX, priced_k_max=priced_k,
         chunk_tokens=eng.scheduler.chunk_tokens, setup_s=f"{setup_s:.2f}",
-        **_serve_fields(eng, wall),
+        **fields,
         kernel_launches=launches["kernel"],
         plain_launches=launches["plain"], device_launches=device,
         device_launches_per_call=f"{device / launches['kernel']:.3f}",
         peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
-    return sd, dec, prompts, streams, launches
+    return sd, dec, prompts, streams, launches, fields
 
 
 def phase_profile(dec, prompts, **tags):
@@ -2216,7 +2234,10 @@ def phase_training(A, LN, X, smi):
                              per_step.items()},
         adamw_tensors_per_launch=len(trainer.params) / per_step["adamw"],
         **branches, plain=sum(plain.values()))
-    return trainer, batch, kern, losses
+    summary = {"step_ms": round(step_ms, 2),
+               "peak_mem_GB": round(torch.cuda.max_memory_allocated() / 1e9,
+                                    2)}
+    return trainer, batch, kern, losses, summary
 
 
 # kernel families by name: the LayerNorm forward is the norm row walk's
@@ -2229,7 +2250,7 @@ _FAMILIES = (("flash_attention", ("flash_fwd", "flash_dq", "flash_dkv")),
              ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")))
 
 
-def phase_train_profile(trainer, batch):
+def phase_train_profile(trainer, batch, label="train_profile"):
     """Where one training step's time goes: device time by kernel family
     under torch.profiler, and the device's busy share (device kernel
     time over the step's wall time; one stream, so kernels do not
@@ -2262,15 +2283,14 @@ def phase_train_profile(trainer, batch):
             fam["other"] += us
     busy = sum(fam.values()) / 1e6
     if busy <= 0:
-        log("train_profile", device_time="not measured (the profiler saw "
+        log(label, device_time="not measured (the profiler saw "
             "no device kernels)", wall_ms=f"{wall * 1e3:.2f}")
         return
-    log("train_profile", wall_ms=f"{wall * 1e3:.2f}",
+    log(label, wall_ms=f"{wall * 1e3:.2f}",
         device_ms=f"{busy * 1e3:.2f}", device_busy_share=f"{busy / wall:.3f}",
         **{f"{k}_ms": f"{v / 1e3:.2f}" for k, v in fam.items()})
     for us, name in sorted(kernels, reverse=True)[:8]:
-        log("train_profile_top", kernel=repr(name[:90]),
-            ms=f"{us / 1e3:.3f}")
+        log(f"{label}_top", kernel=repr(name[:90]), ms=f"{us / 1e3:.3f}")
 
 
 def phase_train_split(trainer, batch):
@@ -4303,6 +4323,607 @@ def phase_resnet_small_reference():
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
 
+# ---------------------------------------------------------------- slice 14
+# GPT's own path: bench.py's headline variant (gpt_1p3b, remat 'dots',
+# batch 6 x 1024) under a warmup + cosine LR schedule, 'dots' against
+# 'full', checkpoint and resume, KV-cache generation and beam search, and
+# sampled serving.
+
+DOTS_B = 6                                  # bench.py's headline batch
+# the schedule, shortened to the smoke's 2 + 8 steps so that both its
+# warmup and its decay fall inside the run: LinearWarmup(CosineAnnealing
+# Decay(2e-4, T_max 7), 3 warmup steps from 0 to 2e-4)
+SCHED_PEAK, SCHED_WARMUP, SCHED_T_MAX = 2e-4, 3, 7
+RESUME_STEPS = 6
+GEN_B, GEN_PROMPT, GEN_NEW, GEN_BEAMS = 4, 128, 64, 4
+SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95, "seed": 0}
+# The cached forward (f32 attention over the bf16 K/V buffer) against the
+# full forward (the bf16 flash kernel) on the same tokens: bf16
+# activations rounded at other places move logits of magnitude ~1-10 by
+# a few hundredths, as between the serving engines (LOGIT_TOL).
+CACHED_LOGIT_TOL = LOGIT_TOL
+# Draws the smoke re-draws on the host from the card's logits and keys.
+REDRAW_CALLS = 32
+
+
+def _schedule():
+    from paddle_tpu_torch.optimizer import lr
+    return lr.LinearWarmup(
+        lr.CosineAnnealingDecay(SCHED_PEAK, T_max=SCHED_T_MAX),
+        warmup_steps=SCHED_WARMUP, start_lr=0.0, end_lr=SCHED_PEAK)
+
+
+def _schedule_values(n):
+    """The schedule's first n values, from an instance of its own."""
+    s, out = _schedule(), []
+    for _ in range(n):
+        out.append(s())
+        s.step()
+    return out
+
+
+def _dots_cfg(**kw):
+    from paddle_tpu_torch.models import gpt_1p3b
+    return gpt_1p3b(max_seq_len=TL, remat_policy="dots", **kw)
+
+
+class _LrTap:
+    """Stands in for the optimizer module's `adamw_update_multi` while
+    installed: passes every call through and keeps the lr each AdamW
+    launch was given."""
+
+    def __init__(self):
+        from paddle_tpu_torch.optimizer import optimizer as opt_module
+        self.mod, self.lrs = opt_module, []
+        self.fn = opt_module.adamw_update_multi
+
+    def __call__(self, *args, **kw):
+        self.lrs.append(args[4])
+        return self.fn(*args, **kw)
+
+    def __enter__(self):
+        self.mod.adamw_update_multi = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.adamw_update_multi = self.fn
+
+
+def _steps(trainer, batches, A, LN, X):
+    """TRAIN_WARMUP then TRAIN_STEPS timed training steps over `batches`
+    (cycled); the counts are zeroed before the timed steps. Returns
+    (losses, step ms, peak GB, kernel launches, plain launches, the lr of
+    every AdamW launch)."""
+    from paddle_tpu_torch.distributed import LossBuffer
+    warmup, steps = TRAIN_WARMUP, TRAIN_STEPS
+    buf = LossBuffer(drain_every=warmup + steps)
+    with _LrTap() as tap:
+        for i in range(warmup):
+            buf.append(trainer.step(batches[i % len(batches)]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_train_counts(A, LN, X)
+        t0 = time.perf_counter()
+        for i in range(warmup, warmup + steps):
+            buf.append(trainer.step(batches[i % len(batches)]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern, plain = _train_counts(A, LN, X)
+    if buf.fetches != 1 or not all(np.isfinite(buf.losses)):
+        raise AssertionError(f"losses: {buf.losses} ({buf.fetches} fetches)")
+    return (buf.losses, wall / steps * 1e3,
+            torch.cuda.max_memory_allocated() / 1e9, kern, plain, tap.lrs)
+
+
+def _device_batches(cfg, B, n):
+    return [{k: torch.from_numpy(v).cuda() for k, v in
+             _batch(cfg, B, TL, seed=SEED + i).items()} for i in range(n)]
+
+
+def phase_train_dots(A, LN, X, smi, full_bs8):
+    """bench.py's headline variant: gpt_1p3b, bf16, remat 'dots', batch 6
+    x 1024, AdamW(LinearWarmup(CosineAnnealingDecay)) with weight decay
+    0.1, clip 1.0 and bf16 slots, 2 + 8 steps: the lr of every step's
+    AdamW launch equals the schedule's values, and the kernels launch as
+    under 'full' (the attention and both LayerNorms are recomputed; only
+    the Linear products a backward reads are kept). Then 'dots' at batch
+    8 beside the bs 8 'full' run of `phase_training`. 'full' at batch 6
+    under the same schedule gives the same 10 losses bit for bit (the
+    step time beside it), one 'dots' step is profiled by kernel family,
+    and `phase_dots_host` splits its host time."""
+    from paddle_tpu_torch.models import gpt_1p3b
+    cfg = _dots_cfg()
+    batches = _device_batches(cfg, DOTS_B, 1)
+    trainer = _trainer(gpt_1p3b(max_seq_len=TL, remat_policy="full"),
+                       lr=_schedule())
+    full_losses, full_ms, full_peak, _, _, _ = _steps(trainer, batches, A,
+                                                      LN, X)
+    del trainer
+    torch.cuda.empty_cache()
+    trainer = _trainer(cfg, lr=_schedule())
+    losses, step_ms, peak, kern, plain, lrs = _steps(trainer, batches, A,
+                                                     LN, X)
+    if losses != full_losses:
+        raise AssertionError(f"'dots' losses {losses} != 'full' losses "
+                             f"{full_losses} at batch {DOTS_B}")
+    want = _schedule_values(TRAIN_WARMUP + TRAIN_STEPS)
+    if lrs != want:
+        raise AssertionError(f"AdamW lrs {lrs} != the schedule's {want}")
+    if trainer.optimizer._lr_scheduler.last_epoch != len(want):
+        raise AssertionError("the scheduler did not advance once a step")
+    per_step = {k: v / TRAIN_STEPS for k, v in kern.items()}
+    expected = {**EXPECTED_PER_STEP,
+                "adamw": _adamw_launches_expected(trainer, X)}
+    if per_step != expected or any(plain.values()):
+        raise AssertionError(f"'dots' launches a step {per_step} (expected "
+                             f"{expected}), plain {plain}")
+    tok_s = DOTS_B * TL / (step_ms / 1e3)
+    log("train_dots", model="gpt_1p3b", layers=cfg.num_layers,
+        batch=f"{DOTS_B}x{TL}", remat="dots", dtype="bfloat16",
+        schedule=f"LinearWarmup(CosineAnnealingDecay({SCHED_PEAK}, "
+                 f"T_max={SCHED_T_MAX}), warmup={SCHED_WARMUP})",
+        gpu=repr(smi), steps=TRAIN_STEPS, step_ms=f"{step_ms:.2f}",
+        tokens_per_s=f"{tok_s:.1f}",
+        mfu=f"{6 * cfg.num_params() * tok_s / H100_BF16_FLOPS:.4f}",
+        peak_mem_GB=f"{peak:.2f}", lrs=[float(f"{x:.6g}") for x in lrs],
+        lrs_equal_schedule=True, losses=[round(x, 5) for x in losses],
+        losses_equal_full=True, full_step_ms=f"{full_ms:.2f}",
+        full_peak_mem_GB=f"{full_peak:.2f}")
+    log("train_dots_launches", **{f"{k}_per_step": v for k, v in
+                                  per_step.items()},
+        plain=sum(plain.values()))
+    phase_train_profile(trainer, batches[0], label="train_dots_profile")
+    phase_dots_host(trainer, batches[0])
+    del trainer, batches
+    torch.cuda.empty_cache()
+    trainer = _trainer(cfg)
+    batches = _device_batches(cfg, TB, 1)
+    _, ms8, peak8, _, _, _ = _steps(trainer, batches, A, LN, X)
+    log("train_dots_bs8", batch=f"{TB}x{TL}", gpu=repr(smi),
+        dots_step_ms=f"{ms8:.2f}", dots_peak_mem_GB=f"{peak8:.2f}",
+        full_step_ms=full_bs8["step_ms"],
+        full_peak_mem_GB=full_bs8["peak_mem_GB"],
+        dots_tokens_per_s=f"{TB * TL / (ms8 / 1e3):.1f}")
+    del trainer, batches
+    torch.cuda.empty_cache()
+
+
+DOTS_HOST_STEPS = 4                         # timed steps a variant a round
+
+
+def phase_dots_host(trainer, batch):
+    """Where 'dots' spends its extra host time, on one trainer whose remat
+    is switched between steps: 'full'; 'sac_all' (the selective
+    checkpoint's dispatch mode with a policy that saves nothing: the
+    compute of 'full' plus the mode's own cost); 'dots'; and 'dots_fc2'
+    (fc2's product cached too, the policy before fc2 was left out). Two
+    rounds in mirrored order, DOTS_HOST_STEPS steps each after one
+    untimed step: wall ms a step and peak memory. Then one profiled step
+    of each: device ms, busy share, and the CPU side of the profile — the
+    recorded ops and their summed self CPU time (a `__torch_dispatch__`
+    mode runs inside each op's record, so the mode's Python cost lands
+    there)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    from paddle_tpu_torch.models import gpt as gpt_mod
+    cfg, real = trainer.model.cfg, gpt_mod._dots_context
+
+    def save_all_dots(ctx, op, *args, **kwargs):
+        if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    variants = {
+        "full": ("full", real),
+        "sac_all": ("dots", functools.partial(
+            create_selective_checkpoint_contexts,
+            lambda ctx, op, *a, **k: CheckpointPolicy.PREFER_RECOMPUTE)),
+        "dots": ("dots", real),
+        "dots_fc2": ("dots", functools.partial(
+            create_selective_checkpoint_contexts, save_all_dots))}
+
+    def use(name):
+        cfg.remat_policy, gpt_mod._dots_context = variants[name]
+
+    times = {k: [] for k in variants}
+    peak = {}
+    try:
+        for order in (list(variants), list(variants)[::-1]):
+            for name in order:
+                use(name)
+                trainer.step(batch)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                for _ in range(DOTS_HOST_STEPS):
+                    trainer.step(batch)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3
+                                   / DOTS_HOST_STEPS)
+                peak[name] = torch.cuda.max_memory_allocated() / 1e9
+        for name in variants:
+            use(name)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                trainer.step(batch)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            cpu_ops = cpu_us = dev_us = 0
+            for ev in prof.key_averages():
+                if getattr(ev, "device_type", None) == \
+                        torch.autograd.DeviceType.CUDA:
+                    us = getattr(ev, "self_device_time_total", None)
+                    dev_us += ev.self_cuda_time_total if us is None else us
+                else:
+                    cpu_ops += ev.count
+                    cpu_us += ev.self_cpu_time_total
+            log("train_dots_host", variant=name,
+                step_ms=[f"{t:.2f}" for t in times[name]],
+                peak_mem_GB=f"{peak[name]:.2f}",
+                profiled_wall_ms=f"{wall:.2f}",
+                device_ms=f"{dev_us / 1e3:.2f}",
+                device_busy_share=f"{dev_us / 1e3 / wall:.3f}",
+                cpu_ops=cpu_ops, cpu_self_ms=f"{cpu_us / 1e3:.2f}")
+    finally:
+        cfg.remat_policy, gpt_mod._dots_context = "dots", real
+
+
+def phase_dots_equal():
+    """At gpt_1p3b width and 2 layers, bf16, batch 6 x 1024: one step's
+    loss and every gradient under 'dots' bit-equal to 'full' (the same
+    weights, batch and deterministic kernels; 'dots' hands the backward
+    the forward's own products where 'full' recomputes them)."""
+    from paddle_tpu_torch.models import gpt_1p3b
+    batch = _device_batches(gpt_1p3b(), DOTS_B, 1)[0]
+    runs = {}
+    for policy in ("full", "dots"):
+        cfg = gpt_1p3b(max_seq_len=TL, num_layers=2, remat_policy=policy)
+        tr = _trainer(cfg)
+        loss, grads = tr._loss_and_grads(batch)
+        names = [n for n, p in tr.model.named_parameters()]
+        runs[policy] = (loss, dict(zip(names, grads)))
+        del tr
+    (lf, gf), (ld, gd) = runs["full"], runs["dots"]
+    bad = [n for n in gf if not torch.equal(gf[n], gd[n])]
+    if not torch.equal(lf, ld) or bad:
+        raise AssertionError(f"'dots' vs 'full': loss {float(ld)} vs "
+                             f"{float(lf)}, gradients differing: {bad}")
+    log("dots_equal", model="gpt_1p3b width, 2 layers", batch=f"{DOTS_B}x"
+        f"{TL}", dtype="bfloat16", loss=f"{float(lf):.6f}",
+        gradients=len(gf), bit_equal=True)
+    del runs
+    torch.cuda.empty_cache()
+
+
+def _host_tree(tree):
+    """A state tree with every tensor leaf as a numpy array (bf16 widened
+    to f32 on the host, exactly): what a user saves."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().float().numpy()
+    return tree
+
+
+def phase_resume():
+    """gpt_1p3b bf16 (remat 'dots', batch 6 x 1024) under the schedule.
+    Run A takes 6 steps. Run B takes 3, saves `Trainer.state()` and the
+    optimizer's `state_dict()` to host numpy; a fresh model, optimizer and
+    trainer load them and take 3 more. Losses, parameters, slots and the
+    scheduler's position after step 6 are bit-equal between A and B."""
+    cfg = _dots_cfg()
+    batches = _device_batches(cfg, DOTS_B, RESUME_STEPS)
+    a = _trainer(cfg, lr=_schedule())
+    la = [float(a.step(b)) for b in batches]
+    b1 = _trainer(cfg, lr=_schedule())
+    lb = [float(b1.step(b)) for b in batches[:3]]
+    t0 = time.perf_counter()
+    state = _host_tree(b1.state())
+    opt_sd = _host_tree(b1.optimizer.state_dict())
+    save_s = time.perf_counter() - t0
+    del b1
+    torch.cuda.empty_cache()
+    b2 = _trainer(cfg, lr=_schedule())
+    t0 = time.perf_counter()
+    b2.optimizer.set_state_dict(opt_sd)
+    b2.load_state(state)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del state, opt_sd
+    lb += [float(b2.step(b)) for b in batches[3:]]
+    params = [n for n, (p, q) in enumerate(zip(a.params, b2.params))
+              if not torch.equal(p, q)]
+    slots = [(n, k) for n, (p, q) in enumerate(zip(a.params, b2.params))
+             for k in a.optimizer._state[p]
+             if not torch.equal(a.optimizer._state[p][k],
+                                b2.optimizer._state[q][k])]
+    sched = (a.optimizer._lr_scheduler.last_epoch,
+             b2.optimizer._lr_scheduler.last_epoch)
+    if la != lb or params or slots or sched != (6, 6):
+        raise AssertionError(f"resume: losses {lb} vs {la}, parameters "
+                             f"differing {params}, slots {slots}, "
+                             f"scheduler {sched}")
+    log("resume", model="gpt_1p3b", batch=f"{DOTS_B}x{TL}", remat="dots",
+        steps=f"3 + save/load + 3 vs {RESUME_STEPS}",
+        losses=[round(x, 5) for x in la], bit_equal=True,
+        parameters=len(a.params), save_to_host_s=f"{save_s:.2f}",
+        load_s=f"{load_s:.2f}", last_epoch=sched[0])
+    del a, b2, batches
+    torch.cuda.empty_cache()
+
+
+class _DrawTap:
+    """Stands in for a module's sampling function (`generation._sample`
+    or `decoder._sample_tokens`) while installed: passes every call
+    through and keeps host copies of the logits, the key(s) and the
+    token(s) drawn on the card (of the first `limit` calls; None: all)."""
+
+    def __init__(self, module, name, limit=None):
+        self.mod, self.name, self.limit = module, name, limit
+        self.fn, self.calls = getattr(module, name), []
+
+    def __call__(self, logits, *args):
+        out = self.fn(logits, *args)
+        if self.limit is None or len(self.calls) < self.limit:
+            key = args[0] if self.name == "_sample" else args[1]
+            self.calls.append((logits.float().cpu(), key.cpu(), out.cpu()))
+        return out
+
+    def __enter__(self):
+        setattr(self.mod, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.fn)
+
+    def redraw_mismatches(self, sampling, calls=None):
+        """Draws (of the first `calls` recorded calls) whose host re-draw
+        (`mask_logits` + `random.categorical` on the CPU, from the card's
+        logits and keys) differs from the card's."""
+        from paddle_tpu_torch import random as prng
+        from paddle_tpu_torch.models.generation import mask_logits
+        t, k, p = sampling
+        bad = 0
+        for logits, key, out in self.calls[:calls]:
+            host = prng.categorical(key, mask_logits(logits, t, k, p))
+            bad += int((host.to(out.dtype) != out).sum())
+        return bad
+
+    def logits_of(self, key, token):
+        """The logits row a recorded draw under `key` (a host key [2])
+        drew `token` from (the first such row), or None."""
+        for logits, keys, out in self.calls:
+            hit = ((keys == key).all(-1) & (out == token)).nonzero()
+            if len(hit):
+                return logits[int(hit[0, 0])]
+        return None
+
+
+def _sampled_launches(fn):
+    """Device kernels one call of `fn` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if getattr(ev, "device_type", None)
+               == torch.autograd.DeviceType.CUDA)
+
+
+def phase_generate(sd, smi):
+    """KV-cache generation on gpt_1p3b bf16 (the serving run's weights):
+    4 prompts of 128 tokens, 64 new tokens, greedy, then sampled
+    (temperature 0.8, top_k 50, top_p 0.95, seed 0), then beam search
+    with 4 beams. The cached forward's logits match the full forward's on
+    the same tokens within CACHED_LOGIT_TOL; every sampled token of a
+    recorded run equals the host's draw (`random` + `mask_logits` on the
+    CPU) from the card's logits and keys, and that run's tokens equal the
+    timed run's."""
+    from paddle_tpu_torch.models import GPT, generation, gpt_1p3b
+    from paddle_tpu_torch import random as prng
+    cfg = gpt_1p3b()
+    model = GPT(cfg, seed=SEED)
+    model.load_state_dict(sd)
+    model.bfloat16().eval()
+    rng = np.random.RandomState(SEED + 14)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       (GEN_B, GEN_PROMPT))).cuda()
+    runs = {}
+    for name, kw in (("greedy", {"temperature": 0.0}),
+                     ("sampled", SAMPLING),
+                     ("beam", {"num_beams": GEN_BEAMS,
+                               "temperature": 0.0})):
+        generation.generate(model, ids[:, :16], max_new_tokens=4, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generation.generate(model, ids, max_new_tokens=GEN_NEW, **kw)
+        torch.cuda.synchronize()
+        runs[name] = (out, time.perf_counter() - t0)
+        if out.shape != (GEN_B, GEN_PROMPT + GEN_NEW) or not (
+                (out >= 0) & (out < cfg.vocab_size)).all():
+            raise AssertionError(f"{name}: ids {tuple(out.shape)} out of "
+                                 "range")
+    greedy = runs["greedy"][0]
+    # cached against full forward on the greedy tokens
+    with torch.no_grad():
+        full = model(greedy[:, :-1])
+        cache = model.init_cache(GEN_B, GEN_PROMPT + GEN_NEW)
+        pre, cache = model(greedy[:, :GEN_PROMPT], cache=cache, pos=0)
+        gap = float((pre - full[:, :GEN_PROMPT]).abs().max())
+        for t in range(GEN_PROMPT, min(GEN_PROMPT + 8, full.shape[1])):
+            step, cache = model(greedy[:, t:t + 1], cache=cache, pos=t)
+            gap = max(gap, float((step[:, 0] - full[:, t]).abs().max()))
+    if not torch.isfinite(full).all() or gap > CACHED_LOGIT_TOL:
+        raise AssertionError(f"cached vs full logits differ by {gap:.4f} "
+                             f"(tolerance {CACHED_LOGIT_TOL})")
+    # the sampled run, recorded: host re-draws from the card's logits
+    prng.reset_counts()
+    with _DrawTap(generation, "_sample") as tap:
+        again = generation.generate(model, ids, max_new_tokens=GEN_NEW,
+                                    **SAMPLING)
+    sampling = (SAMPLING["temperature"], SAMPLING["top_k"],
+                SAMPLING["top_p"])
+    draws = dict(prng.draws)
+    bad = tap.redraw_mismatches(sampling)
+    if bad or not torch.equal(again, runs["sampled"][0]):
+        raise AssertionError(f"sampled draws: {bad} differ from the host's "
+                             "draw, or the recorded run differs from the "
+                             "timed one")
+    # the eager cost of one sampled decode step: device kernels of the
+    # forward and of the draw (mask + threefry)
+    tok = greedy[:, GEN_PROMPT:GEN_PROMPT + 1]
+    key = prng.PRNGKey(0, device=tok.device)
+    with torch.no_grad():
+        logits, _ = model(tok, cache=cache, pos=GEN_PROMPT + 8)
+        fwd_k = _sampled_launches(
+            lambda: model(tok, cache=cache, pos=GEN_PROMPT + 8))
+    draw_k = _sampled_launches(lambda: generation._sample(
+        logits[:, -1], key, *sampling))
+    greedy_k = _sampled_launches(lambda: generation._sample(
+        logits[:, -1], key, 0.0, 0, 1.0))
+    beam_ids = runs["beam"][0]
+    log("generate", model="gpt_1p3b", dtype="bfloat16", gpu=repr(smi),
+        prompts=f"{GEN_B}x{GEN_PROMPT}", new_tokens=GEN_NEW,
+        **{f"{n}_tok_per_s": f"{GEN_B * GEN_NEW / w:.1f}"
+           for n, (_, w) in runs.items()},
+        **{f"{n}_s": f"{w:.3f}" for n, (_, w) in runs.items()},
+        cached_vs_full_max_logit_gap=f"{gap:.5f}",
+        tolerance=CACHED_LOGIT_TOL, sampled_draws_checked=len(tap.calls),
+        sampled_draws_off_host=bad, prng_calls=draws,
+        forward_launches_per_step=fwd_k, sample_launches_per_step=draw_k,
+        greedy_pick_launches_per_step=greedy_k,
+        beam_equals_greedy=bool(torch.equal(beam_ids, greedy)),
+        sampled_equals_greedy=bool(torch.equal(runs["sampled"][0], greedy)))
+    del model, cache, runs
+    torch.cuda.empty_cache()
+
+
+def _partings(dec, prompts, tap_want, want, tap_got, got):
+    """For each stream of `got` that parts from `want` (request i =
+    request id i): the first differing position, the two runs' logits
+    there (found in their recorded draws by the (seed, id, position) key
+    and the token each drew), their largest difference, each token's
+    margin x_a - x_b (x = logits / temperature + Gumbel noise, in logit
+    units) under each run's logits, and whether each run's mask kept
+    both tokens."""
+    from paddle_tpu_torch import random as prng
+    from paddle_tpu_torch.models.generation import mask_logits
+    t, k, p = dec.sampling
+    base = prng.PRNGKey(dec.seed, device="cpu")
+    out = {}
+    for i, (w, g) in enumerate(zip(want, got)):
+        if w == g:
+            continue
+        j = next(n for n, (x, y) in enumerate(zip(w, g)) if x != y)
+        pos = len(prompts[i]) - 1 + j
+        key = prng.fold_in(prng.fold_in(base, i), pos)
+        la, lb = tap_want.logits_of(key, w[j]), tap_got.logits_of(key, g[j])
+        row = dict(first_divergence=j, tokens=(w[j], g[j]))
+        if la is None or lb is None:
+            out[i] = dict(row, logit_diff=None)
+            continue
+        noise = prng.gumbel(key, (la.shape[-1],))
+        margins, kept = [], []
+        for lg in (la, lb):
+            x = lg / t + noise
+            margins.append(round(float(x[w[j]] - x[g[j]]) * t, 5))
+            m = mask_logits(lg[None], t, k, p)[0] > -1e29
+            kept.append((bool(m[w[j]]), bool(m[g[j]])))
+        out[i] = dict(row, logit_diff=round(float((la - lb).abs().max()), 5),
+                      margin_a_minus_b=margins, kept=kept)
+    return out
+
+
+def phase_serve_sampled(sd, prompts, greedy_fields, rpa):
+    """The serving run's configuration (gpt_1p3b bf16 pool, 32 requests of
+    64-768 prompt tokens, 64 new tokens, k_max 8) at temperature 0.8,
+    top_k 50, top_p 0.95, seed 0: tok/s, TTFT and per-token latency
+    beside the greedy run. Then recorded runs (every draw's logits, keys
+    and token kept on the host): the same traffic again (equal to the
+    timed run), whose first REDRAW_CALLS draws must equal the host's
+    draw from the card's logits and keys; the per-tick oracle engine on
+    the first 4 requests; and the 32 requests submitted in reversed order
+    with the same request ids. A stream that parts must part on a near
+    tie: the two runs' logits at that position within LOGIT_TOL (the
+    bf16 noise of another row count in cuBLAS); the other streams must
+    be equal."""
+    from paddle_tpu_torch import random as prng
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          PagedGPTDecoder)
+    from paddle_tpu_torch.serving import decoder as dec_module
+    from paddle_tpu_torch.models import gpt_1p3b
+    cfg = gpt_1p3b()
+    dec = PagedGPTDecoder(cfg, sd, num_pages=16 * MP + 1, page_size=PS,
+                          max_batch=16, **SAMPLING)
+    prng.reset_counts()
+    eng, streams, wall, counts = _serve_run(dec, prompts, (rpa,))
+    draws = dict(prng.draws)
+    phase_profile(dec, prompts, mode="sampled")
+    if counts["ragged_paged_attention"][0] <= 0 or \
+            counts["ragged_paged_attention"][1]:
+        raise AssertionError(f"attention launches: {counts}")
+    log("serve_sampled", model="gpt_1p3b", requests=N_REQ, max_new=MAX_NEW,
+        k_max=K_MAX, **SAMPLING, **_serve_fields(eng, wall),
+        prng_calls=draws,
+        **{f"greedy_{k}": v for k, v in greedy_fields.items()})
+    rids = list(range(len(prompts)))
+
+    class Replay(ContinuousBatchingEngine):
+        """Gives the k-th submitted request the id `ids[k]`: requests
+        replayed in another order keep their ids, and so their draws."""
+
+        def __init__(self, *args, ids, **kw):
+            super().__init__(*args, **kw)
+            self._ids = iter(ids)
+
+        def submit(self, prompt_ids):
+            self._next_id = next(self._ids)
+            return super().submit(prompt_ids)
+
+    def recorded(order, k_max):
+        with _DrawTap(dec_module, "_sample_tokens") as tap:
+            e = Replay(dec, ids=order, max_new_tokens=MAX_NEW, k_max=k_max)
+            for r in order:
+                e.submit(prompts[r])
+            res = e.run()
+        return [res[r] for r in sorted(order)], tap
+
+    fwd, tap_fwd = recorded(rids, K_MAX)
+    bad = tap_fwd.redraw_mismatches(dec.sampling, REDRAW_CALLS)
+    per_tick, tap_pt = recorded(rids[:N_ORACLE], 1)
+    rev, tap_rev = recorded(rids[::-1], K_MAX)
+    parted = {"oracle": _partings(dec, prompts, tap_fwd, fwd[:N_ORACLE],
+                                  tap_pt, per_tick),
+              "reversed": _partings(dec, prompts, tap_fwd, fwd, tap_rev,
+                                    rev)}
+    wide = []
+    for label, p in parted.items():
+        for i, row in sorted(p.items()):
+            log("serve_sampled_parting", run=label, request=i, **row,
+                tolerance=LOGIT_TOL)
+            if row["logit_diff"] is None or row["logit_diff"] > LOGIT_TOL:
+                wide.append((label, i))
+    log("serve_sampled_checks",
+        recorded_streams_equal=f"{sum(a == b for a, b in zip(fwd, streams))}"
+                               f"/{N_REQ}",
+        oracle_streams_agree=f"{N_ORACLE - len(parted['oracle'])}/"
+                             f"{N_ORACLE}",
+        reversed_streams_equal=f"{N_REQ - len(parted['reversed'])}/{N_REQ}",
+        draws_checked=sum(len(c[2]) for c in tap_fwd.calls[:REDRAW_CALLS]),
+        draws_off_host=bad, partings_beyond_tolerance=wide)
+    if bad or wide or fwd != streams:
+        raise AssertionError(f"sampled serving: {bad} draws off the host's, "
+                             f"partings beyond LOGIT_TOL {wide}, or the "
+                             "recorded run differs from the timed one")
+    del dec, eng, tap_fwd, tap_pt, tap_rev
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4327,13 +4948,16 @@ def main():
         phase_chunk_mix_timing(rpa, lay)
         phase_split_plan_timing(rpa, lay)
     w4_timing = phase_w4_timing(w4)
-    sd, dec, prompts, streams, launches = phase_serving(rpa)
+    sd, dec, prompts, streams, launches, greedy_fields = phase_serving(rpa)
     phase_profile(dec, prompts)
     nll_bf16 = phase_oracle(rpa, dec, prompts, streams)
     del dec
     torch.cuda.empty_cache()
+    phase_serve_sampled(sd, prompts, greedy_fields, rpa)
     quant_launches = phase_serve_quant(sd, prompts, streams, nll_bf16, rpa,
                                        w4)
+    torch.cuda.empty_cache()
+    phase_generate(sd, smi)
     del sd
     torch.cuda.empty_cache()
     phase_small_reference()
@@ -4353,7 +4977,8 @@ def main():
     norm_timing = phase_norm_timing(LN)
     dropout_err = phase_dropout_checks(D)
     dropout_timing = phase_dropout_timing(D)
-    trainer, batch, train_launches, losses = phase_training(A, LN, X, smi)
+    trainer, batch, train_launches, losses, full_bs8 = phase_training(
+        A, LN, X, smi)
     phase_train_profile(trainer, batch)
     phase_train_split(trainer, batch)
     adamw_lists = {"gpt_1p3b": phase_adamw_list(trainer, batch, X,
@@ -4364,6 +4989,10 @@ def main():
         _gpt_train_cfg(), opt_cls=opt_cls), batch, losses)
     del batch
     phase_train_small_reference()
+    torch.cuda.empty_cache()
+    phase_train_dots(A, LN, X, smi, full_bs8)
+    phase_dots_equal()
+    phase_resume()
     torch.cuda.empty_cache()
     masked_err, ln768_err = phase_bert_kernel_checks(A, LN)
     bert_timing = phase_bert_kernel_timing(A)

@@ -15,6 +15,15 @@ with one micro-batch, the step's forward updates them once; with N,
 every micro-batch's forward starts from the buffers the step began with,
 and the step ends with the update of the last micro-batch (the JAX
 trainer keeps the last of its scan's updates).
+
+The optimizer's LR scheduler, if it has one, is advanced after each
+step's update (also under an explicit `lr=`), as the JAX `Trainer.step`
+does. `state()` / `load_state()` use the JAX `Trainer.state()` tree:
+`{"params": {name: array}, "opt_state": {"slots": {name: {slot:
+array}}, "step": n}, "step": n}` under the model's parameter names, with
+numpy leaves (bf16 tensors as float32 arrays, which is exact);
+`models.convert.trainer_state_from_numpy` turns a JAX one into it. The
+scheduler's state travels in the optimizer's `state_dict()`, as in JAX.
 """
 import numpy as np
 import torch
@@ -76,6 +85,9 @@ class Trainer:
                                  f"trainer on {self.device}")
         if optimizer._parameter_list is None:
             optimizer.bind(self.params)
+        self._names = [n for n, p in model.named_parameters()
+                       if p.requires_grad]
+        self._host_step = 0
 
     def _to_device(self, batch):
         def put(v):
@@ -116,4 +128,68 @@ class Trainer:
             loss = loss / n
             grads = [g / n for g in grads]
         self.optimizer.apply_gradients(self.params, grads, lr)
+        sched = self.optimizer._lr_scheduler
+        if sched is not None:
+            sched.step()
+        self._host_step += 1
         return loss
+
+    def sync_to_model(self):
+        """The JAX trainer copies its parameters and buffers back into
+        the model here; the port trains the model's own tensors in place,
+        so the model is always current."""
+
+    def state(self):
+        """Host snapshot of the training state in the JAX layout (see
+        the module doc): the parameters, the optimizer's slots (created
+        if no step has run yet, as JAX creates them with the trainer) and
+        step counts."""
+        opt = self.optimizer
+        return {
+            "params": {n: _host(p) for n, p in zip(self._names,
+                                                    self.params)},
+            "opt_state": {
+                "slots": {n: {k: _host(v) for k, v in opt._slots(p).items()}
+                          for n, p in zip(self._names, self.params)},
+                "step": int(opt._step_count)},
+            "step": self._host_step}
+
+    @torch.no_grad()
+    def load_state(self, state):
+        """Restore a `state()` (numpy arrays or tensors): parameters and
+        slots are written in place on the trainer's device, each in its
+        live tensor's dtype (a bf16 slot stays bf16)."""
+        from ..models.convert import _tensor
+        if "gt_state" in state:
+            raise NotImplementedError("grad_transform state is not ported")
+
+        def put(dst, v, name):
+            v = v if isinstance(v, torch.Tensor) else _tensor(v, copy=False)
+            if tuple(v.shape) != tuple(dst.shape):
+                raise ValueError(f"{name}: shape {tuple(v.shape)}, the "
+                                 f"trainer's {tuple(dst.shape)}")
+            dst.copy_(v.to(self.device, dst.dtype))
+
+        params, slots = state["params"], state["opt_state"]["slots"]
+        if set(params) != set(self._names) or set(slots) != set(self._names):
+            raise KeyError("the state's parameter names differ from the "
+                           "model's")
+        opt = self.optimizer
+        for n, p in zip(self._names, self.params):
+            put(p, params[n], n)
+            live = opt._slots(p)
+            if set(slots[n]) != set(live):
+                raise KeyError(f"{n}: slots {sorted(slots[n])}, the "
+                               f"optimizer's {sorted(live)}")
+            for k, v in slots[n].items():
+                put(live[k], v, f"{n}.{k}")
+        opt._step_count = int(np.asarray(state["opt_state"]["step"]))
+        self._host_step = int(state.get("step", 0))
+
+
+def _host(t):
+    """A numpy copy of a tensor on the host; bf16 widens to float32
+    there, exactly (numpy has no bfloat16)."""
+    t = t.detach()
+    h = t.cpu() if t.is_cuda else t.clone()
+    return (h.float() if h.dtype == torch.bfloat16 else h).numpy()

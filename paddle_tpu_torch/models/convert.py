@@ -10,21 +10,30 @@ weights compute the same thing in both packages: a port `GPT`, BERT or
 `model.load_state_dict(state_dict_from_numpy(np_state))`, each cast to
 its parameter's or buffer's dtype (f32 or bf16, numpy's bfloat16
 exactly).
+
+`trainer_state_from_numpy` does the same for a JAX `Trainer.state()`
+(parameters, optimizer slots and step counts under the model's names),
+so a state saved by the JAX package resumes in the port's
+`Trainer.load_state`.
 """
 import numpy as np
 import torch
 
 from ..device import get_device
 
-__all__ = ["state_dict_from_numpy"]
+__all__ = ["state_dict_from_numpy", "trainer_state_from_numpy"]
 
 
-def _tensor(arr):
-    """A CPU tensor of `arr`; numpy's bfloat16 extension type (which
-    torch cannot read) goes through float32, exactly."""
-    arr = np.array(arr)
+def _tensor(arr, copy=True):
+    """A CPU tensor of `arr`: a copy, or with `copy=False` a view of a
+    writable array (for callers that copy it onward at once); numpy's
+    bfloat16 extension type (which torch cannot read) goes through
+    float32, exactly."""
+    arr = np.array(arr) if copy else np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.astype(np.float32)).bfloat16()
+    if not arr.flags.writeable:
+        arr = arr.copy()
     return torch.from_numpy(arr)
 
 
@@ -33,3 +42,22 @@ def state_dict_from_numpy(np_state, device=None, dtype=None):
     dtype) casts every tensor, None keeps each array's own dtype."""
     dev = get_device(device)
     return {k: _tensor(v).to(dev, dtype) for k, v in np_state.items()}
+
+
+def trainer_state_from_numpy(jax_state, device=None):
+    """A JAX `Trainer.state()` (numpy leaves; the JAX layout) -> the
+    port's `Trainer.state()` tree with tensors on `device`, each leaf in
+    its own dtype (bf16 slots stay bf16), step counts as ints. The JAX
+    trainer's grad-transform state has no counterpart and raises."""
+    if "gt_state" in jax_state:
+        raise NotImplementedError("grad_transform state is not ported")
+    dev = get_device(device)
+    opt = jax_state["opt_state"]
+    return {
+        "params": {k: _tensor(v).to(dev)
+                   for k, v in jax_state["params"].items()},
+        "opt_state": {
+            "slots": {n: {k: _tensor(v).to(dev) for k, v in s.items()}
+                      for n, s in opt["slots"].items()},
+            "step": int(np.asarray(opt["step"]))},
+        "step": int(jax_state.get("step", 0))}

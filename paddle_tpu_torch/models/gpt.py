@@ -3,9 +3,15 @@ training model (counterpart of `paddle_tpu/models/gpt.py`).
 
 `GPT` is the pre-LN decoder the JAX package trains: learned positions,
 flash attention on the causal path, per-block activation recompute
-(`remat_policy="full"`, `torch.utils.checkpoint`), and the tied head
-accumulated in f32 with f32 logits (an untied head returns its Linear's
-dtype). Its parameter names and shapes are
+(`torch.utils.checkpoint`: `remat_policy="full"` saves nothing of the
+block, "dots" saves the outputs of its four Linear products, as JAX's
+`dots_with_no_batch_dims_saveable` does), and the tied head accumulated
+in f32 with f32 logits (an untied head returns its Linear's dtype). With
+a KV cache (`init_cache`, `forward(ids, cache=..., pos=...)`) it decodes
+as the JAX `GPT` does: each block writes k and v at `pos` into static
+[B, max_len, H, D] buffers and attends over the whole buffer in f32 with
+a `q_pos >= k_pos` mask (plain torch ops, as the JAX path is plain jnp).
+Its parameter names and shapes are
 the JAX `GPT`'s state dict, so `init_state_dict` and
 `convert.state_dict_from_numpy` feed both `GPT` and the serving path's
 `PagedGPTDecoder`. `GPTPretrainingCriterion` is the causal-LM loss with
@@ -13,11 +19,13 @@ pad label -100, through the streaming cross-entropy kernel where
 `can_fuse_xent` holds.
 """
 import dataclasses
+import functools
 import math
 
 import torch
 from torch import nn as tnn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import nn
 from ..device import get_device
@@ -43,7 +51,7 @@ class GPTConfig:
     sp_mode: str = "ring"            # 'ring' | 'zigzag' | 'ulysses'
     dtype: str = "bfloat16"          # compute dtype
     remat: bool = True               # recompute each block in the backward
-    remat_policy: str = "full"       # 'full' | 'none'; 'dots' not ported
+    remat_policy: str = "full"       # 'full' | 'dots' | 'none'
     tie_embeddings: bool = True
     init_std: float = 0.02
     tp_overlap: str = "off"          # 'off' | 'bulk' | 'ring'
@@ -110,21 +118,97 @@ class GPTBlock(tnn.Module):
         self.fc1 = nn.Linear(h, cfg.ffn_hidden, weight_init=init, **kw)
         self.fc2 = nn.Linear(cfg.ffn_hidden, h, weight_init=out_init, **kw)
 
-    def forward(self, x, dropout_seed=None):
-        """`dropout_seed`: the attention dropout's seed, drawn by the
-        caller outside any recompute so the backward's rerun drops the
-        same probabilities."""
+    def forward(self, x, cache=None, pos=None, dropout_seed=None):
+        """x [B, L, h] -> [B, L, h]; with a `cache` (k, v) and `pos`,
+        (out, cache) after writing this call's k and v at `pos`.
+        `dropout_seed`: the attention dropout's seed, drawn by the caller
+        outside any recompute so the backward's rerun drops the same
+        probabilities."""
         cfg = self.cfg
         B, L = x.shape[0], x.shape[1]
         qkv = self.qkv(self.ln1(x)).reshape(B, L, 3, cfg.num_heads,
                                              cfg.head_dim)
-        attn = F.scaled_dot_product_attention(
-            qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], is_causal=True,
-            dropout_p=cfg.dropout, training=self.training,
-            dropout_seed=dropout_seed)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if cache is not None:
+            attn, cache = _attend_cached(q, k, v, cache, pos)
+        else:
+            attn = F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, dropout_p=cfg.dropout,
+                training=self.training, dropout_seed=dropout_seed)
         x = x + self.proj(attn.reshape(B, L, cfg.hidden_size))
-        y = self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate=True))
-        return x + y
+        y = F.gelu(self.fc1(self.ln2(x)), approximate=True)
+        with _Unread():
+            y = self.fc2(y)
+        return x + y if cache is None else (x + y, cache)
+
+
+def _attend_cached(q, k, v, cache, pos):
+    """Decode-time attention against a static KV buffer (the JAX
+    `GPTBlock._attend_cached`): k and v [B, L, H, D] are written at
+    positions pos..pos+L-1 of the buffers (start clamped so the rows fit,
+    as `dynamic_update_slice` clamps), IN PLACE — the port has no buffer
+    donation — then q attends over the whole buffer in f32 with the
+    `q_pos >= k_pos` mask and -1e30 for masked scores. `pos` is an
+    int."""
+    k_buf, v_buf = cache
+    B, Lq, H, D = q.shape
+    Lmax = k_buf.shape[1]
+    dev = q.device
+    q_pos, rows = _positions(pos, Lq, dev, Lmax)
+    k_buf.index_copy_(1, rows, k.to(k_buf.dtype))
+    v_buf.index_copy_(1, rows, v.to(v_buf.dtype))
+    scale = 1.0 / math.sqrt(D)
+    qh = q.transpose(1, 2).float() * scale
+    kh = k_buf.transpose(1, 2).float()
+    vh = v_buf.transpose(1, 2).float()
+    s = qh @ kh.transpose(-1, -2)                       # [B, H, Lq, Lmax]
+    k_pos = torch.arange(Lmax, device=dev)[None, :]
+    s = torch.where(q_pos[:, None] >= k_pos, s, -1e30)
+    probs = torch.softmax(s, dim=-1)
+    out = (probs @ vh).transpose(1, 2).to(q.dtype)
+    return out, (k_buf, v_buf)
+
+
+def _positions(pos, L, device, max_len=None):
+    """Positions pos..pos+L-1 on `device` and, given the buffer length,
+    the rows they are written to (the start clamped so all L fit). The
+    int `pos` builds them with `arange` alone (no host-to-device copy,
+    which would wait for the card)."""
+    p = int(pos)
+    start = p if max_len is None else min(max(p, 0), max_len - L)
+    return (torch.arange(p, p + L, device=device),
+            torch.arange(start, start + L, device=device))
+
+
+class _Unread:
+    """While `active`, the block runs a product whose output no backward
+    reads: fc2's, which feeds only the residual add. 'dots' does not keep
+    it (JAX's partial evaluation drops that residual too), and the
+    recompute stops before it reruns it: the backward needs only fc2's
+    inputs, which the recompute has by then."""
+    active = False
+
+    def __enter__(self):
+        _Unread.active = True
+
+    def __exit__(self, *exc):
+        _Unread.active = False
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """remat 'dots': keep the products that have no batch dimensions —
+    F.linear's `addmm` (or `mm` on a non-contiguous input) — whose
+    outputs a backward reads (qkv, proj, fc1), and recompute everything
+    else, the attention kernel included (JAX's
+    `dots_with_no_batch_dims_saveable`: a `pallas_call` is no dot)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) \
+            and not _Unread.active:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_dots_context = functools.partial(create_selective_checkpoint_contexts,
+                                  _save_dots)
 
 
 class _TiedHead(torch.autograd.Function):
@@ -158,10 +242,6 @@ class GPT(tnn.Module):
 
     def __init__(self, cfg, device=None, seed=0):
         super().__init__()
-        if cfg.remat and cfg.remat_policy == "dots":
-            raise NotImplementedError(
-                "remat_policy='dots' is not ported (ROADMAP queue 1); use "
-                "'full' or 'none'")
         self.cfg = cfg
         dev = get_device(device)
         g = torch.Generator(device=dev)
@@ -186,32 +266,56 @@ class GPT(tnn.Module):
                                      device=dev, generator=g)
 
     def _run_block(self, block, x):
-        """One block; under remat 'full' its activations are recomputed
-        in the backward instead of stored."""
+        """One block; under remat its activations are recomputed in the
+        backward instead of stored: all of them ('full'), or all but the
+        Linear products that a backward reads ('dots')."""
         cfg = self.cfg
         seed = (_next_seed(self._rng) if self.training and cfg.dropout
                 else None)
-        if cfg.remat and cfg.remat_policy == "full" and \
+        if cfg.remat and cfg.remat_policy != "none" and \
                 torch.is_grad_enabled():
-            return checkpoint(block, x, seed, use_reentrant=False)
-        return block(x, seed)
+            kw = ({"context_fn": _dots_context}
+                  if cfg.remat_policy == "dots" else {})
+            return checkpoint(block, x, None, None, seed,
+                              use_reentrant=False, **kw)
+        return block(x, dropout_seed=seed)
 
-    def forward(self, input_ids):
+    def init_cache(self, batch_size, max_len):
+        """Decode KV cache: per block a zeroed (k, v) pair [batch_size,
+        max_len, H, D] in the config's dtype on the model's device."""
+        cfg = self.cfg
+        shape = (batch_size, max_len, cfg.num_heads, cfg.head_dim)
+        kw = {"dtype": getattr(torch, cfg.dtype),
+              "device": self.wte.weight.device}
+        return [(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
+                for _ in self.blocks]
+
+    def forward(self, input_ids, cache=None, pos=0):
         """input_ids [B, L] -> logits [B, L, V]: f32 from the tied head,
-        the Linear's dtype from an untied one (as in JAX)."""
+        the Linear's dtype from an untied one (as in JAX). With a `cache`
+        (`init_cache`) the tokens sit at positions pos..pos+L-1 and the
+        call returns (logits, cache)."""
         cfg = self.cfg
         B, L = input_ids.shape
-        positions = torch.arange(L, device=input_ids.device)
+        positions = _positions(pos if cache is not None else 0, L,
+                               input_ids.device)[0]
         x = self.wte(input_ids) + self.wpe(positions)
         x = self.drop(x.to(getattr(torch, cfg.dtype)))
-        for block in self.blocks:
-            x = self._run_block(block, x)
+        if cache is not None:
+            new_cache = []
+            for block, c in zip(self.blocks, cache):
+                x, c = block(x, cache=c, pos=pos)
+                new_cache.append(c)
+        else:
+            for block in self.blocks:
+                x = self._run_block(block, x)
         x = self.ln_f(x).reshape(B * L, cfg.hidden_size)
         if cfg.tie_embeddings:
             logits = _TiedHead.apply(x, self.wte.weight)
         else:
             logits = self.lm_head(x)
-        return logits.reshape(B, L, -1)
+        logits = logits.reshape(B, L, -1)
+        return logits if cache is None else (logits, new_cache)
 
 
 class GPTPretrainingCriterion(tnn.Module):

@@ -9,7 +9,12 @@ then an L2 decay coeff * p is added to it (`weight_decay` a float, or a
 `regularizer` object whose coefficient is read, as in JAX); slots are
 stored in `accumulator_dtype` (default f32); the result is cast back to
 the parameter's dtype once and written in place. The learning rate is a
-constant (schedulers are not ported). `SGD`, `Momentum` and `Adam` run
+float or an `lr.LRScheduler`, read once a step by `get_lr()` as a Python
+float (the kernels and the f32 torch ops round it to f32 once, as the
+JAX step's f32 `lr` argument is); `Trainer.step` advances the scheduler
+after the update. `state_dict` / `set_state_dict` use the JAX layout:
+`step`, `{index}.{slot}` (with `master` under `multi_precision`) and
+`LR_Scheduler`. `SGD`, `Momentum` and `Adam` run
 that rule per tensor, eagerly in f32 torch ops.
 
 `AdamW` groups its parameters by the AdamW kernel's template arguments
@@ -28,10 +33,13 @@ kernel, not in a second subtraction. `Adam` (L2 decay added to the
 gradient, which the kernel has no term for) keeps the eager per-tensor
 f32 rule of `Optimizer.apply_gradients`.
 """
+import copy
+
 import numpy as np
 import torch
 
 from ..ops.fused_ops import adamw_update_multi
+from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
 
@@ -62,12 +70,14 @@ class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=False,
                  accumulator_dtype=None):
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                "learning-rate schedulers are not ported: pass a float")
+        if not isinstance(learning_rate, (int, float, LRScheduler)):
+            raise TypeError("learning_rate must be a float or an "
+                            f"LRScheduler, got {type(learning_rate)}")
         self._parameter_list = (list(parameters) if parameters is not None
                                 else None)
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = (learning_rate
+                               if isinstance(learning_rate, LRScheduler)
+                               else float(learning_rate))
         self._grad_clip = grad_clip
         self._multi_precision = multi_precision
         self._acc_dtype = _dtype(accumulator_dtype)
@@ -76,7 +86,17 @@ class Optimizer:
         self._step_count = 0
 
     def get_lr(self):
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
         return self._learning_rate
+
+    def set_lr(self, value):
+        self._learning_rate = float(value)
+
+    @property
+    def _lr_scheduler(self):
+        return (self._learning_rate
+                if isinstance(self._learning_rate, LRScheduler) else None)
 
     def bind(self, parameters):
         """Set the parameters this optimizer updates (the Trainer binds
@@ -97,6 +117,56 @@ class Optimizer:
     def _update_rule(self, p, g, slots, lr, step):
         """(new_p, new_slots) from f32 p, g and slots."""
         raise NotImplementedError
+
+    def _slot_dtype(self, name):
+        return (torch.float32 if name == "master"
+                else self._acc_dtype or torch.float32)
+
+    # -- checkpointing ------------------------------------------------------
+    def state_dict(self):
+        """{"step", "{i}.{slot}": tensor, "LR_Scheduler": dict}: the JAX
+        layout, parameters named by their index in the parameter list
+        (the JAX parameters' `name` is None, so the JAX keys are the
+        same). Slots that do not exist yet are left out. A snapshot:
+        the slots are copies (the AdamW kernel updates the live ones in
+        place), as the JAX arrays are immutable."""
+        out = {"step": self._step_count}
+        for i, p in enumerate(self._parameter_list or []):
+            for k, v in self._state.get(p, {}).items():
+                out[f"{i}.{k}"] = v.detach().clone()
+        if self._lr_scheduler is not None:
+            out["LR_Scheduler"] = copy.deepcopy(
+                self._lr_scheduler.state_dict())
+        return out
+
+    @torch.no_grad()
+    def set_state_dict(self, state_dict):
+        """Restore a `state_dict` (tensors or numpy arrays): each slot
+        onto its parameter's device in its configured dtype (a bf16 slot
+        stays bf16; the f32 master stays f32), the step count and the
+        scheduler's state."""
+        from ..models.convert import _tensor
+        self._step_count = int(state_dict.get("step", 0))
+        names = self._slot_names + (("master",) if self._multi_precision
+                                    else ())
+        for i, p in enumerate(self._parameter_list or []):
+            slots = {}
+            for k in names:
+                v = state_dict.get(f"{i}.{k}")
+                if v is None:
+                    continue
+                if not isinstance(v, torch.Tensor):
+                    v = _tensor(v, copy=False)
+                if tuple(v.shape) != tuple(p.shape):
+                    raise ValueError(f"slot {i}.{k} has shape "
+                                     f"{tuple(v.shape)}, the parameter "
+                                     f"{tuple(p.shape)}")
+                slots[k] = v.to(p.device, self._slot_dtype(k), copy=True)
+            if slots:
+                self._state[p] = slots
+        sched = self._lr_scheduler
+        if "LR_Scheduler" in state_dict and sched is not None:
+            sched.set_state_dict(dict(state_dict["LR_Scheduler"]))
 
     @torch.no_grad()
     def apply_gradients(self, params, grads, lr=None):

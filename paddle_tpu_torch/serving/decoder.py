@@ -17,11 +17,14 @@ Every attention call goes through `ops.ragged_paged_attention`, and with
 the hand-written CUDA kernels on the card, their plain versions on the
 CPU. Ported: float32/bfloat16, int8 (`kv_quant="int8"`, per-token
 scales) and int4 (`kv_quant="int4"`, nibbles with per-group scales)
-pools, int4 weights (`quant="w4a16"`), greedy decoding, the packed
-layout, one device. A quantized pool is a (pages, scales) tuple per K and
-V; `_kv_set` quantizes each token from its own values as it writes it
-(plain PyTorch, as the JAX decoder's jnp), so stored bytes depend only on
-(request, position).
+pools, int4 weights (`quant="w4a16"`), greedy and sampled decoding
+(`temperature`, `top_k`, `top_p`, `seed`: the JAX `mask_logits` and a
+threefry draw bit-equal to `jax.random`, keyed by (seed, request id,
+position) on every path, so a request's tokens do not depend on the
+schedule), the packed layout, one device. A quantized pool is a (pages,
+scales) tuple per K and V; `_kv_set` quantizes each token from its own
+values as it writes it (plain PyTorch, as the JAX decoder's jnp), so
+stored bytes depend only on (request, position).
 """
 import collections
 
@@ -29,7 +32,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import random as prng
 from ..device import get_device
+from ..models.generation import mask_logits
 from ..ops import ragged_paged_attention as rpa
 from ..ops import w4_matmul as w4
 
@@ -59,8 +64,8 @@ _NO_LIMIT = np.iinfo(np.int32).max // 2
 def _not_ported(what):
     return NotImplementedError(
         f"{what} is not ported to paddle_tpu_torch yet (the port serves "
-        "float32/bfloat16/int8/int4 pools and W4A16 weights, greedy, "
-        "packed, on one device; later slices add it)")
+        "float32/bfloat16/int8/int4 pools and W4A16 weights, greedy or "
+        "sampled, packed, on one device; later slices add it)")
 
 
 def pow2_at_least(n):
@@ -193,6 +198,18 @@ def pool_token_bytes(cfg, kv_quant=None, itemsize=2):
     return int(2 * per_tensor)
 
 
+def _sample_tokens(logits, sampling, keys):
+    """Per-slot next token (the JAX `_sample_tokens`): greedy argmax, or
+    one categorical draw a row from the `sampling` (temperature, top_k,
+    top_p) mask under that row's key (keys [S, 2], see
+    `PagedGPTDecoder._pos_keys`). int32."""
+    if sampling is None:
+        return logits.argmax(-1).to(torch.int32)
+    temperature, top_k, top_p = sampling
+    masked = mask_logits(logits, temperature, top_k, top_p)
+    return prng.categorical(keys, masked).to(torch.int32)
+
+
 def _kv_set(pool, pids, offs, val):
     """Write `val` [..., H, D] at (pids, offs) of ONE layer's page pool,
     in place — the single KV write primitive of every serving path
@@ -225,8 +242,8 @@ class PagedGPTDecoder:
 
     def __init__(self, cfg, state_dict, num_pages=128, page_size=16,
                  max_batch=8, max_pages_per_seq=None, quant=None,
-                 kv_quant=None, dtype=None, temperature=0.0, mesh=None,
-                 packed=True, device=None):
+                 kv_quant=None, dtype=None, temperature=0.0, top_k=0,
+                 top_p=1.0, seed=0, mesh=None, packed=True, device=None):
         if quant == "a8w8":
             raise _not_ported("int8 weights with int8 activations "
                               "(quant='a8w8')")
@@ -236,8 +253,6 @@ class PagedGPTDecoder:
         if kv_quant not in (None, "int8", "int4"):
             raise ValueError(f"kv_quant must be None, 'int8' or 'int4', "
                              f"got {kv_quant!r}")
-        if temperature:
-            raise _not_ported("sampled decoding (temperature > 0)")
         if mesh is not None:
             raise _not_ported("tensor-parallel serving (mesh=)")
         if not packed:
@@ -251,6 +266,11 @@ class PagedGPTDecoder:
             (cfg.max_seq_len + page_size - 1) // page_size
         self.quant = quant
         self.kv_quant = kv_quant
+        # temperature 0 = greedy (the reference decode convention)
+        self.sampling = None if not temperature else \
+            (float(temperature), int(top_k), float(top_p))
+        self.seed = int(seed)
+        self._base_key = prng.PRNGKey(self.seed, device=self.device)
         dtype = dtype or cfg.dtype
         self.compute_dtype = _DTYPES[dtype] if isinstance(dtype, str) \
             else dtype
@@ -385,29 +405,44 @@ class PagedGPTDecoder:
         col = (lens.long() // self.page_size).clamp(max=table.shape[1] - 1)
         return table.gather(1, col[:, None])[:, 0]
 
-    def _decode_step(self, tokens, lens, table):
+    def _pos_keys(self, kids, pos):
+        """Per-slot keys fold_in(fold_in(PRNGKey(seed), kid), pos) [S, 2]
+        (the JAX `_pos_keys`): a draw depends only on the decoder's seed,
+        the request (`kids`: the engine passes request ids) and the
+        position of the token being consumed — nothing of the schedule."""
+        return prng.fold_in(prng.fold_in(self._base_key, kids), pos)
+
+    def _pick(self, logits, kids, pos):
+        keys = (self._pos_keys(kids, pos) if self.sampling is not None
+                else None)
+        return _sample_tokens(logits, self.sampling, keys)
+
+    def _decode_step(self, tokens, lens, table, kids=None):
         """tokens [S], lens [S] (position of the incoming token), table
-        [S, max_pages] -> (next [S] int32, logits [S, V])."""
+        [S, max_pages], kids [S] (sampling key ids, default the slot
+        index) -> (next [S] int32, logits [S, V])."""
+        kids = self._kids(kids)
         pids = self._slot_pids(table, lens)
         logits = self._forward_tokens(tokens, lens, table, pids,
                                       lens % self.page_size)
-        return logits.argmax(-1).to(torch.int32), logits
+        return self._pick(logits, kids, lens), logits
 
-    def _decode_multi_step(self, tokens, lens, table, done, remaining, eos,
-                           k):
+    def _decode_multi_step(self, tokens, lens, table, kids, done, remaining,
+                           eos, k):
         """K fused decode ticks; each tick's token feeds the next on the
-        device. `done` [S] freezes a slot from tick 0; a slot also freezes
-        after emitting `eos` (-1: none) or after `remaining` tokens.
-        Frozen slots' lens stop advancing and their K/V writes route to
-        the scratch page. Returns (block [k, S], done_before [k, S],
-        tokens, lens, done, remaining)."""
+        device, tick j drawing with the (seed, kid, lens + j) keys the
+        per-tick loop uses. `done` [S] freezes a slot from tick 0; a slot
+        also freezes after emitting `eos` (-1: none) or after `remaining`
+        tokens. Frozen slots' lens stop advancing and their K/V writes
+        route to the scratch page. Returns (block [k, S], done_before
+        [k, S], tokens, lens, done, remaining)."""
         scratch = self.num_pages - 1
         block, before = [], []
         for _ in range(k):
             pids = torch.where(done, scratch, self._slot_pids(table, lens))
             logits = self._forward_tokens(tokens, lens, table, pids,
                                           lens % self.page_size)
-            nxt = logits.argmax(-1).to(torch.int32)
+            nxt = self._pick(logits, kids, lens)
             nxt = torch.where(done, tokens, nxt)
             rem = torch.where(done, remaining, remaining - 1)
             new_done = done | (nxt == eos) | (rem <= 0)
@@ -419,14 +454,15 @@ class PagedGPTDecoder:
                 remaining)
 
     def _packed_forward(self, ptok, pos, rows, write_ok, table, last_idx,
-                        live):
+                        sample_pos, kids, live):
         """The shared PACKED forward: consume the flat token stream `ptok`
         [T] (token t = table row `rows[t]` at position `pos[t]`), write
         real tokens' K/V (`write_ok` False routes to scratch: padded tail,
         frozen rows, table overflow) and attend each token over its own
         row's pages. `last_idx` [S] indexes each row's last stream token,
-        whose hidden state prices the row's logits (masked by `live`).
-        Returns next [S] int32 (greedy)."""
+        whose hidden state prices the row's logits (masked by `live`);
+        `sample_pos` [S] is the row's sampling position (true_len - 1) and
+        `kids` [S] its key id. Returns next [S] int32."""
         ps, MP = self.page_size, table.shape[1]
         x = self._embed(ptok, pos)
         col = (pos.long() // ps).clamp(max=MP - 1)
@@ -442,10 +478,10 @@ class PagedGPTDecoder:
             x = self._layer(l, x, pids, offs, attend)
         last = x[last_idx.long().clamp(0, x.shape[0] - 1)]       # [S, h]
         last = torch.where(live[:, None], last, 0.0)
-        return self._logits(last).argmax(-1).to(torch.int32)
+        return self._pick(self._logits(last), kids, sample_pos)
 
-    def _packed_multi_step(self, tokens, lens, table, done, remaining, eos,
-                           pend, pend_n, w, k, t):
+    def _packed_multi_step(self, tokens, lens, table, kids, done, remaining,
+                           eos, pend, pend_n, w, k, t):
         """K MIXED ticks over the PACKED [t] token stream: a tick's stream
         concatenates every live row's new tokens (decode rows ONE token,
         prefilling rows their next min(pend_n, w) suffix tokens, frozen
@@ -454,8 +490,9 @@ class PagedGPTDecoder:
         with fixed-size tensors only, so the loop never waits for the
         card. A prefilling row emits nothing until the tick that consumes
         its last suffix token, which also yields its first generated
-        token. Returns the RaggedMultiOut fields (tokens_block [k, S],
-        emitted [k, S], real [k], finals...)."""
+        token; it draws with the (seed, kid, true_len - 1) key the
+        per-tick loop uses there. Returns the RaggedMultiOut fields
+        (tokens_block [k, S], emitted [k, S], real [k], finals...)."""
         S, P = pend.shape
         MP, ps = table.shape[1], self.page_size
         dev = self.device
@@ -484,7 +521,8 @@ class PagedGPTDecoder:
             last_idx = (csum - 1).clamp(0, t - 1)
             live = ~done & (nl > 0)
             nxt = self._packed_forward(ptok, pos, rows.to(torch.int32),
-                                       write_ok, table, last_idx, live)
+                                       write_ok, table, last_idx,
+                                       lens + nl - 1, kids, live)
             emit = ~done & (pend_n <= w)
             nxt = torch.where(emit, nxt, tokens)
             rem = torch.where(emit, remaining - 1, remaining)
@@ -502,19 +540,22 @@ class PagedGPTDecoder:
 
     # -- host-side API -----------------------------------------------------
 
-    def prefill(self, ids, page_ids):
+    def prefill(self, ids, page_ids, kid=None):
         """Run one prompt through the model, writing KV into `page_ids`;
-        returns the next token (greedy)."""
-        return self.prefill_batch([(ids, page_ids)])[0]
+        returns the next token (greedy or sampled)."""
+        return self.prefill_batch([(ids, page_ids)],
+                                  kids=None if kid is None else [kid])[0]
 
-    def prefill_batch(self, requests):
+    def prefill_batch(self, requests, kids=None):
         """Prefill several prompts in full. requests: [(ids, page_ids),
         ...]; returns the first generated token per request (in order).
-        A thin wrapper over the packed chunked prefill at start=0."""
+        `kids`: the requests' sampling key ids (default: their index in
+        this call; the engine passes request ids). A thin wrapper over
+        the packed chunked prefill at start=0."""
         return self.prefill_suffix_batch(
-            [(ids, 0, pages) for ids, pages in requests])
+            [(ids, 0, pages) for ids, pages in requests], kids=kids)
 
-    def prefill_suffix_batch(self, requests, packed=None):
+    def prefill_suffix_batch(self, requests, kids=None, packed=None):
         """Chunked prefill over page-table rows. requests: [(suffix_ids,
         start, pages), ...] — `pages` is the sequence's page list in
         block order, `start` the already-cached prefix length (0: the
@@ -524,13 +565,16 @@ class PagedGPTDecoder:
         order)."""
         if packed is False:
             raise _not_ported("the dense window prefill (packed=False)")
-        return self._prefill_packed_batch(requests)
+        return self._prefill_packed_batch(requests, kids=kids)
 
-    def _prefill_packed_batch(self, requests):
+    def _prefill_packed_batch(self, requests, kids=None):
         """PACKED prefill dispatch: the layout (flat tokens, per-token row
         ids and positions) is built on the host, where all lengths are
-        known, and sent to the device in one go per group."""
+        known, and sent to the device in one go per group. A request
+        samples at (kid, start + len - 1)."""
         results = [None] * len(requests)
+        if kids is None:
+            kids = list(range(len(requests)))
         S, MP, ps = self.max_batch, self.max_pages, self.page_size
         todo = list(enumerate(requests))
         while todo:
@@ -542,10 +586,12 @@ class PagedGPTDecoder:
             rows = np.zeros(t, np.int32)
             ok = np.zeros(t, bool)
             last_idx = np.zeros(S, np.int32)
+            spos = np.zeros(S, np.int32)
+            kd = np.zeros(S, np.int32)
             live = np.zeros(S, bool)
             tbl = np.full((S, MP), self.num_pages - 1, np.int32)
             cur = 0
-            for r, (_, (ids, start, pages)) in enumerate(chunk):
+            for r, (i, (ids, start, pages)) in enumerate(chunk):
                 ids = np.asarray(ids, np.int32).reshape(-1)
                 n = len(ids)
                 ptok[cur:cur + n] = ids
@@ -553,6 +599,8 @@ class PagedGPTDecoder:
                 rows[cur:cur + n] = r
                 ok[cur:cur + n] = pos[cur:cur + n] < MP * ps
                 last_idx[r] = max(cur + n - 1, 0)
+                spos[r] = int(start) + n - 1
+                kd[r] = kids[i]
                 live[r] = n > 0
                 m = min(len(pages), MP)
                 tbl[r, :m] = pages[:m]       # rest stays on scratch
@@ -560,20 +608,32 @@ class PagedGPTDecoder:
             nxt = self._packed_forward(
                 self._as_i32(ptok), self._as_i32(pos), self._as_i32(rows),
                 torch.as_tensor(ok, device=self.device), self._as_i32(tbl),
-                self._as_i32(last_idx),
+                self._as_i32(last_idx), self._as_i32(spos),
+                self._kids(kd),
                 torch.as_tensor(live, device=self.device)).tolist()
             for r, (i, _) in enumerate(chunk):
                 results[i] = nxt[r]
         return results
 
-    def decode(self, tokens, lens, table):
-        """One decode step for all slots (greedy). Returns next [S] int32
-        on the device."""
+    def _kids(self, kids):
+        """Sampling key ids (array or tensor) on the device, default the
+        slot index; None on a greedy decoder, which reads no key (so no
+        copy to the device)."""
+        if self.sampling is None:
+            return None
+        if kids is None:
+            kids = np.arange(self.max_batch, dtype=np.int32)
+        return self._as_i32(kids)
+
+    def decode(self, tokens, lens, table, kids=None):
+        """One decode step for all slots (greedy or sampled; `kids` the
+        slots' key ids, default the slot index — the engine passes
+        request ids). Returns next [S] int32 on the device."""
         nxt, _ = self._decode_step(self._as_i32(tokens), self._as_i32(lens),
-                                   self._as_i32(table))
+                                   self._as_i32(table), kids)
         return nxt
 
-    def decode_multi(self, tokens, lens, table, k, done=None,
+    def decode_multi(self, tokens, lens, table, k, kids=None, done=None,
                      remaining=None, eos=None):
         """Run `k` decode ticks device-resident: the tokens each tick
         emits feed the next without a host sync (see
@@ -586,6 +646,7 @@ class PagedGPTDecoder:
             remaining = np.full(S, _NO_LIMIT, np.int32)
         out = self._decode_multi_step(
             self._as_i32(tokens), self._as_i32(lens), self._as_i32(table),
+            self._kids(kids),
             torch.as_tensor(done, dtype=torch.bool, device=self.device),
             self._as_i32(remaining), -1 if eos is None else int(eos), k)
         return MultiDecodeOut(*out)
@@ -597,8 +658,8 @@ class PagedGPTDecoder:
         return self.max_pages * self.page_size
 
     def ragged_multi(self, tokens, lens, table, k, w, pend, pend_n,
-                     done=None, remaining=None, eos=None, packed=None,
-                     t_tokens=None):
+                     kids=None, done=None, remaining=None, eos=None,
+                     packed=None, t_tokens=None):
         """Run `k` MIXED ragged ticks device-resident: decode rows and
         prefill-chunk rows serve together, up to w suffix tokens per
         prefilling slot per tick, as the flat [t_tokens] packed stream.
@@ -624,6 +685,7 @@ class PagedGPTDecoder:
                 "cover at least one token per slot")
         out = self._packed_multi_step(
             self._as_i32(tokens), self._as_i32(lens), self._as_i32(table),
+            self._kids(kids),
             torch.as_tensor(done, dtype=torch.bool, device=self.device),
             self._as_i32(remaining), -1 if eos is None else int(eos),
             self._as_i32(pend), self._as_i32(pend_n), w, k, t)

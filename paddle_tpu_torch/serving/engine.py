@@ -65,6 +65,9 @@ class ContinuousBatchingEngine:
         # int32 end to end: the decoder feeds these to the kernel as int32
         self._lens = np.zeros(S, np.int32)
         self._tokens = np.zeros(S, np.int32)
+        # request id per slot: the sampling key id, so a request's draws
+        # do not depend on which slot, batch or schedule served it
+        self._kids = np.zeros(S, np.int32)
         # per-slot admission generation: a block dispatched for an earlier
         # occupancy of the slot must never book-keep against a later one
         self._slot_gen = [0] * S
@@ -151,7 +154,8 @@ class ContinuousBatchingEngine:
         self._note_queue_waits(admitted)
         self._table_cache = None
         firsts = self.d.prefill_suffix_batch(
-            [(ids, 0, pages) for _, _, ids, pages in admitted])
+            [(ids, 0, pages) for _, _, ids, pages in admitted],
+            kids=[rid for _, rid, _, _ in admitted])
         self.stats.prefill_syncs += 1
         if active0:
             # this prefill BLOCKED the host while slots sat decoding
@@ -171,6 +175,7 @@ class ContinuousBatchingEngine:
                 continue
             self._lens[slot] = len(ids)
             self._tokens[slot] = first
+            self._kids[slot] = rid
             live.append(slot)
         return live
 
@@ -230,8 +235,8 @@ class ContinuousBatchingEngine:
             return 0
         if self._table_cache is None:        # slots changed since last tick
             self._table_cache = self._table()
-        nxt = self.d.decode(self._tokens, self._lens,
-                            self._table_cache).cpu().numpy()
+        nxt = self.d.decode(self._tokens, self._lens, self._table_cache,
+                            kids=self._kids).cpu().numpy()
         self.steps += 1
         self.stats.ticks += 1
         self.stats.decode_syncs += 1
@@ -304,6 +309,7 @@ class ContinuousBatchingEngine:
             self._outputs[rid] = []
             self._lens[slot] = 0
             self._tokens[slot] = 0
+            self._kids[slot] = rid
             self._prompt_len[slot] = len(ids)
             self.scheduler.admit(slot, len(ids))
             self.stats.prefill_chunk_tokens += len(ids)
@@ -469,7 +475,8 @@ class ContinuousBatchingEngine:
                 out = self.d.ragged_multi(
                     tokens_d, lens_d,
                     np.ascontiguousarray(self._table_cache[:, :width]),
-                    plan.k, plan.w, pend_d, pend_n_d, done=done_d,
+                    plan.k, plan.w, pend_d, pend_n_d, kids=self._kids,
+                    done=done_d,
                     remaining=rem_d, eos=self.eos, t_tokens=plan.t_tokens)
                 carry = (out.tokens, out.lens, out.done, out.remaining,
                          out.pend, out.pend_n)

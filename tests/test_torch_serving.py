@@ -146,8 +146,10 @@ def test_ragged_engine_equals_per_tick_engine(models):
 def test_unported_options_raise(models):
     with pytest.raises(NotImplementedError):
         _decoder(models, quant="a8w8")
-    with pytest.raises(NotImplementedError):
-        _decoder(models, temperature=0.7)
+    # sampling is ported (test_torch_serving_sampled.py): it builds with
+    # the JAX decoder's sampling tuple and seed
+    dec = _decoder(models, temperature=0.7, top_k=5, seed=9)
+    assert dec.sampling == (0.7, 5, 1.0) and dec.seed == 9
     with pytest.raises(NotImplementedError):
         ContinuousBatchingEngine(_decoder(models), prefix_cache=True)
     with pytest.raises(NotImplementedError):

@@ -252,15 +252,24 @@ def test_init_state_dict_follows_the_jax_recipe():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        GPT(gpt_tiny(remat_policy="dots", **CFG), device="cpu")
+    # remat 'dots' is ported: it builds and trains (a loss and a gradient
+    # for every parameter)
+    dots = GPT(gpt_tiny(remat_policy="dots", **CFG), device="cpu")
+    b = _batch(1, seed=5)
+    loss = GPTPretrainingCriterion()(dots(torch.from_numpy(
+        b["input_ids"])), torch.from_numpy(b["labels"]))
+    loss.backward()
+    assert torch.isfinite(loss)
+    assert all(p.grad is not None for p in dots.parameters())
     # sp_mode picks a branch that needs a mesh; the port has none, so
     # every value the JAX config takes runs the plain path, as JAX does
     # on one device, and only a value JAX refuses raises
     gpt_tiny(sp_mode="ulysses")
     with pytest.raises(ValueError):
         gpt_tiny(sp_mode="tree")
-    with pytest.raises(NotImplementedError):
+    # schedulers are ported (test_torch_lr.py); a callable is neither a
+    # float nor a scheduler
+    with pytest.raises(TypeError):
         AdamW(learning_rate=lambda: 1e-3)
 
 
