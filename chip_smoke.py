@@ -100,7 +100,22 @@ logits within CACHED_LOGIT_TOL of the full forward's; and sampled serving
 the greedy run, its streams against the per-tick engine and against the
 same requests in reversed order (a stream may part only on a near-tie),
 and, for generation and serving, the card's draws equal the host's
-threefry draws from the card's logits. Every phase raises on failure.
+threefry draws from the card's logits. The prefix cache, the host KV
+tier and cache persistence serve gpt_1p3b's traffic of 4 groups of 8
+requests, each group sharing a 512-token system prompt: with the cache
+off and on over bf16, int8 and int4 pools, with a full-prompt hit whose
+copy-on-write copy must be bit-equal to its source (scale planes too);
+in three waves (A-D, E-H pushing A-D's pages out of the pool, A-D again)
+under tier policies restore / recompute / auto beside a capacity-0 twin,
+the spilled and restored bytes bit-equal to the pages', the engine's and
+a pinned buffer's D2H / H2D rates beside the priced PCIe rate; and from
+a cache saved after the first wave and loaded onto a fresh decoder. Every
+cached run launches the ragged kernel (plain version never); a kept
+attention call of a device hit, a copy-on-write and a restore, on the
+real mounted table at start > 0, matches the plain version; the page
+audit is empty after each run; and the streams equal their cache-off,
+capacity-0 or warm twin's or pass the teacher-forced oracle rule. Every
+phase raises on failure.
 The output is one line per phase, then one JSON line with the kernels'
 numbers, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the package next
@@ -1245,22 +1260,23 @@ LOGIT_TOL = 0.1
 
 def _teacher_force(dec, prompts, streams):
     """Teacher-force the per-tick decoder (`_decode_step`) with each
-    request's prompt and then `streams`. Returns (the largest gap between
-    a tick's best logit and the stream token's, the mean NLL of the
-    stream tokens)."""
+    request's prompt and then `streams` (all of one length). Overwrites
+    the pool's first pages. Returns (the largest gap between a tick's best
+    logit and the stream token's, the mean NLL of the stream tokens)."""
     n = len(streams)
+    new = len(streams[0])
     ps = dec.page_size
     tbl = np.full((n, dec.max_pages), dec.num_pages - 1, np.int32)
     nxt_page = 0
     for r in range(n):
-        need = (len(prompts[r]) + MAX_NEW + ps - 1) // ps
+        need = (len(prompts[r]) + new + ps - 1) // ps
         tbl[r, :need] = np.arange(nxt_page, nxt_page + need)
         nxt_page += need
     dec.prefill_batch([(prompts[r][:-1], tbl[r][tbl[r] < dec.num_pages - 1]
                         .tolist()) for r in range(n)])
     table = dec._as_i32(tbl)
     gap, nll = 0.0, []
-    for i in range(MAX_NEW):
+    for i in range(new):
         toks = [prompts[r][-1] if i == 0 else streams[r][i - 1]
                 for r in range(n)]
         lens = [len(prompts[r]) - 1 + i for r in range(n)]
@@ -4924,6 +4940,569 @@ def phase_serve_sampled(sd, prompts, greedy_fields, rpa):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 4c
+# The prefix cache, the host KV tier and cache persistence on gpt_1p3b
+# serving, in the serving configuration (bf16 pool of 1025 pages,
+# max_batch 16, page_size 16, greedy, k_max 8): 4 groups of 8 requests,
+# each group sharing a 512-token system prompt (32 pages) followed by a
+# unique 32-256-token suffix. Every cached admission prefills its suffix
+# from start > 0 through the ragged paged attention kernel, over mounted,
+# copied (copy-on-write) or restored pages.
+
+GROUPS, GROUP_SIZE, SYS_LEN = 4, 8, 512
+TIER_NEW = 16           # new tokens a request of the tier and persistence waves
+TIER_BYTES = 2 << 30    # the host tier's capacity
+TAP_LAYER = 12          # the layer whose attention call the suffix check keeps
+PERSIST_DIR = "_archive/prefix_persist"    # under the checkout, gitignored
+
+
+def _group_traffic(vocab, seed, size=GROUP_SIZE):
+    """GROUPS x `size` prompts, group-major: a SYS_LEN-token system prompt
+    a group, then a unique suffix of 32-256 tokens a request."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(GROUPS):
+        system = rng.randint(0, vocab, SYS_LEN).tolist()
+        out += [system + rng.randint(0, vocab, rng.randint(32, 257)).tolist()
+                for _ in range(size)]
+    return out
+
+
+def _serve_groups(eng, prompts, rpa):
+    """Serve group-major `prompts` as arriving traffic: each group's
+    first request is submitted first, the others at the first host sync
+    after every leader has its first token (its blocks then published).
+    The ragged kernel's counts are set to 0 just before the run and read
+    just after; it must launch, and its plain version never. Returns
+    (streams, wall seconds, [kernel, plain, device launches])."""
+    lead = list(range(0, len(prompts), max(len(prompts) // GROUPS, 1)))
+    rest = [i for i in range(len(prompts)) if i not in lead]
+    rids = {i: eng.submit(prompts[i]) for i in lead}
+
+    def arrive(e):
+        if rest and all(e._outputs.get(rids[i]) for i in lead):
+            for i in rest:
+                rids[i] = e.submit(prompts[i])
+            rest.clear()
+    torch.cuda.synchronize()
+    rpa.reset_counts()
+    t0 = time.perf_counter()
+    out = eng.run(on_sync=arrive)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [rpa.kernel_launches, rpa.plain_launches, rpa.device_launches]
+    if launches[0] <= 0 or launches[1]:
+        raise AssertionError(f"cached serving: attention launches "
+                             f"{launches[:2]} (kernel, plain)")
+    return [out[rids[i]] for i in range(len(prompts))], wall, launches
+
+
+_COUNTERS = ("prefill_chunk_tokens", "prefix_hits", "prefix_misses",
+             "prefix_cow", "prefix_evictions", "tier_spills", "tier_restores",
+             "tier_recomputes")
+
+
+def _mark(eng):
+    """The engine's counters and TTFT count now: `_cache_fields` reports
+    one run as the difference."""
+    return ({k: getattr(eng.stats, k) for k in _COUNTERS},
+            len(eng.stats.ttft_s))
+
+
+def _cache_fields(eng, mark, wall, n_new, n_req):
+    """One run's tok/s, TTFT p50/p99, hit rate, prompt tokens computed and
+    cache (and tier) counters, from the engine's stats since `mark`."""
+    st = eng.stats
+    d = {k: getattr(st, k) - mark[0][k] for k in _COUNTERS}
+    ttft = np.asarray(list(st.ttft_s)[mark[1]:]) * 1e3
+    looked = d["prefix_hits"] + d["prefix_misses"]
+    out = dict(wall_s=f"{wall:.3f}",
+               gen_tok_per_s=f"{n_req * n_new / wall:.1f}",
+               ttft_p50_ms=f"{np.percentile(ttft, 50):.1f}",
+               ttft_p99_ms=f"{np.percentile(ttft, 99):.1f}",
+               prefix_hit_rate=f"{d['prefix_hits'] / max(looked, 1):.4f}",
+               prompt_tokens_computed=d["prefill_chunk_tokens"],
+               **{k: d[k] for k in _COUNTERS[1:5]})
+    if eng.tier is not None:
+        out.update({k: d[k] for k in _COUNTERS[5:]},
+                   host_tier_MB=f"{st.host_tier_bytes / 1e6:.1f}")
+    return out
+
+
+def _oracle_rule(dec, prompts, streams, ref, also=()):
+    """The oracle rule for the streams of a cached run: a stream equal to
+    its twin's (`ref`: the same traffic without the cache, or with a
+    capacity-0 tier) passes; each stream that parts, and each of `also`,
+    is teacher-forced through the per-tick decoder, and its every token
+    must score within LOGIT_TOL of the tick's best logit. Overwrites the
+    pool's first pages: run it after the decoder's engines are done.
+    Returns (streams equal, streams forced, the largest gap)."""
+    check = sorted({i for i, (a, b) in enumerate(zip(streams, ref))
+                    if a != b} | set(also))
+    gap = 0.0
+    for lo in range(0, len(check), 8):
+        idx = check[lo:lo + 8]
+        g, _ = _teacher_force(dec, [prompts[i] for i in idx],
+                              [streams[i] for i in idx])
+        gap = max(gap, g)
+    if gap > LOGIT_TOL:
+        raise AssertionError(f"a cached stream's token scores {gap:.4f} "
+                             f"below the per-tick best logit (tolerance "
+                             f"{LOGIT_TOL})")
+    return sum(a == b for a, b in zip(streams, ref)), len(check), gap
+
+
+class _SuffixTap:
+    """Stands in for the decoder module's `rpa` during a cached run:
+    passes every call to the kernel's wrappers and keeps, at layer
+    TAP_LAYER, the first packed call made while request `rid` holds a slot
+    and has not had its first token processed (its prefix mounted, copied
+    or restored, its suffix at start > 0): copies of the call's q, that
+    layer's K/V pools, the table, rows, positions and the kernel's output,
+    with the slot's pages, the shared ones and the restored ones."""
+
+    def __init__(self, rpa, dec, eng, rid):
+        self.rpa, self.eng, self.rid, self.got = rpa, eng, rid, None
+        leaf = dec.k_pages[0] if isinstance(dec.k_pages, tuple) \
+            else dec.k_pages
+        self.layer = leaf[TAP_LAYER].data_ptr()
+
+    def ragged_paged_attention(self, *args):
+        return self.rpa.ragged_paged_attention(*args)
+
+    def ragged_paged_attention_packed(self, q, kp, vp, table, rows, pos):
+        out = self.rpa.ragged_paged_attention_packed(q, kp, vp, table, rows,
+                                                     pos)
+        leaf = kp[0] if isinstance(kp, tuple) else kp
+        eng = self.eng
+        if self.got is None and leaf.data_ptr() == self.layer and \
+                self.rid in eng._cache_meta:
+            def copy(x):
+                return tuple(t.clone() for t in x) if isinstance(x, tuple) \
+                    else x.clone()
+            slot = eng._slot_req.index(self.rid)
+            twins = ({e["page"] for e in eng.tier.ledger().values()}
+                     if eng.tier is not None else set())
+            pages = list(eng._slot_pages[slot])
+            start, _, n_hit = eng._cache_meta[self.rid]
+            self.got = dict(
+                q=q.clone(), kp=copy(kp), vp=copy(vp), table=table.clone(),
+                rows=rows.clone(), pos=pos.clone(), out=out.clone(),
+                slot=slot, start=start, n_hit=n_hit, pages=pages,
+                shared=sorted(eng._slot_shared[slot]),
+                restored=[p for p in pages if p in twins])
+        return out
+
+
+def _tapped(rpa, dec, eng, rid, fn):
+    """Run `fn()` with a `_SuffixTap` for request `rid` in place of the
+    decoder module's `rpa`; returns (fn's result, the kept call)."""
+    from paddle_tpu_torch.serving import decoder as dec_module
+    tap = _SuffixTap(rpa, dec, eng, rid)
+    dec_module.rpa = tap
+    try:
+        res = fn()
+    finally:
+        dec_module.rpa = rpa
+    if tap.got is None:
+        raise AssertionError(f"request {rid}: no cached attention call kept")
+    return res, tap.got
+
+
+def _suffix_check(rpa, got, kind, layout, **fields):
+    """One cached admission's suffix attention, as the main path ran it:
+    the kept call's kernel output against the plain version on the same
+    inputs — the real table, whose row holds the mounted, copied or
+    restored pages — at the kernel checks' tolerances (`_check_close`).
+    The request's rows must sit at start > 0. Returns the max abs error."""
+    rows, pos, slot = got["rows"].long(), got["pos"], got["slot"]
+    mine = int(((rows == slot) & (pos >= got["start"])).sum())
+    width = got["table"].shape[1]
+    held = got["table"][slot, :min(len(got["pages"]), width)].tolist()
+    if got["start"] <= 0 or got["n_hit"] <= 0 or mine == 0 or \
+            held != got["pages"][:len(held)]:
+        raise AssertionError(f"{kind}: the kept call is not a cached "
+                             f"admission's (start {got['start']}, hit "
+                             f"{got['n_hit']}, rows {mine})")
+    q = got["q"][:, None]
+    args = (got["table"][rows], pos, 1.0 / q.shape[-1] ** 0.5)
+    kp32, vp32 = got["kp"], got["vp"]
+    if not isinstance(kp32, tuple):
+        kp32, vp32 = kp32.float(), vp32.float()
+    plain = _ref(rpa, q, got["kp"], got["vp"], *args)[:, 0]
+    plain32 = _ref(rpa, q.float(), kp32, vp32, *args)[:, 0]
+    err = _check_close(f"cached suffix ({kind})", got["out"], plain, plain32)
+    copied = [p for p in got["pages"][:got["n_hit"]]
+              if p not in got["shared"] and p not in got["restored"]]
+    log("prefix_suffix_check", kind=kind, pool=layout, layer=TAP_LAYER,
+        start=got["start"], hit_blocks=got["n_hit"],
+        stream_tokens=len(rows), request_rows=mine,
+        pages_shared=len(got["shared"]), pages_restored=len(got["restored"]),
+        pages_copied=len(copied), **fields, max_abs_err=f"{err:.3e}",
+        tolerance="f32 1e-5, bf16 one ulp of the f32 plain + 1e-5")
+    return err
+
+
+def _copy_spy(dec):
+    """Wraps `dec.copy_page`: after each copy, every pool leaf (page bytes
+    and scale planes) at the copy must be bit-equal to its source's.
+    Returns the list of (src, dst, bit-equal) it fills."""
+    copies = []
+    orig = dec.copy_page
+
+    def spy(src, dst):
+        orig(src, dst)
+        copies.append((src, dst, all(_bits_equal(leaf[:, dst], leaf[:, src])
+                                     for _, _, leaf in dec._leaves())))
+    dec.copy_page = spy
+    return copies
+
+
+def _full_hit(eng, dec, rpa, prompt, layout):
+    """One full-prompt hit on a warm engine: every block of `prompt` is
+    cached, so its last token is re-consumed into a copy of the final
+    page (copy-on-write). The copy must be bit-equal to its source, every
+    pool leaf; the re-consumed token's attention runs at start L - 1 over
+    the mounted pages and the copy. Returns the kernel launches."""
+    copies = _copy_spy(dec)
+    rid = eng._next_id
+    (streams, _, launches), got = _tapped(
+        rpa, dec, eng, rid, lambda: _serve_groups(eng, [prompt], rpa))
+    del dec.copy_page
+    if len(copies) != 1 or not copies[0][2]:
+        raise AssertionError(f"{layout}: copy-on-write copies {copies}")
+    err = _suffix_check(rpa, got, "copy-on-write", layout,
+                        copy_bits_equal=copies[0][2])
+    return launches[0], err
+
+
+def phase_prefix_serving(sd, rpa):
+    """[serve_prefix] and [serve_prefix_quant]: the group traffic (64 new
+    tokens) through the default engine without and with the prefix cache,
+    on the bf16 pool and on int8 and int4 pools: tok/s, TTFT p50/p99,
+    prefix hit rate, prompt tokens computed, copy-on-write copies and the
+    ragged kernel's launches (plain 0) of each run; then one full-prompt
+    hit per pool. The cached streams are held to the cache-off run's under
+    the oracle rule; the page audit (scale planes included) must be empty
+    after each cached run; the kept suffix calls (a device hit at bf16, a
+    copy-on-write per pool) match the plain version. Returns ({layout:
+    ragged kernel launches}, {layout: max suffix error})."""
+    from paddle_tpu_torch.models import gpt_1p3b
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          PagedGPTDecoder)
+    cfg = gpt_1p3b()
+    prompts = _group_traffic(cfg.vocab_size, SEED + 11)
+    launches, errs = {}, {}
+    for layout, mode in (("bf16", {}), ("int8", {"kv_quant": "int8"}),
+                         ("int4", {"kv_quant": "int4"})):
+        label = "serve_prefix" if layout == "bf16" else "serve_prefix_quant"
+        dec = PagedGPTDecoder(cfg, sd, num_pages=16 * MP + 1, page_size=PS,
+                              max_batch=16, **mode)
+        off = ContinuousBatchingEngine(dec, max_new_tokens=MAX_NEW,
+                                       k_max=K_MAX)
+        mark = _mark(off)
+        ref, wall, l_off = _serve_groups(off, prompts, rpa)
+        log(label, pool=layout, cache="off", requests=len(prompts),
+            max_new=MAX_NEW, **_cache_fields(off, mark, wall, MAX_NEW,
+                                             len(prompts)),
+            rpa_launches=l_off[0], rpa_device_launches=l_off[2],
+            plain_launches=l_off[1])
+        del off
+        eng = ContinuousBatchingEngine(dec, max_new_tokens=MAX_NEW,
+                                       k_max=K_MAX, prefix_cache=True)
+        run = functools.partial(_serve_groups, eng, prompts, rpa)
+        mark = _mark(eng)
+        if layout == "bf16":     # a device hit: the second request of A
+            (streams, wall, l_on), got = _tapped(rpa, dec, eng,
+                                                 eng._next_id + GROUPS, run)
+            errs[layout] = _suffix_check(rpa, got, "device hit", layout)
+        else:
+            streams, wall, l_on = run()
+        findings = eng.audit_pages()
+        log(label, pool=layout, cache="on", requests=len(prompts),
+            max_new=MAX_NEW, **_cache_fields(eng, mark, wall, MAX_NEW,
+                                             len(prompts)),
+            rpa_launches=l_on[0], rpa_device_launches=l_on[2],
+            plain_launches=l_on[1], audit_findings=len(findings))
+        if findings or eng.stats.prefix_hits <= 0:
+            raise AssertionError(f"{layout}: hits {eng.stats.prefix_hits}, "
+                                 f"audit {[str(f) for f in findings[:3]]}")
+        hit_launches, err = _full_hit(eng, dec, rpa, prompts[0][:SYS_LEN],
+                                      layout)
+        errs[layout] = max(errs.get(layout, 0.0), err)
+        findings = eng.audit_pages()
+        if findings or eng.stats.prefix_cow != 1:
+            raise AssertionError(f"{layout}: after the full hit, cow "
+                                 f"{eng.stats.prefix_cow}, audit "
+                                 f"{[str(f) for f in findings[:3]]}")
+        launches[layout] = l_off[0] + l_on[0] + hit_launches
+        del eng
+        equal, forced, gap = _oracle_rule(
+            dec, prompts, streams, ref,
+            also=[g * GROUP_SIZE + 1 for g in range(GROUPS)])
+        log(f"{label}_oracle", pool=layout,
+            streams_equal_cache_off=f"{equal}/{len(prompts)}",
+            teacher_forced=forced, max_logit_gap=f"{gap:.5f}",
+            tolerance=LOGIT_TOL)
+        del dec
+        torch.cuda.empty_cache()
+    return launches, errs
+
+
+class _TransferSpy:
+    """Wraps a decoder's spill and restore primitives for one engine:
+    each call runs between two synchronizes and is timed, and its bytes
+    are checked — every spilled payload bit-equal to its device page at
+    the spill, every restored page bit-equal to its payload after the
+    restore. The synchronizes cost the run some overlap."""
+
+    def __init__(self, dec):
+        self.dec, self.d2h, self.h2d = dec, [0, 0.0], [0, 0.0]
+        self.spilled = self.restored = 0
+        fetch, mount = dec.fetch_page_payloads, dec.mount_page_payloads
+
+        def timed(fn, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        def spill(pages):
+            out, dt = timed(fetch, pages)
+            self.d2h[0] += len(pages) * dec.kv_page_bytes
+            self.d2h[1] += dt
+            for p, payload in zip(pages, out):
+                self._same(p, payload, "spilled")
+            self.spilled += len(pages)
+            return out
+
+        def restore(pages, payloads):
+            _, dt = timed(mount, pages, payloads)
+            self.h2d[0] += len(pages) * dec.kv_page_bytes
+            self.h2d[1] += dt
+            for p, payload in zip(pages, payloads):
+                self._same(p, payload, "restored")
+            self.restored += len(pages)
+        dec.fetch_page_payloads, dec.mount_page_payloads = spill, restore
+
+    def _same(self, page, payload, what):
+        leaves = payload["k"] + payload["v"]
+        for (_, _, leaf), host in zip(self.dec._leaves(), leaves):
+            if not _bits_equal(leaf[:, page], host.to(leaf.device)):
+                raise AssertionError(f"page {page}: {what} bytes differ")
+
+    def close(self):
+        del self.dec.fetch_page_payloads, self.dec.mount_page_payloads
+
+    def rates(self):
+        return {f"{k}_GB_per_s": (f"{n / t / 1e9:.2f}" if t else None)
+                for k, (n, t) in (("d2h", self.d2h), ("h2d", self.h2d))}
+
+
+def _pinned_rates(nbytes):
+    """Pinned host <-> card copy rates (GB/s) of one `nbytes` buffer, CUDA
+    events around 5 copies each way after a warm-up."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    h2d = cuda_ms(lambda i=0: dev.copy_(host, non_blocking=True), 5)
+    d2h = cuda_ms(lambda i=0: host.copy_(dev, non_blocking=True), 5)
+    return nbytes / h2d / 1e6, nbytes / d2h / 1e6
+
+
+def _transfer_breakdown(dec, payloads):
+    """Where the engine's spill and restore copies spend their time, one
+    step at a time between synchronizes (host clock), for one pool leaf
+    (K) and `len(payloads)` pages of the tier: the spill's gather on the
+    card, pinned allocation (a wave's buffer stays with the tier, so
+    every wave allocates anew) and D2H copy; the restore's pinned staging
+    allocation, host stack of the payloads, H2D copy and `index_copy_`
+    (into a scratch tensor, not the pool). Returns {step: ms} and the
+    leaf's MB."""
+    leaf = next(x for _, _, x in dec._leaves())
+    n = len(payloads)
+    idx = torch.arange(n, device=leaf.device)
+    ms = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = f"{(time.perf_counter() - t0) * 1e3:.2f}"
+        return out
+    g = step("d2h_gather", lambda: leaf.index_select(1, idx))
+    buf = step("d2h_pin_alloc", lambda: torch.empty(
+        g.shape, dtype=g.dtype, pin_memory=True))
+    step("d2h_copy", lambda: buf.copy_(g))
+    srcs = [p["k"][0] for p in payloads]
+    stage = step("h2d_pin_alloc", lambda: torch.empty(
+        g.shape, dtype=g.dtype, pin_memory=True))
+    step("h2d_host_stack", lambda: torch.stack(srcs, dim=1, out=stage))
+    dev = step("h2d_copy", lambda: stage.to(leaf.device, non_blocking=True))
+    scratch = torch.empty_like(g)
+    step("h2d_index_copy", lambda: scratch.index_copy_(1, idx, dev))
+    return ms, g.numel() * g.element_size() / 1e6
+
+
+def phase_serve_tier(sd, rpa):
+    """[serve_tier] and [prefix_persist]. Three waves of the group traffic
+    (TIER_NEW new tokens): groups A-D, four new groups E-H whose pages
+    push A-D's parked pages out of the pool, then A-D again; with a 2 GiB
+    host tier under tier_policy "restore", "recompute" and "auto", beside
+    the capacity-0 twin. Prints spills, restores, recomputes, the D2H and
+    H2D rates measured around the engine's own copies and of a pinned
+    buffer, beside the priced `host_bw`, and the decision "auto" took.
+    Spilled and restored bytes must be bit-equal to the pages', restores
+    at least 32 blocks under "restore", the audit empty, the streams
+    equal to the twin's under the oracle rule, and the first restored
+    admission's suffix attention (the real table over restored pages)
+    equal to the plain version's. Then the "restore" engine's cache,
+    saved after wave 1, is loaded onto a fresh decoder of the same
+    weights, whose fresh engine serves wave 3's traffic: hits from its
+    first request, streams held to the warm engine's wave 3 under the
+    oracle rule. Returns (ragged kernel launches, max suffix error)."""
+    import os
+    from paddle_tpu_torch.cost_model import H100_SXM, kv_restore_s
+    from paddle_tpu_torch.models import gpt_1p3b
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          HostKVTier, PagedGPTDecoder,
+                                          PrefixCache)
+    cfg = gpt_1p3b()
+    dec = PagedGPTDecoder(cfg, sd, num_pages=16 * MP + 1, page_size=PS,
+                          max_batch=16)
+    first = _group_traffic(cfg.vocab_size, SEED + 21)       # groups A-D
+    # groups E-H, 16 requests each: their published pages outgrow the
+    # pool's free pages beside A-D's parked ones, so admissions evict A-D
+    second = _group_traffic(cfg.vocab_size, SEED + 22, 2 * GROUP_SIZE)
+    waves = (first, second, first)
+    prompts = [p for w in waves for p in w]
+    here = os.path.dirname(os.path.abspath(__file__))
+    save_dir = os.path.join(here, PERSIST_DIR)
+    total_launches, err = 0, 0.0
+    runs = {}
+
+    def serve(policy, capacity):
+        nonlocal total_launches, err
+        eng = ContinuousBatchingEngine(
+            dec, max_new_tokens=TIER_NEW, k_max=K_MAX, prefix_cache=True,
+            host_tier=HostKVTier(capacity), tier_policy=policy)
+        spy = _TransferSpy(dec) if capacity and policy == "restore" else None
+        streams = []
+        for w, traffic in enumerate(waves):
+            run = functools.partial(_serve_groups, eng, traffic, rpa)
+            mark = _mark(eng)
+            if spy is not None and w == 2:   # the first restored admission
+                (out, wall, launches), got = _tapped(rpa, dec, eng,
+                                                     eng._next_id, run)
+                if not got["restored"]:
+                    raise AssertionError("wave 3's first request restored "
+                                         "no page")
+                err = max(err, _suffix_check(rpa, got, "restored", "bf16"))
+            else:
+                out, wall, launches = run()
+            total_launches += launches[0]
+            streams += out
+            findings = eng.audit_pages()
+            log("serve_tier", policy=policy, tier_bytes=capacity, wave=w + 1,
+                groups="ABCD"[:GROUPS] if w != 1 else "EFGH"[:GROUPS],
+                requests=len(traffic), max_new=TIER_NEW,
+                **_cache_fields(eng, mark, wall, TIER_NEW, len(traffic)),
+                rpa_launches=launches[0], plain_launches=launches[1],
+                audit_findings=len(findings))
+            if findings:
+                raise AssertionError(f"{policy}: audit "
+                                     f"{[str(f) for f in findings[:3]]}")
+            if spy is not None and w == 0:
+                shutil.rmtree(save_dir, ignore_errors=True)
+                t0 = time.perf_counter()
+                eng.cache.save(save_dir)
+                runs["save_s"] = time.perf_counter() - t0
+                runs["save_MB"] = sum(
+                    os.path.getsize(os.path.join(save_dir, f))
+                    for f in os.listdir(save_dir)) / 1e6
+        if spy is not None:
+            spy.close()
+            runs["rates"] = spy.rates()
+            runs["checked"] = (spy.spilled, spy.restored)
+            runs["payloads"] = [e.payload for _, e in eng.tier.items()][:32]
+        runs[policy if capacity else "cap0"] = (streams, eng.stats)
+        return streams
+
+    try:
+        ref = serve("restore", 0)
+        for policy in ("restore", "recompute", "auto"):
+            serve(policy, TIER_BYTES)
+        h2d, d2h = _pinned_rates(32 * dec.kv_page_bytes)
+        steps, leaf_MB = _transfer_breakdown(dec, runs.pop("payloads"))
+        st = runs["restore"][1]
+        if st.tier_restores < SYS_LEN // PS:
+            raise AssertionError(f"restore: {st.tier_restores} blocks "
+                                 f"restored (at least {SYS_LEN // PS})")
+        auto = runs["auto"][1]
+        log("serve_tier_summary", page_MB=f"{dec.kv_page_bytes / 1e6:.3f}",
+            priced_host_GB_per_s=f"{H100_SXM.host_bw / 1e9:.1f}",
+            priced_restore_us_a_page=f"{kv_restore_s(dec.kv_page_bytes) * 1e6:.1f}",
+            engine_copies=runs["rates"],
+            pinned_h2d_GB_per_s=f"{h2d:.2f}", pinned_d2h_GB_per_s=f"{d2h:.2f}",
+            pinned_buffer_MB=f"{32 * dec.kv_page_bytes / 1e6:.1f}",
+            breakdown_ms=steps, breakdown_leaf_MB=f"{leaf_MB:.1f}",
+            pages_checked_spilled_restored=runs["checked"],
+            bits_equal=True,
+            auto_decision=("restore" if auto.tier_restores and not
+                           auto.tier_recomputes else "recompute"
+                           if auto.tier_recomputes and not auto.tier_restores
+                           else "mixed"),
+            auto_restores=auto.tier_restores,
+            auto_recomputes=auto.tier_recomputes)
+        for policy in ("restore", "recompute", "auto"):
+            equal, forced, gap = _oracle_rule(dec, prompts, runs[policy][0],
+                                              ref)
+            log("serve_tier_oracle", policy=policy,
+                streams_equal_capacity0=f"{equal}/{len(prompts)}",
+                teacher_forced=forced, max_logit_gap=f"{gap:.5f}",
+                tolerance=LOGIT_TOL)
+        warm = runs["restore"][0][-len(first):]
+        del dec
+        torch.cuda.empty_cache()
+        # [prefix_persist]: the cache saved after wave 1, on a fresh decoder
+        dec = PagedGPTDecoder(cfg, sd, num_pages=16 * MP + 1, page_size=PS,
+                              max_batch=16)
+        t0 = time.perf_counter()
+        cache = PrefixCache.load(save_dir, dec)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        eng = ContinuousBatchingEngine(dec, max_new_tokens=TIER_NEW,
+                                       k_max=K_MAX, prefix_cache=cache)
+        # the first request admitted (A's leader) mounts what it matches
+        first_hit = len(cache.match(cache.block_keys(first[0])))
+        mark = _mark(eng)
+        streams, wall, launches = _serve_groups(eng, first, rpa)
+        total_launches += launches[0]
+        findings = eng.audit_pages()
+        log("prefix_persist", pages_saved=cache.n_pages,
+            save_s=f"{runs['save_s']:.2f}", save_MB=f"{runs['save_MB']:.1f}",
+            load_s=f"{load_s:.2f}", first_request_hit_blocks=first_hit,
+            requests=len(first), max_new=TIER_NEW,
+            **_cache_fields(eng, mark, wall, TIER_NEW, len(first)),
+            rpa_launches=launches[0], plain_launches=launches[1],
+            audit_findings=len(findings))
+        if first_hit <= 0 or findings:
+            raise AssertionError(f"warm start: the first request mounts "
+                                 f"{first_hit} blocks, audit {findings[:3]}")
+        del eng
+        equal, forced, gap = _oracle_rule(dec, first, streams, warm)
+        log("prefix_persist_oracle",
+            streams_equal_warm_engine=f"{equal}/{len(first)}",
+            teacher_forced=forced, max_logit_gap=f"{gap:.5f}",
+            tolerance=LOGIT_TOL)
+        del dec
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    return total_launches, err
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4957,6 +5536,10 @@ def main():
     quant_launches = phase_serve_quant(sd, prompts, streams, nll_bf16, rpa,
                                        w4)
     torch.cuda.empty_cache()
+    t_prefix = time.perf_counter()
+    prefix_launches, prefix_err = phase_prefix_serving(sd, rpa)
+    tier_launches, tier_err = phase_serve_tier(sd, rpa)
+    log("prefix_phases", total_s=f"{time.perf_counter() - t_prefix:.1f}")
     phase_generate(sd, smi)
     del sd
     torch.cuda.empty_cache()
@@ -5015,9 +5598,15 @@ def main():
     torch.cuda.empty_cache()
     phase_resnet_small_reference()
     log("done", total_s=f"{time.perf_counter() - t_start:.1f}")
-    serve_launches = {"bf16": launches["kernel"],
-                      "int8": quant_launches["int8"]["ragged_paged_attention"],
-                      "int4": quant_launches["int4"]["ragged_paged_attention"]}
+    # the cached runs (prefix cache, host tier, persistence) count too
+    serve_launches = {
+        "bf16": launches["kernel"] + prefix_launches["bf16"] + tier_launches,
+        "int8": quant_launches["int8"]["ragged_paged_attention"]
+        + prefix_launches["int8"],
+        "int4": quant_launches["int4"]["ragged_paged_attention"]
+        + prefix_launches["int4"]}
+    prefix_err["bf16"] = max(prefix_err["bf16"], tier_err)
+    serve_err = {lay: max(e, prefix_err[lay]) for lay, e in serve_err.items()}
     kernels = []
     for name, (source, replaces, lay) in SERVE_KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

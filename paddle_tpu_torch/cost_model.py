@@ -1,7 +1,8 @@
 """Serving cost model (counterpart of the decode/ragged half of
 `paddle_tpu/cost_model.py`): the roofline legs of a decode or mixed
-ragged tick, the ragged scheduler's chunk budget, and the multi-step
-horizon K.
+ragged tick, the ragged scheduler's chunk budget, the multi-step
+horizon K, and the host KV tier's restore-vs-recompute pricing
+(`prefill_ttft_s`, `kv_restore_s`).
 
 The chip is an NVIDIA H100 SXM. Its peak figures below are NVIDIA's
 data-sheet values (dense bf16 tensor-core FLOP/s, HBM bytes/s and
@@ -18,7 +19,8 @@ import torch
 
 __all__ = ["ChipSpec", "H100_SXM", "decode_tick_roofline_s",
            "ragged_tick_legs", "ragged_tick_roofline_s",
-           "ragged_chunk_tokens", "decode_horizon", "measured_host_sync_s"]
+           "ragged_chunk_tokens", "decode_horizon", "measured_host_sync_s",
+           "prefill_ttft_s", "kv_restore_s"]
 
 
 @dataclass(frozen=True)
@@ -27,10 +29,20 @@ class ChipSpec:
     peak_flops: float      # dense bf16 FLOP/s
     hbm_bw: float          # HBM bytes/s
     hbm_bytes: int         # HBM capacity
+    # host<->card wire bytes/s, one direction: the H2D leg a host-tier
+    # restore pays (`kv_restore_s`)
+    host_bw: float = 64e9
+    # host-RAM read bytes/s a cross-process host tier pays before the
+    # wire (`kv_restore_s(shared=True)`); an assumed DRAM-copy rate,
+    # not a data-sheet or measured figure
+    host_read_bw: float = 64e9
 
 
-# NVIDIA H100 SXM data sheet: 989 TFLOP/s dense bf16, 3.35 TB/s, 80 GB
-H100_SXM = ChipSpec("h100-sxm", 989e12, 3.35e12, 80 * 10 ** 9)
+# NVIDIA H100 SXM data sheet: 989 TFLOP/s dense bf16, 3.35 TB/s, 80 GB;
+# host link PCIe Gen5 x16, 128 GB/s both directions together, so 64 GB/s
+# a direction
+H100_SXM = ChipSpec("h100-sxm", 989e12, 3.35e12, 80 * 10 ** 9,
+                    host_bw=64e9)
 
 
 def _chip(chip):
@@ -140,3 +152,38 @@ def decode_horizon(step_hbm_bytes, host_sync_s=None, chip=None,
         return int(k_cap)
     k = math.ceil(host_sync_s / (sync_overhead_frac * t))
     return int(min(max(k, 1), int(k_cap)))
+
+
+def prefill_ttft_s(prompt_tokens, flops_per_token, cached_frac=0.0,
+                   chip=None, host_sync_s=None, efficiency=0.65,
+                   device="cuda"):
+    """Analytic time-to-first-token of one prompt: the compute roofline
+    of the UNCACHED prompt span plus one host sync (measured on `device`
+    when not given). `cached_frac` is the prefix-cache hit fraction of
+    the prompt: cached pages are mounted into the page table host-side
+    (zero device FLOPs), so prefill compute scales with the
+    (1 - cached_frac) remainder."""
+    chip = _chip(chip)
+    if host_sync_s is None:
+        host_sync_s = measured_host_sync_s(device)
+    frac = min(max(float(cached_frac), 0.0), 1.0)
+    uncached = max(float(prompt_tokens), 0.0) * (1.0 - frac)
+    compute = (uncached * max(float(flops_per_token), 0.0)
+               / (chip.peak_flops * efficiency))
+    return compute + host_sync_s
+
+
+def kv_restore_s(restore_bytes, chip=None, shared=False):
+    """Analytic floor of re-mounting spilled KV pages from pinned host
+    RAM: bytes over the host-to-card wire (`ChipSpec.host_bw`). The host
+    tier compares it with the recompute price of the same span
+    (`prefill_ttft_s` with no sync floor) and restores only when the wire
+    wins (`serving.kv_tier.restore_beats_recompute`). `shared=True` adds a
+    host-RAM read leg (`ChipSpec.host_read_bw`) before the copy, for a
+    tier that lives in another process's memory."""
+    chip = _chip(chip)
+    b = max(float(restore_bytes), 0.0)
+    t = b / chip.host_bw
+    if shared:
+        t += b / chip.host_read_bw
+    return t

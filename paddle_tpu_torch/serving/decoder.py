@@ -25,8 +25,17 @@ schedule), the packed layout, one device. A quantized pool is a (pages,
 scales) tuple per K and V; `_kv_set` quantizes each token from its own
 values as it writes it (plain PyTorch, as the JAX decoder's jnp), so
 stored bytes depend only on (request, position).
+
+The page primitives the prefix cache and the host KV tier run on are
+ported too: `copy_page` (copy-on-write, scale planes included),
+`fetch_page_payloads` / `mount_page_payloads` (one gather + D2H, and
+one H2D + `index_copy_`, per pool leaf per wave or span), `pool_state` /
+`load_pool_state` and `cache_fingerprint`. They are plain indexing on
+the decoder's stream, as the JAX decoder's are XLA ops.
 """
 import collections
+import hashlib
+import weakref
 
 import numpy as np
 import torch
@@ -326,6 +335,15 @@ class PagedGPTDecoder:
         self.lm_head = head.to(dev, torch.float32)
         self.k_pages = self._new_pool(L, num_pages, page_size, H, D)
         self.v_pages = self._new_pool(L, num_pages, page_size, H, D)
+        # engines serving over this pool: `load_pool_state` refuses while
+        # one of them holds pages
+        self._engines = weakref.WeakSet()
+        # copies between host and card, one a pool leaf: the tier's
+        # spills (D2H) and restores (H2D)
+        self.transfers = {"d2h": 0, "h2d": 0}
+        # (event, pinned staging buffer) of restores the card may not
+        # have copied yet: the buffer lives until its event has passed
+        self._h2d_pending = []
 
     def _new_pool(self, L, P, ps, H, D):
         """One zeroed K (or V) pool: [L, P, ps, H, D] in the compute
@@ -690,6 +708,186 @@ class PagedGPTDecoder:
             self._as_i32(remaining), -1 if eos is None else int(eos),
             self._as_i32(pend), self._as_i32(pend_n), w, k, t)
         return RaggedMultiOut(*out)
+
+    # -- pages: copy-on-write, host tier, persistence -----------------------
+
+    def _leaves(self):
+        """(part, leaf index, tensor) of every pool leaf: K and V, and the
+        scale planes of a quantized pool."""
+        for part, pool in (("k", self.k_pages), ("v", self.v_pages)):
+            for i, leaf in enumerate(pool if isinstance(pool, tuple)
+                                     else (pool,)):
+                yield part, i, leaf
+
+    def copy_page(self, src, dst):
+        """Device-side page copy (K and V, every layer, every pool leaf):
+        the engine's copy-on-write primitive. An int8 pool's [L, P, ps]
+        and an int4 pool's [L, P, ps, G] scale planes travel with the page
+        bytes; a copy that left them behind would dequantize the private
+        page with stale scales."""
+        for _, _, leaf in self._leaves():
+            leaf[:, int(dst)] = leaf[:, int(src)]
+
+    def fetch_page_payload(self, page):
+        """D2H copy of ONE page's bytes across every layer (the host
+        tier's spill primitive): {"k": (leaves...), "v": (...)}, each leaf
+        the pool leaf at the page ([L, ps, ...]). `mount_page_payload` is
+        its lossless inverse."""
+        return self.fetch_page_payloads([page])[0]
+
+    def fetch_page_payloads(self, pages):
+        """D2H copy of a whole eviction wave: each pool leaf is gathered
+        at all `pages` on the card ([L, n, ps, ...], one `index_select`)
+        and copied to host memory in one transfer (pinned when the pool is
+        on the card), then split into per-page payload views. The copy is
+        synchronous and ordered on the decoder's stream after every
+        horizon already dispatched, so it reads the pages' final bytes."""
+        idx = torch.as_tensor([int(p) for p in pages], dtype=torch.long,
+                              device=self.device)
+        pin = self.device.type == "cuda"
+        host = {"k": [], "v": []}
+        for part, _, leaf in self._leaves():
+            g = leaf.index_select(1, idx)
+            buf = torch.empty(g.shape, dtype=g.dtype, pin_memory=pin)
+            buf.copy_(g)
+            self.transfers["d2h"] += 1
+            host[part].append(buf)
+        return [{part: tuple(buf[:, i] for buf in host[part])
+                 for part in ("k", "v")} for i in range(len(pages))]
+
+    def mount_page_payload(self, page, payload):
+        """H2D restore of one spilled page (`fetch_page_payload`'s
+        inverse)."""
+        self.mount_page_payloads([page], [payload])
+
+    def mount_page_payloads(self, pages, payloads):
+        """H2D restore of a whole span: per pool leaf, the payloads are
+        stacked into one staging buffer ([L, n, ps, ...], pinned when the
+        pool is on the card), copied to the card in one asynchronous
+        transfer and scattered into the n pages with one `index_copy_`,
+        all on the decoder's stream, so every later horizon reads the
+        restored bytes. The staging buffer is kept until the card has
+        copied it."""
+        self._h2d_pending = [(ev, buf) for ev, buf in self._h2d_pending
+                             if not ev.query()]
+        idx = torch.as_tensor([int(p) for p in pages], dtype=torch.long,
+                              device=self.device)
+        pin = self.device.type == "cuda"
+        for part, i, leaf in self._leaves():
+            srcs = [torch.as_tensor(p[part][i]) for p in payloads]
+            buf = torch.empty((leaf.shape[0], len(srcs)) + leaf.shape[2:],
+                              dtype=leaf.dtype, pin_memory=pin)
+            torch.stack(srcs, dim=1, out=buf)
+            leaf.index_copy_(1, idx, buf.to(self.device, non_blocking=True))
+            self.transfers["h2d"] += 1
+            if pin:
+                ev = torch.cuda.Event()
+                ev.record()
+                self._h2d_pending.append((ev, buf))
+
+    def pool_state(self):
+        """Checkpointable KV-pool state: the page tensors (and the scale
+        planes of a quantized pool) plus the quant config that wrote
+        them. `load_pool_state` refuses a mismatched config."""
+        return {"kv_quant": self.kv_quant or "",
+                "k_pages": self.k_pages, "v_pages": self.v_pages}
+
+    def load_pool_state(self, state):
+        """Copy a `pool_state()` snapshot (tensors or numpy arrays) into
+        this decoder's own pool tensors — never aliasing the caller's
+        memory. The quant config, leaf dtypes and shapes must match this
+        pool exactly, and no engine over this decoder may hold pages:
+        swapping the bytes under a slot table or a cache entry (live or
+        parked) would orphan its ledger (`PrefixCache.load` rebuilds the
+        decoder + cache pair instead)."""
+        for eng in list(self._engines):
+            held = sum(len(p) for p in getattr(eng, "_slot_pages", ()))
+            cache = getattr(eng, "cache", None)
+            tracked = cache.n_pages if cache is not None else 0
+            if held or tracked:
+                raise RuntimeError(
+                    f"cannot load pool state: a live "
+                    f"{type(eng).__name__} holds {held} slot page(s) "
+                    f"and its prefix cache tracks {tracked} page(s) "
+                    "over this pool — swapping the page bytes now "
+                    "would orphan its ledger (a parked entry's next "
+                    "hit would mount checkpoint bytes under the old "
+                    "chain key); drain the engine and rebuild the "
+                    "decoder+cache pair (PrefixCache.load) instead")
+        quant = state.get("kv_quant", "") or None
+        if quant != self.kv_quant:
+            raise ValueError(
+                f"KV pool quant config mismatch: this decoder stores "
+                f"{self.kv_quant or 'unquantized'} pages but the "
+                f"checkpointed pool was written {quant or 'unquantized'} "
+                "— reinterpreting the bytes would decode garbage tokens; "
+                f"rebuild the decoder with kv_quant={quant!r} or "
+                "re-prefill from tokens")
+        for name in ("k_pages", "v_pages"):
+            have = getattr(self, name)
+            have = have if isinstance(have, tuple) else (have,)
+            want = state[name] if isinstance(state[name], tuple) \
+                else (state[name],)
+            want = tuple(torch.as_tensor(w) for w in want)
+            if len(have) != len(want) or any(
+                    h.shape != w.shape or h.dtype != w.dtype
+                    for h, w in zip(have, want)):
+                raise ValueError(
+                    f"KV pool state mismatch on {name}: expected "
+                    f"{[(tuple(h.shape), str(h.dtype)) for h in have]}, "
+                    f"got {[(tuple(w.shape), str(w.dtype)) for w in want]}")
+            for h, w in zip(have, want):
+                h.copy_(w)
+
+    def adapter_salt(self, aid):
+        """Prefix-cache key salt of adapter `aid`: b"" for the base model
+        (id 0). LoRA adapters are not ported, so any other id raises."""
+        if int(aid) != 0:
+            raise _not_ported("LoRA adapters (adapter ids other than 0)")
+        return b""
+
+    def cache_fingerprint(self):
+        """Identity of this decoder's KV bytes, the prefix cache's root-key
+        salt: architecture, page size, pool dtype, quant modes and one
+        exact content probe per weight tensor — not temperature or seed,
+        which the KV bytes do not depend on. A probe is the sum, modulo
+        2^64, of each element's bit pattern (as an integer) times an odd
+        multiplier 2i + 1 of its index i: integer arithmetic on the card,
+        so the same in any order, process or device, and changed by any
+        change of any one element (an odd multiplier is invertible modulo
+        2^64)."""
+        cfg = self.cfg
+
+        def probe(v):
+            if isinstance(v, tuple):             # int4 (packed, scale)
+                return tuple(probe(x) for x in v)
+            bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                    8: torch.int64}[v.element_size()]
+            flat = v.detach().contiguous().reshape(-1).view(bits)
+            total = torch.zeros((), dtype=torch.int64, device=v.device)
+            step = 1 << 24                       # bounds the int64 temps
+            for lo in range(0, flat.numel(), step):
+                x = flat[lo:lo + step].to(torch.int64)
+                m = torch.arange(lo, lo + x.numel(), dtype=torch.int64,
+                                 device=v.device) * 2 + 1
+                total += (x * m).sum()
+            return total
+
+        tensors = [self.weights[k] for k in sorted(self.weights)] + [
+            self.wte, self.wpe, self.lm_head, self.ln_f_w, self.ln_f_b]
+        sums = []
+        for p in (probe(t) for t in tensors):
+            sums.extend(p if isinstance(p, tuple) else (p,))
+        values = torch.stack(sums).tolist()      # one sync for all probes
+        digest = hashlib.blake2b(repr(values).encode(),
+                                 digest_size=16).hexdigest()
+        pool_leaf = self.k_pages[0] if isinstance(self.k_pages, tuple) \
+            else self.k_pages
+        parts = (cfg.num_layers, cfg.hidden_size, cfg.num_heads,
+                 cfg.head_dim, cfg.vocab_size, cfg.max_seq_len,
+                 self.page_size, str(pool_leaf.dtype), self.quant or "",
+                 self.kv_quant or "", digest)
+        return repr(parts).encode()
 
     # -- byte model --------------------------------------------------------
 

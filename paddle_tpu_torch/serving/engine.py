@@ -1,20 +1,27 @@
 """Continuous-batching engine over the paged decoder (counterpart of
 `paddle_tpu/serving/engine.py` `ContinuousBatchingEngine`): slot
-scheduling, ragged chunked-prefill horizons and the per-tick loop.
+scheduling, ragged chunked-prefill horizons, the per-tick loop, and
+prefix-cache admission with its host KV tier.
 
 Ported: the ragged packed horizon loop (`_run_ragged`, the default for
 k_max > 1) and the per-tick loop (`step` / `_run_per_tick`, k_max=1),
-which is the in-port oracle for it. Not ported yet: the prefix cache,
-the host KV tier, the flight recorder, the dispatch-separate baseline
-(`ragged=False` with k_max > 1), LoRA adapters, tenancy hooks and the
-speculative engine.
+which is the in-port oracle for it; content-addressed admission over a
+`PrefixCache` (mount, copy-on-write, publish, evict), the host tier
+behind it (`HostKVTier`: spill waves, priced restore or recompute) and
+the page ledger with its audit. Not ported yet: the flight recorder, the
+dispatch-separate baseline (`ragged=False` with k_max > 1), LoRA
+adapters, tenancy hooks and the speculative engine.
 """
 import time
+import weakref
 
 import numpy as np
 import torch
 
 from .decoder import PagedGPTDecoder, _not_ported
+from .kv_tier import HostKVTier, restore_beats_recompute
+from .page_audit import audit_kv_scale_planes, audit_page_ledger
+from .prefix_cache import PrefixCache
 from .scheduler import RaggedScheduler
 from .stats import _ENGINES, ServeStats
 
@@ -38,20 +45,35 @@ class ContinuousBatchingEngine:
     the scratch page — and its pages are freed exactly once, when block
     N is processed). `k_max=1` selects the per-tick loop (`step()` is the
     per-tick API either way); `k_max=None` lets the scheduler price K
-    (`cost_model.decode_horizon`)."""
+    (`cost_model.decode_horizon`).
+
+    With `prefix_cache` (a `PrefixCache`, or True for a default one
+    salted by `decoder.cache_fingerprint()`) admission is
+    content-addressed: a prompt's full token blocks are hashed, the
+    longest cached run is MOUNTED into the request's page-table row
+    host-side (the pages already hold the bytes this prompt's prefill
+    would write), and only the uncached suffix is prefilled — at
+    `start > 0` through the same ragged paged attention. Mounted pages
+    are refcounted and never written: a full-prompt hit, whose last
+    position is re-consumed for its logits, copy-on-writes the final
+    page first. Retirement decrefs shared pages; refcount-0 pages park
+    in the cache's LRU and are evicted only under pool pressure — every
+    page freed exactly once (`page_ledger()` / `audit_pages()`).
+    `host_tier` (a `HostKVTier`, or True) spills evicted pages to host
+    memory in one D2H a wave; an admission whose chain continues onto
+    host entries restores them (one H2D a span) or recomputes them, as
+    `tier_policy` says: "auto" prices the wire against the recompute
+    (`kv_tier.restore_beats_recompute`), "restore" / "recompute" pin
+    the decision."""
 
     def __init__(self, decoder: PagedGPTDecoder, eos_token_id=None,
                  max_new_tokens=64, k_max=None, prefix_cache=None,
                  ragged=None, chunk_tokens=None, trace=None,
-                 host_tier=None):
+                 host_tier=None, tier_policy="auto"):
         if max_new_tokens < 1:
             raise ValueError(
                 "max_new_tokens must be >= 1 (the prefill forward always "
                 f"produces one token), got {max_new_tokens}")
-        if prefix_cache:
-            raise _not_ported("the prefix cache (prefix_cache=)")
-        if host_tier:
-            raise _not_ported("the host KV tier (host_tier=)")
         if trace:
             raise _not_ported("the flight recorder (trace=)")
         self.d = decoder
@@ -62,6 +84,8 @@ class ContinuousBatchingEngine:
         S = decoder.max_batch
         self._slot_req = [None] * S          # request id per slot
         self._slot_pages = [[] for _ in range(S)]
+        # pages a slot holds as SHARED (cache-refcounted, never written)
+        self._slot_shared = [set() for _ in range(S)]
         # int32 end to end: the decoder feeds these to the kernel as int32
         self._lens = np.zeros(S, np.int32)
         self._tokens = np.zeros(S, np.int32)
@@ -77,6 +101,7 @@ class ContinuousBatchingEngine:
         self._next_id = 0
         self.steps = 0
         self.k_max = max(1, int(k_max)) if k_max is not None else None
+        self._init_cache(prefix_cache, host_tier, tier_policy)
         if ragged is False and self.k_max != 1:
             raise _not_ported("the dispatch-separate baseline "
                               "(ragged=False with k_max > 1)")
@@ -94,8 +119,181 @@ class ContinuousBatchingEngine:
             # sequence's KV — capacity counts allocatable pages only
             kv_pool_bytes=(decoder.num_pages - 1) * decoder.kv_page_bytes,
             kv_bytes_per_token=decoder.kv_page_bytes // decoder.page_size)
+        if self.tier is not None:
+            # a warm-started tier (PrefixCache.load) already holds bytes
+            self.stats.host_tier_bytes = self.tier.bytes_used
         self._submit_t = {}                  # rid -> submit wall time
         _ENGINES.add(self)
+
+    def _init_cache(self, prefix_cache, host_tier, tier_policy):
+        """Bind the prefix cache and its host tier (see the class
+        docstring). A preloaded cache (`PrefixCache.load`) must belong to
+        this decoder, and its pages leave the free list; `host_tier=` may
+        not replace a tier the cache already carries."""
+        decoder = self.d
+        if prefix_cache is True:
+            prefix_cache = PrefixCache(decoder.page_size,
+                                       salt=decoder.cache_fingerprint())
+        if prefix_cache is not None and \
+                prefix_cache.page_size != decoder.page_size:
+            raise ValueError(
+                f"prefix cache page_size {prefix_cache.page_size} != "
+                f"decoder page_size {decoder.page_size}")
+        self.cache = prefix_cache
+        # identity checks, not truthiness: an EMPTY HostKVTier is falsy
+        # (__len__ == 0) but very much "tier on"
+        if host_tier is not None and host_tier is not False:
+            if self.cache is None:
+                raise ValueError(
+                    "host_tier needs a prefix_cache: the tier is keyed "
+                    "by the cache's chain keys (pass prefix_cache=True "
+                    "for a default cache)")
+            if self.cache.tier is None:
+                self.cache.tier = HostKVTier() if host_tier is True \
+                    else host_tier
+            elif host_tier is not True and \
+                    host_tier is not self.cache.tier:
+                # a loaded cache may arrive with a WARM tier — silently
+                # replacing it would drop the persisted host entries
+                raise ValueError(
+                    "prefix_cache already carries a host tier — pass "
+                    "host_tier=True to keep it, or attach your tier "
+                    "to the cache (PrefixCache.load(tier=...)) "
+                    "instead")
+        self.tier = self.cache.tier if self.cache is not None else None
+        if tier_policy not in ("auto", "restore", "recompute"):
+            raise ValueError(f"tier_policy must be auto/restore/"
+                             f"recompute, got {tier_policy!r}")
+        self.tier_policy = tier_policy
+        if self.cache is not None:
+            if self.cache.n_pages:
+                # a populated cache's pages live in the pool of the
+                # decoder it is bound to; with any other decoder (even
+                # one of the same weights) its keys would mount garbage
+                bound = self.cache._decoder and self.cache._decoder()
+                if bound is not decoder:
+                    raise ValueError(
+                        "prefix_cache holds pages for a different "
+                        "decoder — pass the decoder the cache was "
+                        "loaded onto, or PrefixCache.load the save "
+                        "dir onto THIS decoder")
+                owned = set(self.cache.pages())
+                self._free = [p for p in self._free if p not in owned]
+            self.cache._decoder = weakref.ref(decoder)
+        decoder._engines.add(self)
+        self._cache_meta = {}                # rid -> (start, keys, n_hit)
+
+    # -- host KV tier ----------------------------------------------------
+
+    def _flops_per_token(self):
+        """Matmul FLOPs one prompt token costs (the 2x-params GPT rule;
+        the scheduler already holds it on ragged engines)."""
+        if self.scheduler is not None:
+            return self.scheduler.flops_per_token
+        return 2.0 * self.d.cfg.num_params()
+
+    def _spill_wave(self, need, exclude=()):
+        """Reclaim at least `need` parked pages, demoting the wave to the
+        host tier with ONE gather + D2H per pool leaf
+        (`fetch_page_payloads`). `PrefixCache.evict` only records the
+        victims; the copy runs after the walk and before any freed page is
+        handed out, so it reads the exact write-time bytes (and, on the
+        card's stream, after every horizon already dispatched). A page
+        whose key already has a host twin needs no copy: the host payload
+        is still valid, only its device-twin backref clears. Returns the
+        freed page ids."""
+        tier = self.tier
+        pending = []                     # (key, page): victims to copy
+
+        def note(key, page):
+            if tier is None:
+                return
+            if key in tier:
+                tier.note_unmounted(key)
+                self.stats.host_tier_bytes = tier.bytes_used
+                return
+            if self.d.kv_page_bytes > tier.capacity_bytes:
+                # put() would refuse it: the capacity-0 twin pays no copy
+                return
+            pending.append((key, page))
+
+        freed = self.cache.evict(need, exclude=exclude, spill=note)
+        if pending:
+            payloads = self.d.fetch_page_payloads([p for _, p in pending])
+            for (key, _page), payload in zip(pending, payloads):
+                if tier.put(key, payload):
+                    self.stats.tier_spills += 1
+            self.stats.host_tier_bytes = tier.bytes_used
+        return freed
+
+    def _tier_plan(self, keys, n_dev):
+        """How far the chain continues onto the HOST tier past the
+        device-resident run, and whether to restore it: (n_tier, restore,
+        hold). "auto" prices `cost_model.kv_restore_s` against the span's
+        prefill recompute (`restore_beats_recompute`); a losing wire
+        recomputes and only refreshes the host entries' recency (their
+        bytes stay valid: write-time determinism). On a restore, `hold`
+        pins the span's (key, payload, bytes) here, so this admission's
+        own evictions cannot LRU the payloads out of the tier before the
+        restore reads them."""
+        tier = self.tier
+        if tier is None:
+            return 0, False, None
+        n_tier = 0
+        while n_dev + n_tier < len(keys) and \
+                keys[n_dev + n_tier] in tier:
+            n_tier += 1
+        if not n_tier:
+            return 0, False, None
+        span = keys[n_dev:n_dev + n_tier]
+        restore = self.tier_policy == "restore"
+        if self.tier_policy == "auto":
+            restore = restore_beats_recompute(
+                sum(tier.entry_bytes(k) for k in span),
+                n_tier * self.d.page_size, self._flops_per_token(),
+                shared=getattr(tier, "shared", False))
+        hold = None
+        if restore:
+            hold = [(k, tier.get(k), tier.entry_bytes(k)) for k in span]
+        return n_tier, restore, hold
+
+    def _tier_recompute(self, keys, lo, n):
+        """Host blocks keys[lo:lo+n] will be RE-PREFILLED: refresh their
+        recency (the recomputed bytes equal the spilled ones) and count
+        the decision — only once the admission commits."""
+        for i in range(n):
+            self.tier.touch(keys[lo + i])
+        self.stats.tier_recomputes += n
+
+    def _tier_restore(self, keys, n_dev, pages, hold):
+        """Re-mount `len(pages)` host-resident blocks (keys[n_dev:], their
+        payloads pinned in `hold`) into freshly allocated device pages:
+        ONE H2D + `index_copy_` per pool leaf for the whole span
+        (`mount_page_payloads`, asynchronous on the decoder's stream, so
+        every later horizon reads the restored bytes), then cache insert
+        under the held parent chain and the device-twin backref for the
+        audit. Returns [(page, inserted)]: a capacity-refused insert
+        leaves that page (and the rest of the chain) private to the
+        request."""
+        tier = self.tier
+        self.d.mount_page_payloads(
+            list(pages), [hold[i][1] for i in range(len(pages))])
+        out = []
+        stop = False
+        for i, pid in enumerate(pages):
+            key = hold[i][0]
+            ok = False
+            if not stop:
+                parent = keys[n_dev + i - 1] if (n_dev + i) else None
+                ok = self.cache.insert(key, pid, parent=parent)
+                if ok:
+                    tier.note_mounted(key, pid)
+                else:
+                    stop = True
+            out.append((pid, ok))
+        self.stats.tier_restores += len(pages)
+        self.stats.host_tier_bytes = tier.bytes_used
+        return out
 
     def submit(self, prompt_ids):
         """Queue one prompt (list, numpy array or tensor of token ids);
@@ -153,9 +351,7 @@ class ContinuousBatchingEngine:
             return []
         self._note_queue_waits(admitted)
         self._table_cache = None
-        firsts = self.d.prefill_suffix_batch(
-            [(ids, 0, pages) for _, _, ids, pages in admitted],
-            kids=[rid for _, rid, _, _ in admitted])
+        firsts = self._prefill_admitted(admitted)
         self.stats.prefill_syncs += 1
         if active0:
             # this prefill BLOCKED the host while slots sat decoding
@@ -179,10 +375,58 @@ class ContinuousBatchingEngine:
             live.append(slot)
         return live
 
+    def _prefill_admitted(self, admitted):
+        """The per-tick path's blocking prefill of the admitted requests:
+        whole prompts without a prefix cache; with one, each request's
+        uncached suffix from its `start` (the cached span is mounted, zero
+        device work). Freshly computed full blocks are published to the
+        cache afterwards (`.tolist()` has synced, so their bytes are
+        written before any later mount reads them)."""
+        reqs = []
+        for _, rid, ids, pages in admitted:
+            start = self._cache_meta[rid][0] if self.cache is not None \
+                else 0
+            reqs.append((ids[start:], start, pages))
+        firsts = self.d.prefill_suffix_batch(
+            reqs, kids=[rid for _, rid, _, _ in admitted])
+        for slot, rid, _, _ in admitted:
+            self._publish_blocks(rid, slot)
+        return firsts
+
+    def _publish_blocks(self, rid, slot):
+        """Publish a request's freshly computed full blocks to the prefix
+        cache (the slot keeps holding the pages until retirement decrefs
+        them). Called once the blocks' bytes are ordered before any future
+        reader: after the prefill sync on the per-tick path, at the first
+        token's block processing on the ragged path. Publishing STOPS at
+        the first refused insert (a same-batch duplicate keeps its copy
+        private): a deeper block would chain under a parent this request
+        does not hold, breaking the every-ancestor-referenced invariant
+        the eviction cascade relies on."""
+        if self.cache is None:
+            return
+        meta = self._cache_meta.pop(rid, None)
+        if meta is None:
+            return
+        _start, keys, n_hit = meta
+        pages = self._slot_pages[slot]
+        for b in range(n_hit, len(keys)):
+            parent = keys[b - 1] if b else None
+            if not self.cache.insert(keys[b], pages[b], parent=parent):
+                break
+            self._slot_shared[slot].add(pages[b])
+
+    def _occupy(self, slot, rid, pages):
+        self._slot_req[slot] = rid
+        self._slot_gen[slot] += 1
+        self._slot_pages[slot] = pages
+
     def _gather_admissions(self):
         """Bind queued requests to free slots in order while their pages
         fit (head-of-line: a request that does not fit waits, and so do
         the ones behind it)."""
+        if self.cache is not None:
+            return self._gather_admissions_cached()
         admitted = []
         for slot in range(self.d.max_batch):
             if self._slot_req[slot] is not None or not self._queue:
@@ -192,19 +436,125 @@ class ContinuousBatchingEngine:
             if need > self.d.max_pages or need > len(self._free):
                 break
             self._queue.pop(0)
-            pages = [self._free.pop() for _ in range(need)]
-            self._slot_req[slot] = rid
-            self._slot_gen[slot] += 1
-            self._slot_pages[slot] = pages
-            admitted.append((slot, rid, ids, pages))
+            self._occupy(slot, rid, [self._free.pop() for _ in range(need)])
+            admitted.append((slot, rid, ids, self._slot_pages[slot]))
+        return admitted
+
+    def _gather_admissions_cached(self):
+        """Prefix-cache admission: hash the prompt's full blocks, mount
+        the longest cached run into the page-table row (incref), evict
+        parked refcount-0 pages if the free list cannot cover the rest,
+        and record (start, keys, n_hit) for the suffix prefill. A
+        FULL-prompt hit still needs its last position's logits: the one
+        re-consumed token would write into the final mounted page, so
+        that page is copied to a private page first (copy-on-write; the
+        rewritten bytes are the same, prefill being position-local).
+
+        With a host tier the chain may continue past the device run onto
+        host entries (`_tier_plan`): restored blocks join the hit span
+        and cost a device page each; recomputed ones prefill as misses.
+        The mounted span degrades (restored blocks first) until the pool
+        can cover the admission: mounted hits are excluded from eviction,
+        so a full-span mount could otherwise block itself forever."""
+        admitted = []
+        ps = self.d.page_size
+        tok_bytes = self.d.kv_page_bytes // ps
+        for slot in range(self.d.max_batch):
+            if self._slot_req[slot] is not None or not self._queue:
+                continue
+            rid, ids = self._queue[0]
+            L = len(ids)
+            total = self._pages_for(L + self.max_new)
+            if total > self.d.max_pages:
+                break                        # permanently oversized head
+            keys = self.cache.block_keys(ids,
+                                         extra_salt=self.d.adapter_salt(0))
+            hits = self.cache.match(keys)
+            n_dev = len(hits)
+            n_tier, do_restore, hold = self._tier_plan(keys, n_dev)
+            span = n_dev + (n_tier if do_restore else 0)
+            chosen = None
+            for n_hit in range(span, -1, -1):
+                start = n_hit * ps
+                # full hit: re-consume the last token
+                cow = n_hit > 0 and start >= L
+                if cow:
+                    start = L - 1
+                n_rest = max(0, n_hit - n_dev)
+                need_new = total - n_hit + (1 if cow else 0) + n_rest
+                if need_new <= len(self._free) + self.cache.evictable(
+                        exclude=keys[:n_hit]):
+                    chosen = (n_hit, start, cow, need_new, n_rest)
+                    break
+            if chosen is None:
+                break                        # head-of-line: wait for pages
+            n_hit, start, cow, need_new, n_rest = chosen
+            hits = hits[:n_hit - n_rest]
+            self._queue.pop(0)
+            if n_tier:
+                # recompute-decided host blocks, plus any restore span the
+                # loop above degraded away, are re-prefilled
+                lo = max(n_hit, n_dev)
+                n_recomp = n_dev + n_tier - lo
+                if n_recomp:
+                    self._tier_recompute(keys, lo, n_recomp)
+            self.cache.mount(keys[:len(hits)])
+            if len(self._free) < need_new:
+                freed = self._spill_wave(need_new - len(self._free))
+                self.stats.prefix_evictions += len(freed)
+                self._free.extend(freed)
+            privates = [self._free.pop() for _ in range(need_new)]
+            keys_meta = keys
+            inserted = {}
+            if n_rest:
+                rest_pages = [privates.pop() for _ in range(n_rest)]
+                inserted = dict(self._tier_restore(keys, len(hits),
+                                                   rest_pages, hold))
+                if not all(inserted.values()):
+                    # a refused restore insert breaks the held chain:
+                    # publish nothing deeper for this request
+                    keys_meta = keys[:len(hits)]
+                hits = hits + rest_pages
+            shared = list(hits)
+            shared_set = set(shared[:n_hit - n_rest]) | \
+                {p for p, ok in inserted.items() if ok}
+            if cow:
+                last = shared[-1]
+                if last in shared_set:
+                    dst = privates.pop()
+                    self.d.copy_page(last, dst)
+                    self.cache.release_page(last)
+                    self.stats.prefix_cow += 1
+                    shared_set.discard(last)
+                    shared[-1] = dst
+                else:
+                    # the final block is a restore whose insert was
+                    # refused: already private, return the spare page
+                    self._free.append(privates.pop())
+            self._occupy(slot, rid, shared + privates)  # prefix first
+            self._slot_shared[slot] = shared_set
+            self._cache_meta[rid] = (start, keys_meta, n_hit)
+            self.stats.prefix_hits += n_hit
+            self.stats.prefix_misses += len(keys) - n_hit
+            self.stats.prefix_tokens_saved += start
+            self.stats.prefix_bytes_saved += start * tok_bytes
+            admitted.append((slot, rid, ids, self._slot_pages[slot]))
         return admitted
 
     def _retire(self, slot):
-        """Free the slot's pages and clear every per-slot field (the
-        generation bump makes any in-flight block of this occupancy
-        stale)."""
-        self._free.extend(self._slot_pages[slot])
+        """Give back the slot's pages — a shared page drops this request's
+        cache reference (the cache still owns it, parked at refcount 0),
+        a private one returns to the free list — and clear every per-slot
+        field (the generation bump makes any in-flight block of this
+        occupancy stale)."""
+        shared = self._slot_shared[slot]
+        for pid in self._slot_pages[slot]:
+            if pid in shared:
+                self.cache.release_page(pid)
+            else:
+                self._free.append(pid)
         self.stats.completed += 1
+        self._slot_shared[slot] = set()
         self._slot_req[slot] = None
         self._slot_pages[slot] = []
         self._slot_gen[slot] += 1
@@ -214,6 +564,37 @@ class ContinuousBatchingEngine:
         if self.scheduler is not None:
             self.scheduler.retire(slot)
         self._table_cache = None
+
+    def page_ledger(self):
+        """Auditable snapshot of page ownership: the free list, each
+        slot's pages and the shared ones among them, the cache's
+        refcounts and parked pages, and the host tier's entries with
+        their device twins (`audit_pages` checks it)."""
+        return {
+            "num_pages": self.d.num_pages,
+            "scratch": self.d.num_pages - 1,
+            "free": list(self._free),
+            "slots": {s: list(p)
+                      for s, p in enumerate(self._slot_pages) if p},
+            "shared": {s: sorted(sh)
+                       for s, sh in enumerate(self._slot_shared) if sh},
+            "cache": self.cache.ledger() if self.cache else {},
+            "host": self.tier.ledger() if self.tier is not None else {},
+        }
+
+    def audit_pages(self):
+        """The MEM-PAGE-REFCOUNT audit of the live ledger; returns the
+        findings (empty = every page owned exactly once). A quantized
+        pool's held and cached pages are also checked for scale planes
+        under their bytes (a copy that moved the bytes without the scales
+        dequantizes to garbage)."""
+        findings = audit_page_ledger(self.page_ledger())
+        if self.d.kv_quant:
+            held = {p for pg in self._slot_pages for p in pg}
+            if self.cache is not None:
+                held |= set(self.cache.pages())
+            findings += audit_kv_scale_planes(self.d, sorted(held))
+        return findings
 
     def _table(self):
         """Page table with inactive/unused entries routed to the reserved
@@ -295,10 +676,11 @@ class ContinuousBatchingEngine:
     # -- ragged scheduling (chunked prefill INSIDE the decode horizon) --
 
     def _admit_ragged(self):
-        """Admission without a prefill dispatch: allocate pages and hand
-        the prompt to the SCHEDULER — it streams into the horizon w
-        tokens per tick from the device-resident pend carry. Returns
-        [(slot, rid, prompt), ...] for the carry merge."""
+        """Admission without a prefill dispatch: mount the prefix-cache
+        span (zero device work), allocate pages and hand the uncached
+        suffix to the SCHEDULER — it streams into the horizon w tokens per
+        tick from the device-resident pend carry, from position `start`.
+        Returns [(slot, rid, suffix), ...] for the carry merge."""
         admitted = self._gather_admissions()
         if not admitted:
             return []
@@ -306,23 +688,29 @@ class ContinuousBatchingEngine:
         self._table_cache = None
         plans = []
         for slot, rid, ids, _pages in admitted:
+            start = self._cache_meta[rid][0] if self.cache is not None \
+                else 0
+            suffix = ids[start:]
             self._outputs[rid] = []
-            self._lens[slot] = 0
+            self._lens[slot] = start
             self._tokens[slot] = 0
             self._kids[slot] = rid
             self._prompt_len[slot] = len(ids)
-            self.scheduler.admit(slot, len(ids))
-            self.stats.prefill_chunk_tokens += len(ids)
-            plans.append((slot, rid, ids))
+            self.scheduler.admit(slot, len(suffix))
+            self.stats.prefill_chunk_tokens += len(suffix)
+            plans.append((slot, rid, suffix))
         return plans
 
     def _first_token(self, rid, slot):
         """A request's FIRST token just landed on the host: stamp TTFT
         (submit -> first token, however many horizons the prefill
-        spanned)."""
+        spanned) and publish its freshly computed cache blocks (the
+        horizon that wrote them precedes, on the card's stream, every
+        later mount's reads and any spill's copy)."""
         t0 = self._submit_t.pop(rid, None)
         if t0 is not None:
             self.stats.ttft_s.append(time.perf_counter() - t0)
+        self._publish_blocks(rid, slot)
         # prompt fully consumed; the emitted token is not consumed yet
         self._lens[slot] = self._prompt_len[slot]
 

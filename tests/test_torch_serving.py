@@ -150,8 +150,10 @@ def test_unported_options_raise(models):
     # the JAX decoder's sampling tuple and seed
     dec = _decoder(models, temperature=0.7, top_k=5, seed=9)
     assert dec.sampling == (0.7, 5, 1.0) and dec.seed == 9
+    # the prefix cache is ported (test_torch_prefix_cache.py); the
+    # flight recorder is not
     with pytest.raises(NotImplementedError):
-        ContinuousBatchingEngine(_decoder(models), prefix_cache=True)
+        ContinuousBatchingEngine(_decoder(models), trace=True)
     with pytest.raises(NotImplementedError):
         ContinuousBatchingEngine(_decoder(models), ragged=False, k_max=4)
 
