@@ -71,8 +71,8 @@ chunks, with two launches and the split and unsplit launches bit-equal,
 no register spills in any of their bodies, and a chunked-prefill timing
 row beside the decode one. The LayerNorm forward and backward and the
 RMSNorm forward (one row walk for both forwards) are held against their
-plain versions at GPT's and BERT's rows and at widths 128-8192, ragged
-row counts and mixed dtypes, the backward at its rounding points with its
+plain versions at GPT's, gpt_moe_small's and BERT's rows and at widths
+128-8192, ragged row counts and mixed dtypes, the backward at its rounding points with its
 bits within LN_BWD_FLIP of the plain version's, two launches bit-equal,
 and a control with one rounding point moved rejected; they are timed
 eagerly and as device time beside F.layer_norm, aten's LayerNorm backward
@@ -114,7 +114,20 @@ cached run launches the ragged kernel (plain version never); a kept
 attention call of a device hit, a copy-on-write and a restore, on the
 real mounted table at start > 0, matches the plain version; the page
 audit is empty after each run; and the streams equal their cache-off,
-capacity-0 or warm twin's or pass the teacher-forced oracle rule. Every
+capacity-0 or warm twin's or pass the teacher-forced oracle rule.
+GPT-MoE (bench.py's run_gpt_moe: gpt_moe_small, 8 experts with top-2
+routing in every 2nd block, bf16, batch 8 x 1024, AdamW with bf16 slots,
+loss + aux_loss(); no Pallas kernel on the routing, which runs as eager
+PyTorch ops) trains 2 + 8 steps with GPT's kernels launched as many
+times a step as a 12-block model without recompute needs, prints every
+MoE layer's routing with its invariants (each expert keeps at most C
+tokens, a slot holds one token, top-2 weights >= 0 summing to <= 1),
+times the routing alone, profiles one step by family (the routing,
+gather and scatter kernels as their own), times a step whose top-k gate
+derives the keys it never reads (as JAX's dispatch does) against the
+gate's own (which derives none), trains the "switch" and
+"gshard" gates a few steps each, and holds gpt_moe_tiny's training
+(the MoE clip, routing included) against the port's CPU run. Every
 phase raises on failure.
 The output is one line per phase, then one JSON line with the kernels'
 numbers, the card's name and power limit, and as the last line
@@ -1612,11 +1625,13 @@ def _rand(gen, shape, dtype, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-# (name, B, L, Hq, Hkv, D, causal): the training shape, a small GQA case
-# with a ragged length, a non-causal case, head_dim 256 with GQA and a
-# ragged length, and q, k, v as views at an odd storage offset (not
-# 16-byte aligned; the bf16 wrapper copies them for the tensor-core body)
+# (name, B, L, Hq, Hkv, D, causal): the training shape, gpt_moe_small's
+# (16 heads of 64), a small GQA case with a ragged length, a non-causal
+# case, head_dim 256 with GQA and a ragged length, and q, k, v as views at
+# an odd storage offset (not 16-byte aligned; the bf16 wrapper copies them
+# for the tensor-core body)
 FLASH_CASES = [("train", TB, TL, TH, TH, TD, True),
+               ("moe", TB, TL, 16, 16, 64, True),
                ("gqa", 2, 200, 4, 2, 64, True),
                ("noncausal", 2, 256, 2, 2, 128, False),
                ("d256", 2, 200, 4, 2, 256, True),
@@ -2266,11 +2281,12 @@ _FAMILIES = (("flash_attention", ("flash_fwd", "flash_dq", "flash_dkv")),
              ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")))
 
 
-def phase_train_profile(trainer, batch, label="train_profile"):
+def phase_train_profile(trainer, batch, label="train_profile",
+                        families=_FAMILIES):
     """Where one training step's time goes: device time by kernel family
-    under torch.profiler, and the device's busy share (device kernel
-    time over the step's wall time; one stream, so kernels do not
-    overlap)."""
+    under torch.profiler, the device's busy share (device kernel time
+    over the step's wall time; one stream, so kernels do not overlap)
+    and the step's device launches."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2279,8 +2295,8 @@ def phase_train_profile(trainer, batch, label="train_profile"):
         trainer.step(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    fam = dict.fromkeys([f for f, _ in _FAMILIES] + ["other"], 0.0)
-    kernels = []
+    fam = dict.fromkeys([f for f, _ in families] + ["other"], 0.0)
+    kernels, launches = [], 0
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
@@ -2290,8 +2306,9 @@ def phase_train_profile(trainer, batch, label="train_profile"):
         if us <= 0:
             continue
         kernels.append((us, ev.key))
+        launches += ev.count
         name = ev.key.lower()
-        for f, keys in _FAMILIES:
+        for f, keys in families:
             if any(t in name for t in keys):
                 fam[f] += us
                 break
@@ -2301,12 +2318,14 @@ def phase_train_profile(trainer, batch, label="train_profile"):
     if busy <= 0:
         log(label, device_time="not measured (the profiler saw "
             "no device kernels)", wall_ms=f"{wall * 1e3:.2f}")
-        return
+        return prof
     log(label, wall_ms=f"{wall * 1e3:.2f}",
         device_ms=f"{busy * 1e3:.2f}", device_busy_share=f"{busy / wall:.3f}",
+        device_launches=launches,
         **{f"{k}_ms": f"{v / 1e3:.2f}" for k, v in fam.items()})
     for us, name in sorted(kernels, reverse=True)[:8]:
         log(f"{label}_top", kernel=repr(name[:90]), ms=f"{us / 1e3:.3f}")
+    return prof
 
 
 def phase_train_split(trainer, batch):
@@ -2318,7 +2337,7 @@ def phase_train_split(trainer, batch):
     ev[0].record()
     _, grads = trainer._loss_and_grads(batch)
     ev[1].record()
-    trainer.optimizer.apply_gradients(trainer.params, grads)
+    trainer._update(grads)
     ev[2].record()
     torch.cuda.synchronize()
     log("train_split", fwd_bwd_ms=f"{ev[0].elapsed_time(ev[1]):.2f}",
@@ -2747,7 +2766,7 @@ def phase_bert_split(trainer, batch):
         t0 = time.perf_counter()
         _, grads = trainer._loss_and_grads(batch)
         with torch.profiler.record_function("bert_optimizer"):
-            trainer.optimizer.apply_gradients(trainer.params, grads)
+            trainer._update(grads)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     fam = dict.fromkeys(_BERT_FAMILIES, 0.0)
@@ -3294,12 +3313,13 @@ def phase_norm_entry_points(LN, X):
 # ---------------------------------------------------------------- phase 9b
 
 # The LayerNorm and RMSNorm kernels' checks: (label, rows, width, x dtype,
-# weight dtype, eps, control). GPT's and BERT's rows at full width (the
-# control run there), width 128 and 8192, 8 rows, row counts that are no
+# weight dtype, eps, control). GPT's, gpt_moe_small's and BERT's rows at
+# full width (the control run there), width 128 and 8192, 8 rows, row counts that are no
 # multiple of the rows a block takes, widths whose vectors leave lanes
 # idle (640) or need 3 warps a row (6144), and mixed x and weight dtypes
 # (the 64 KB of f32 w and b at 8192 take the opt-in shared memory).
 NORM_CASES = (("gpt", TN, THID, _BF16, _BF16, 1e-5, True),
+              ("gpt_moe", TN, 1024, _BF16, _BF16, 1e-5, True),
               ("gpt f32", TN, THID, _F32, _F32, 1e-5, False),
               ("bert", BB * BL, BHID, _BF16, _BF16, 1e-12, True),
               ("h128", 1024, 128, _BF16, _BF16, 1e-5, False),
@@ -4217,7 +4237,7 @@ def phase_resnet_profile(trainer, batch):
         t0 = time.perf_counter()
         _, grads = trainer._loss_and_grads(batch)
         with torch.profiler.record_function("resnet_optimizer"):
-            trainer.optimizer.apply_gradients(trainer.params, grads)
+            trainer._update(grads)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     fam = dict.fromkeys([f for f, _ in _RESNET_FAMILIES] + ["other"], 0.0)
@@ -4507,6 +4527,28 @@ def phase_train_dots(A, LN, X, smi, full_bs8):
 DOTS_HOST_STEPS = 4                         # timed steps a variant a round
 
 
+def _profiled_step(trainer, batch):
+    """One profiled training step: (wall ms, device ms, recorded CPU ops,
+    their summed self CPU ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cpu_ops = cpu_us = dev_us = 0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            dev_us += ev.self_cuda_time_total if us is None else us
+        else:
+            cpu_ops += ev.count
+            cpu_us += ev.self_cpu_time_total
+    return wall, dev_us / 1e3, cpu_ops, cpu_us / 1e3
+
+
 def phase_dots_host(trainer, batch):
     """Where 'dots' spends its extra host time, on one trainer whose remat
     is switched between steps: 'full'; 'sac_all' (the selective
@@ -4519,7 +4561,6 @@ def phase_dots_host(trainer, batch):
     recorded ops and their summed self CPU time (a `__torch_dispatch__`
     mode runs inside each op's record, so the mode's Python cost lands
     there)."""
-    from torch.profiler import ProfilerActivity, profile
     from torch.utils.checkpoint import (CheckpointPolicy,
                                         create_selective_checkpoint_contexts)
     from paddle_tpu_torch.models import gpt as gpt_mod
@@ -4560,29 +4601,13 @@ def phase_dots_host(trainer, batch):
                 peak[name] = torch.cuda.max_memory_allocated() / 1e9
         for name in variants:
             use(name)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                trainer.step(batch)
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            cpu_ops = cpu_us = dev_us = 0
-            for ev in prof.key_averages():
-                if getattr(ev, "device_type", None) == \
-                        torch.autograd.DeviceType.CUDA:
-                    us = getattr(ev, "self_device_time_total", None)
-                    dev_us += ev.self_cuda_time_total if us is None else us
-                else:
-                    cpu_ops += ev.count
-                    cpu_us += ev.self_cpu_time_total
+            wall, dev_ms, cpu_ops, cpu_ms = _profiled_step(trainer, batch)
             log("train_dots_host", variant=name,
                 step_ms=[f"{t:.2f}" for t in times[name]],
                 peak_mem_GB=f"{peak[name]:.2f}",
-                profiled_wall_ms=f"{wall:.2f}",
-                device_ms=f"{dev_us / 1e3:.2f}",
-                device_busy_share=f"{dev_us / 1e3 / wall:.3f}",
-                cpu_ops=cpu_ops, cpu_self_ms=f"{cpu_us / 1e3:.2f}")
+                profiled_wall_ms=f"{wall:.2f}", device_ms=f"{dev_ms:.2f}",
+                device_busy_share=f"{dev_ms / wall:.3f}", cpu_ops=cpu_ops,
+                cpu_self_ms=f"{cpu_ms:.2f}")
     finally:
         cfg.remat_policy, gpt_mod._dots_context = "dots", real
 
@@ -5503,6 +5528,336 @@ def phase_serve_tier(sd, rpa):
     return total_launches, err
 
 
+# ---------------------------------------------------------------- slice 16
+# GPT-MoE training (bench.py's run_gpt_moe, BASELINE config 5):
+# gpt_moe_small (h 1024, 12 layers, 16 heads of 64, 8 experts with top-2
+# routing in every 2nd block, capacity factor 1.25) in bf16, batch 8 x
+# 1024 from seed 0, AdamW(2e-4, weight decay 0.01, bf16 moment slots, no
+# clip), loss = the pretraining criterion + aux_loss(); 2 warm-up and 8
+# timed steps. MFU counts the activated parameters (bench.py's formula).
+# No Pallas kernel lies on the routing (XLA einsums in the JAX package):
+# it runs as eager PyTorch ops, and the step's kernels are GPT's — flash
+# forward / dQ / dK-dV a block (no recompute), the LayerNorm forward and
+# backward, the cross-entropy and AdamW.
+
+MOE_EXPECTED_PER_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12,
+                         "flash_bwd_dkv": 12, "layer_norm": 25,
+                         "layer_norm_bwd": 25, "rms_norm": 0,
+                         "xent_fwd": 1, "xent_bwd": 1,
+                         "dropout_residual_layer_norm": 0,
+                         "hash_dropout": 0, "hash_dropout_bwd": 0,
+                         "hash_dropout_mask": 0}
+MOE_GATE_STEPS = 3                 # timed steps of each stochastic gate
+MOE_KEY_STEPS = 4                  # timed steps a round in [moe_keys]
+# routing, gather and scatter kernels by name (argmax, one_hot's scatter,
+# cumsum, gather, index_select and its index_add backward, the router's
+# softmax); the routing's elementwise ops fall under "other"
+_MOE_FAMILIES = _FAMILIES + (
+    ("routing", ("argmax", "scatter", "gather", "scan", "cumsum",
+                 "indexselect", "indexfunc", "index_", "softmax")),)
+
+
+def _moe_trainer(cfg, device=None, lr=2e-4, acc_dtype="bfloat16", bf16=True,
+                 state=None, clip=None):
+    """bench.py's run_gpt_moe recipe: GPTMoE(cfg) (seed 0, or the
+    weights `state`) [.bfloat16()], AdamW(lr, default weight decay 0.01,
+    bf16 moment slots, `clip`), loss = criterion + aux_loss()."""
+    from paddle_tpu_torch.distributed import Trainer
+    from paddle_tpu_torch.models import GPTMoE, GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    model = GPTMoE(cfg, device=device, seed=SEED)
+    if state is not None:
+        model.load_state_dict(state)
+    if bf16:
+        model.bfloat16()
+    crit = GPTPretrainingCriterion()
+    opt = AdamW(learning_rate=lr, accumulator_dtype=acc_dtype,
+                grad_clip=clip)
+    return Trainer(model, opt, lambda m, b: crit(m(b["input_ids"]),
+                                                 b["labels"]) + m.aux_loss(),
+                   device=device)
+
+
+def _moe_cfg(**kw):
+    from paddle_tpu_torch.models import gpt_moe_small
+    return gpt_moe_small(max_seq_len=TL, **kw)
+
+
+def phase_moe_training(A, LN, X, smi):
+    cfg = _moe_cfg()
+    t0 = time.perf_counter()
+    trainer = _moe_trainer(cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    batches = _device_batches(cfg, TB, 1)
+    losses, step_ms, peak, kern, plain, _ = _steps(trainer, batches, A, LN,
+                                                   X)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE losses not falling: {losses}")
+    per_step = {k: v / TRAIN_STEPS for k, v in kern.items()}
+    expected = {**MOE_EXPECTED_PER_STEP,
+                "adamw": _adamw_launches_expected(trainer, X)}
+    branches = dict(A.branch_launches)
+    if per_step != expected or any(plain.values()) or any(
+            branches.get(f"{name}[tc,none]") != kern[name]
+            for name in A.KERNELS):
+        raise AssertionError(f"MoE launches a step {per_step} (expected "
+                             f"{expected}), by body and branch {branches}, "
+                             f"plain {plain}")
+    tok_s = TB * TL / (step_ms / 1e3)
+    active = cfg.num_active_params()
+    log("moe_train", model="gpt_moe_small", layers=cfg.num_layers,
+        hidden=cfg.hidden_size, experts=cfg.num_experts, top_k=cfg.top_k,
+        gate=cfg.gate, capacity_factor=cfg.capacity_factor,
+        params_M=f"{cfg.num_params() / 1e6:.1f}",
+        active_params_M=f"{active / 1e6:.1f}", batch=f"{TB}x{TL}",
+        dtype="bfloat16", gpu=repr(smi), setup_s=f"{setup_s:.2f}",
+        steps=TRAIN_STEPS, step_ms=f"{step_ms:.2f}",
+        tokens_per_s=f"{tok_s:.1f}",
+        mfu_active=f"{6 * active * tok_s / H100_BF16_FLOPS:.4f}",
+        peak_mem_GB=f"{peak:.2f}", loss_first=f"{losses[0]:.5f}",
+        loss_last=f"{losses[-1]:.5f}",
+        aux_last=f"{float(trainer.model.aux_loss().detach()):.6f}")
+    log("moe_launches", **{f"{k}_per_step": v for k, v in per_step.items()},
+        adamw_tensors_per_launch=len(trainer.params) / per_step["adamw"],
+        **branches, plain=sum(plain.values()))
+    return trainer, batches[0], kern, step_ms
+
+
+def _routing_invariants(label, r, num_experts, top_k):
+    """A dispatch's routing: every expert keeps at most C tokens, each
+    slot holds one token, the combine weights are >= 0 and each token's
+    sum to at most 1 (+1e-6) under top-2. Returns its numbers."""
+    C, E = r.capacity, num_experts
+    kept = r.slots[r.keep]
+    per_slot = torch.bincount(kept, minlength=E * C)
+    per_expert = torch.bincount(kept // C, minlength=E)
+    demand = torch.bincount(r.experts[r.selected], minlength=E)
+    w = r.weights
+    bad = []
+    if int(per_expert.max()) > C:
+        bad.append(f"an expert keeps {int(per_expert.max())} > C {C}")
+    if int(per_slot.max()) > 1:
+        bad.append("a slot holds more than one token")
+    if float(w.min()) < 0 or (top_k > 1 and float(w.sum(1).max()) >
+                              1 + 1e-6):
+        bad.append(f"combine weights min {float(w.min())}, largest sum "
+                   f"{float(w.sum(1).max())}")
+    if bad:
+        raise AssertionError(f"{label}: " + "; ".join(bad))
+    T = r.experts.shape[0]
+    return {"capacity": C,
+            "kept_per_round": ",".join(str(int(n)) for n in r.keep.sum(0)),
+            "selected_per_round": ",".join(str(int(n))
+                                           for n in r.selected.sum(0)),
+            "drop_fraction": f"{1 - int(r.keep.sum()) / int(r.selected.sum()):.4f}",
+            "max_demand_over_C": f"{int(demand.max()) / C:.3f}",
+            "max_kept_over_C": f"{int(per_expert.max()) / C:.3f}",
+            "tokens": T, "aux": f"{float(r.aux):.6f}"}
+
+
+def phase_moe_routing(trainer, smi):
+    """Per MoE layer of the run's last step: tokens kept per round, the
+    share of selections dropped by capacity, the largest expert demand
+    and load over C, the layer's aux loss, and the invariants. Then the
+    routing and the whole dispatch timed alone at the step's shape."""
+    from paddle_tpu_torch.models import moe as TM
+    model, cfg = trainer.model, trainer.model.cfg
+    for i, m in enumerate(model.moe_layers()):
+        log("moe_routing", layer=2 * i + 1, **_routing_invariants(
+            f"layer {2 * i + 1}", m.last_routing, cfg.num_experts,
+            cfg.top_k))
+    m = model.moe_layers()[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(TB * TL, cfg.hidden_size, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    args = (x, m.gate_w, m.w1, m.b1, m.w2, m.b2, m.gate_policy,
+            cfg.capacity_factor)
+    with torch.no_grad():
+        route_ms = cuda_ms(lambda i=0: TM._route(
+            x, m.gate_w, cfg.num_experts, m.gate_policy,
+            cfg.capacity_factor), 20)
+        dispatch_ms = cuda_ms(lambda i=0: TM._moe_dispatch(*args), 20)
+        C = max(1, int(cfg.capacity_factor * TB * TL * cfg.top_k
+                       / cfg.num_experts))
+        xin = torch.randn(cfg.num_experts, C, cfg.hidden_size,
+                          device="cuda", generator=gen, dtype=torch.bfloat16)
+        experts_ms = cuda_ms(lambda i=0: torch.bmm(torch.nn.functional.gelu(
+            torch.bmm(xin, m.w1) + m.b1[:, None], approximate="tanh"),
+            m.w2) + m.b2[:, None], 20)
+    flops = 2 * 2 * cfg.num_experts * C * cfg.hidden_size * cfg.ffn_hidden
+    log("moe_routing_time", tokens=TB * TL, capacity=C,
+        route_fwd_ms=f"{route_ms:.4f}", dispatch_fwd_ms=f"{dispatch_ms:.4f}",
+        experts_bmm_ms=f"{experts_ms:.4f}",
+        experts_TFLOP_s=f"{flops / experts_ms / 1e9:.1f}",
+        routing_and_gather_share=f"{1 - experts_ms / dispatch_ms:.3f}",
+        gpu=repr(smi))
+
+
+def phase_moe_profile(trainer, batch, step_ms):
+    """Where one MoE step's time goes: device ms by family (cuBLAS,
+    flash, LN, xent, AdamW, the routing / gather / scatter kernels, other
+    elementwise), busy share and device launches a step; then the host
+    side of the same profile (the recorded CPU ops, their summed self
+    CPU ms, the largest by self time) and the device ms over the
+    unprofiled step's wall time (`[moe_train]`'s step_ms)."""
+    prof = phase_train_profile(trainer, batch, label="moe_profile",
+                               families=_MOE_FAMILIES)
+    cpu, dev_us = [], 0.0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            dev_us += ev.self_cuda_time_total if us is None else us
+        else:
+            cpu.append((ev.self_cpu_time_total, ev.count, ev.key))
+    log("moe_profile_host", cpu_ops=sum(c for _, c, _ in cpu),
+        cpu_self_ms=f"{sum(u for u, _, _ in cpu) / 1e3:.2f}",
+        unprofiled_step_ms=f"{step_ms:.2f}",
+        device_share_of_step=f"{dev_us / 1e3 / step_ms:.3f}",
+        top=";".join(f"{k[:40]}:{c}:{u / 1e3:.2f}ms"
+                     for u, c, k in sorted(cpu, reverse=True)[:6]))
+
+
+def phase_moe_keys(trainer, batch, smi):
+    """What the gate protocol's `draws_random` saves on the "topk" path:
+    the [moe_train] trainer's MoE layers switched between their own gate
+    ("no_keys": it derives no key) and the same top-k gate made to derive
+    its keys as JAX's dispatch does ("keys": the stream's draw,
+    fold_in(key, T), split and fold_in(routing key, k) a round, read by
+    nothing). Two rounds in mirrored order, MOE_KEY_STEPS steps each
+    after one untimed step: wall ms a step; then one profiled step of
+    each: device ms, recorded CPU ops and their self CPU ms."""
+    from paddle_tpu_torch.models.moe_gate import NaiveTopKGate
+
+    class KeyedTopK(NaiveTopKGate):
+        def draws_random(self, train):
+            return True
+
+    layers = trainer.model.moe_layers()
+    own = layers[0].gate_policy
+    variants = {"no_keys": own, "keys": KeyedTopK(own.top_k)}
+
+    def use(name):
+        for m in layers:
+            m.gate_policy = variants[name]
+
+    times = {k: [] for k in variants}
+    prof = {}
+    try:
+        for order in (list(variants), list(variants)[::-1]):
+            for name in order:
+                use(name)
+                trainer.step(batch)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(MOE_KEY_STEPS):
+                    trainer.step(batch)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3
+                                   / MOE_KEY_STEPS)
+        for name in variants:
+            use(name)
+            prof[name] = _profiled_step(trainer, batch)
+            wall, dev_ms, cpu_ops, cpu_ms = prof[name]
+            log("moe_keys", variant=name, gpu=repr(smi),
+                step_ms=[f"{t:.2f}" for t in times[name]],
+                profiled_wall_ms=f"{wall:.2f}", device_ms=f"{dev_ms:.2f}",
+                cpu_ops=cpu_ops, cpu_self_ms=f"{cpu_ms:.2f}")
+    finally:
+        use("no_keys")
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    log("moe_keys_saving", step_ms=f"{mean['keys'] - mean['no_keys']:.2f}",
+        cpu_ops=prof["keys"][2] - prof["no_keys"][2],
+        cpu_self_ms=f"{prof['keys'][3] - prof['no_keys'][3]:.2f}",
+        device_ms=f"{prof['keys'][1] - prof['no_keys'][1]:.2f}")
+
+
+def phase_moe_gates(smi):
+    """"switch" and "gshard" at gpt_moe_small's width: 1 warm-up and
+    MOE_GATE_STEPS steps each; finite losses, the routing invariants in
+    every MoE layer, and GShard's random second-expert keep fraction."""
+    from paddle_tpu_torch.distributed import LossBuffer
+    for gate in ("switch", "gshard"):
+        cfg = _moe_cfg(gate=gate)
+        trainer = _moe_trainer(cfg)
+        batch = _device_batches(cfg, TB, 1)[0]
+        buf = LossBuffer(drain_every=1 + MOE_GATE_STEPS)
+        buf.append(trainer.step(batch))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MOE_GATE_STEPS):
+            buf.append(trainer.step(batch))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / MOE_GATE_STEPS * 1e3
+        losses = buf.losses
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{gate}: losses {losses}")
+        layers = trainer.model.moe_layers()
+        stats = [_routing_invariants(f"{gate} layer {2 * i + 1}",
+                                     m.last_routing, cfg.num_experts,
+                                     cfg.top_k)
+                 for i, m in enumerate(layers)]
+        extra = {}
+        if gate == "gshard":
+            extra["round2_keep_fraction"] = ",".join(
+                f"{float(m.last_routing.selected[:, 1].float().mean()):.4f}"
+                for m in layers)
+        log("moe_gates", gate=gate, top_k=cfg.top_k, gpu=repr(smi),
+            step_ms=f"{step_ms:.2f}",
+            losses=",".join(f"{x:.5f}" for x in losses),
+            drop_fraction=",".join(s["drop_fraction"] for s in stats),
+            max_demand_over_C=",".join(s["max_demand_over_C"]
+                                       for s in stats),
+            key_draws=layers[0].keys.count, **extra)
+        del trainer, batch
+        torch.cuda.empty_cache()
+
+
+def phase_moe_small_reference():
+    """gpt_moe_tiny in f32: 3 Trainer steps (AdamW lr 1e-3, f32 slots,
+    the MoE clip with expert parameters picked by name) on the card
+    against the port on the CPU from the same weights: losses and
+    parameters within TRAIN_REF_TOL, and every MoE layer's routing of
+    every step equal."""
+    from paddle_tpu_torch.models import GPTMoE, gpt_moe_tiny
+    from paddle_tpu_torch.nn import ClipGradForMOEByGlobalNorm
+    cfg = gpt_moe_tiny()
+    batch = _batch(cfg, 4, 64, seed=SEED + 6)
+    state = {k: v.detach() for k, v in GPTMoE(cfg, device="cpu",
+                                              seed=SEED).state_dict().items()}
+    runs = []
+    for device in ("cuda", "cpu"):
+        tr = _moe_trainer(cfg, device=device, lr=1e-3, acc_dtype=None,
+                          bf16=False, state=state,
+                          clip=ClipGradForMOEByGlobalNorm(
+                              1.0, lambda n: ".moe.w" in n or ".moe.b" in n))
+        losses, routes = [], []
+        for _ in range(3):
+            losses.append(float(tr.step(batch)))
+            routes.append([(r.experts.cpu(), r.keep.cpu(), r.slots.cpu())
+                           for r in (m.last_routing
+                                     for m in tr.model.moe_layers())])
+        runs.append((losses, routes, {k: v.detach().cpu() for k, v in
+                                      tr.model.state_dict().items()}))
+    (lc, rc, pc), (lh, rh, ph) = runs
+    loss_err = max(abs(a - b) for a, b in zip(lc, lh))
+    param_err = max(float((pc[k] - ph[k]).abs().max()) for k in ph)
+    routing_equal = all(torch.equal(a, b) for sc, sh in zip(rc, rh)
+                        for lc_, lh_ in zip(sc, sh)
+                        for a, b in zip(lc_, lh_))
+    if loss_err > TRAIN_REF_TOL or param_err > TRAIN_REF_TOL or \
+            not routing_equal:
+        raise AssertionError(f"gpt_moe_tiny card vs CPU: loss err "
+                             f"{loss_err:.3e}, param err {param_err:.3e} "
+                             f"(tolerance {TRAIN_REF_TOL}), routing equal "
+                             f"{routing_equal}")
+    log("moe_small_ref", model="gpt_moe_tiny f32", steps=3,
+        losses_card=[round(x, 6) for x in lc],
+        loss_max_abs_err=f"{loss_err:.3e}",
+        param_max_abs_err=f"{param_err:.3e}", tolerance=TRAIN_REF_TOL,
+        routing_equal=routing_equal)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5597,6 +5952,17 @@ def main():
     del trainer, batch
     torch.cuda.empty_cache()
     phase_resnet_small_reference()
+    t_moe = time.perf_counter()
+    trainer, batch, moe_launches, step_ms = phase_moe_training(A, LN, X,
+                                                               smi)
+    phase_moe_routing(trainer, smi)
+    phase_moe_profile(trainer, batch, step_ms)
+    phase_moe_keys(trainer, batch, smi)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    phase_moe_gates(smi)
+    phase_moe_small_reference()
+    log("moe_phases", total_s=f"{time.perf_counter() - t_moe:.1f}")
     log("done", total_s=f"{time.perf_counter() - t_start:.1f}")
     # the cached runs (prefix cache, host tier, persistence) count too
     serve_launches = {
@@ -5626,7 +5992,7 @@ def main():
                if name in NORM_KERNELS else train_err[name])
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": train_launches[name],
+                        "launches": train_launches[name] + moe_launches[name],
                         "max_abs_err": err, **timing})
     for name in A.KERNELS:
         source, replaces = TRAIN_KERNELS[name]
@@ -5652,7 +6018,8 @@ def main():
                     **norm_timing[f"rms_norm[{gpt_rows}]"]})
     for name, source, replaces, launches, timing in (
             ("adamw", "adamw.cu", "fused_ops.py:215",
-             train_launches["adamw"] + bert_launches["adamw"], "adamw"),
+             train_launches["adamw"] + bert_launches["adamw"]
+             + moe_launches["adamw"], "adamw"),
             ("dropout_residual_layer_norm", "layer_norm.cu",
              "fused_ops.py:288", norm_launches["dropout_residual_layer_norm"],
              f"dropout_residual_layer_norm[{BB * BL}x{BHID}]")):

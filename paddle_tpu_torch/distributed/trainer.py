@@ -69,10 +69,26 @@ class Trainer:
     loss = trainer.step(batch)   # batch: dict of arrays or tensors
 
     The model's parameters are updated in place. `device=None` means the
-    card (and raises without one); the model must already live there."""
+    card (and raises without one); the model must already live there.
+    The positional parameters are the JAX `Trainer`'s: the port has no
+    mesh (`mesh` raises), updates in place (`donate` changes nothing),
+    ignores `batch_spec` without a mesh, and raises on a
+    `grad_transform` or a `dp_overlap` other than "off"."""
 
-    def __init__(self, model, optimizer, loss_fn, device=None,
-                 grad_accum_steps=1):
+    def __init__(self, model, optimizer, loss_fn, mesh=None, donate=True,
+                 grad_accum_steps=1, grad_transform=None,
+                 batch_spec=("dp", "fsdp"), dp_overlap="off",
+                 dp_overlap_buckets=2, *, device=None):
+        if mesh is not None:
+            raise NotImplementedError("Trainer(mesh=...) is not ported "
+                                      "(ROADMAP.md queue 1, item 7)")
+        if dp_overlap not in ("off", "bulk", "ring"):
+            raise ValueError(f"dp_overlap must be 'off', 'bulk' or "
+                             f"'ring', got {dp_overlap!r}")
+        if grad_transform is not None or dp_overlap != "off":
+            raise NotImplementedError(
+                "Trainer's grad_transform and dp_overlap are not ported "
+                "(ROADMAP.md queue 1, item 5)")
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
@@ -127,12 +143,17 @@ class Trainer:
                          [a + b for a, b in zip(grads, g)])
             loss = loss / n
             grads = [g / n for g in grads]
-        self.optimizer.apply_gradients(self.params, grads, lr)
+        self._update(grads, lr)
         sched = self.optimizer._lr_scheduler
         if sched is not None:
             sched.step()
         self._host_step += 1
         return loss
+
+    def _update(self, grads, lr=None):
+        """The clip and the optimizer update of one step, the clip seeing
+        the parameters' dotted names."""
+        self.optimizer._apply_named(self._names, self.params, grads, lr)
 
     def sync_to_model(self):
         """The JAX trainer copies its parameters and buffers back into

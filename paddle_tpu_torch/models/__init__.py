@@ -8,6 +8,8 @@ from .generation import beam_search, generate
 from .gpt import (GPT, GPTBlock, GPTConfig, GPTPretrainingCriterion,
                   gpt_125m, gpt_1p3b, gpt_350m, gpt_760m, gpt_tiny,
                   init_state_dict)
+from .moe import GPTMoE, MoEConfig, MoEMLP, gpt_moe_small, gpt_moe_tiny
+from .moe_gate import GShardGate, NaiveTopKGate, SwitchGate, make_gate
 
 __all__ = ["GPT", "GPTBlock", "GPTConfig", "GPTPretrainingCriterion",
            "init_state_dict", "state_dict_from_numpy",
@@ -16,4 +18,6 @@ __all__ = ["GPT", "GPTBlock", "GPTConfig", "GPTPretrainingCriterion",
            "BertModel", "BertForPretraining", "BertForSequenceClassification",
            "BertPretrainingCriterion", "ErnieConfig", "ErnieModel",
            "ErnieForSequenceClassification", "bert_tiny", "bert_base",
-           "bert_large"]
+           "bert_large", "MoEConfig", "MoEMLP", "GPTMoE", "gpt_moe_tiny",
+           "gpt_moe_small", "NaiveTopKGate", "SwitchGate", "GShardGate",
+           "make_gate"]

@@ -5,8 +5,9 @@ the JAX package hands out a model's state
 (`{k: np.asarray(v._value) for k, v in model.state_dict().items()}`:
 parameters and persistable buffers, such as BatchNorm's `_mean` and
 `_variance`) and returns torch tensors under the same names, so the same
-weights compute the same thing in both packages: a port `GPT`, BERT or
-`ResNet` takes them with
+weights compute the same thing in both packages: a port `GPT`, BERT,
+`ResNet` or `GPTMoE` (whose experts keep the JAX names and shapes,
+`blocks.{i}.moe.gate_w` [h, E], `.w1` [E, h, f], ...) takes them with
 `model.load_state_dict(state_dict_from_numpy(np_state))`, each cast to
 its parameter's or buffer's dtype (f32 or bf16, numpy's bfloat16
 exactly).
@@ -14,7 +15,7 @@ exactly).
 `trainer_state_from_numpy` does the same for a JAX `Trainer.state()`
 (parameters, optimizer slots and step counts under the model's names),
 so a state saved by the JAX package resumes in the port's
-`Trainer.load_state`.
+`Trainer.load_state` (bf16 moment slots stay bf16).
 """
 import numpy as np
 import torch

@@ -124,6 +124,15 @@ class GPTBlock(tnn.Module):
         `dropout_seed`: the attention dropout's seed, drawn by the caller
         outside any recompute so the backward's rerun drops the same
         probabilities."""
+        x, cache = self._attention_half(x, cache, pos, dropout_seed)
+        y = F.gelu(self.fc1(self.ln2(x)), approximate=True)
+        with _Unread():
+            y = self.fc2(y)
+        return x + y if cache is None else (x + y, cache)
+
+    def _attention_half(self, x, cache=None, pos=None, dropout_seed=None):
+        """x + proj(attn(ln1(x))), and the cache after this call's
+        writes."""
         cfg = self.cfg
         B, L = x.shape[0], x.shape[1]
         qkv = self.qkv(self.ln1(x)).reshape(B, L, 3, cfg.num_heads,
@@ -135,11 +144,7 @@ class GPTBlock(tnn.Module):
             attn = F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, dropout_p=cfg.dropout,
                 training=self.training, dropout_seed=dropout_seed)
-        x = x + self.proj(attn.reshape(B, L, cfg.hidden_size))
-        y = F.gelu(self.fc1(self.ln2(x)), approximate=True)
-        with _Unread():
-            y = self.fc2(y)
-        return x + y if cache is None else (x + y, cache)
+        return x + self.proj(attn.reshape(B, L, cfg.hidden_size)), cache
 
 
 def _attend_cached(q, k, v, cache, pos):
@@ -257,13 +262,15 @@ class GPT(tnn.Module):
                                 weight_init=init, device=dev, generator=g)
         self.drop = nn.Dropout(cfg.dropout, generator=self._rng)
         self.blocks = nn.LayerList(
-            [GPTBlock(cfg, device=dev, generator=g)
-             for _ in range(cfg.num_layers)])
+            [self._new_block(cfg, i, dev, g) for i in range(cfg.num_layers)])
         self.ln_f = nn.LayerNorm(cfg.hidden_size, device=dev)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
                                      weight_init=init, bias=False,
                                      device=dev, generator=g)
+
+    def _new_block(self, cfg, index, device, generator):
+        return GPTBlock(cfg, device=device, generator=generator)
 
     def _run_block(self, block, x):
         """One block; under remat its activations are recomputed in the

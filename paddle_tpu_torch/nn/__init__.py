@@ -2,7 +2,8 @@
 the GPT, BERT and ResNet training paths (counterpart of
 `paddle_tpu/nn`)."""
 from . import functional, initializer, layout
-from .clip import ClipGradByGlobalNorm
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+                   ClipGradForMOEByGlobalNorm)
 from .initializer import (Constant, KaimingUniform, Normal, Uniform,
                           XavierUniform)
 from .layer import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout,
@@ -13,6 +14,7 @@ from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
 
 __all__ = ["functional", "initializer", "layout", "ClipGradByGlobalNorm",
+           "ClipGradByNorm", "ClipGradByValue", "ClipGradForMOEByGlobalNorm",
            "Constant", "KaimingUniform", "Normal", "Uniform",
            "XavierUniform", "AdaptiveAvgPool2D", "BatchNorm2D", "Conv2D",
            "Dropout", "Embedding", "LayerList", "LayerNorm", "Linear",

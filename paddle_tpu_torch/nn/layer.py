@@ -85,15 +85,24 @@ class Embedding(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, normalized_shape, epsilon=1e-5, device=None):
+    """LayerNorm over the trailing `normalized_shape` axes with a weight
+    that starts at 1 and a bias at 0; `weight_attr=False` / `bias_attr=
+    False` leave it out (None), as the JAX layer builds them."""
+
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None):
         super().__init__()
+        _attr_unported("weight_attr", weight_attr)
+        _attr_unported("bias_attr", bias_attr)
         dev = get_device(device)
         shape = ((normalized_shape,) if isinstance(normalized_shape, int)
                  else tuple(normalized_shape))
         self._shape = list(shape)
         self._epsilon = epsilon
-        self.weight = _param(shape, Constant(1.0), dev, None)
-        self.bias = _param(shape, Constant(0.0), dev, None)
+        self.weight = (None if weight_attr is False else
+                       _param(shape, Constant(1.0), dev, None))
+        self.bias = (None if bias_attr is False else
+                     _param(shape, Constant(0.0), dev, None))
 
     def forward(self, x):
         return F.layer_norm(x, self._shape, self.weight, self.bias,
@@ -102,13 +111,16 @@ class LayerNorm(nn.Module):
 
 class RMSNorm(nn.Module):
     """RMSNorm over the last axis (`F.rms_norm`) with a weight [hidden]
-    that starts at 1."""
+    that starts at 1 (None with `weight_attr=False`)."""
 
-    def __init__(self, hidden_size, epsilon=1e-6, device=None):
+    def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None,
+                 name=None, *, device=None):
         super().__init__()
+        _attr_unported("weight_attr", weight_attr)
         self._epsilon = epsilon
-        self.weight = _param((hidden_size,), Constant(1.0),
-                             get_device(device), None)
+        self.weight = (None if weight_attr is False else
+                       _param((hidden_size,), Constant(1.0),
+                              get_device(device), None))
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self._epsilon)
@@ -133,7 +145,10 @@ class Dropout(nn.Module):
 
 
 class LayerList(nn.ModuleList):
-    """Paddle's name for an `nn.ModuleList`."""
+    """Paddle's name for an `nn.ModuleList`, built from `sublayers`."""
+
+    def __init__(self, sublayers=None):
+        super().__init__(sublayers)
 
 
 def _attr_unported(name, attr):
@@ -141,7 +156,7 @@ def _attr_unported(name, attr):
     parameter) are the only values taken."""
     if attr is not None and attr is not False:
         raise NotImplementedError(f"{name}={attr!r} (ParamAttr) is not "
-                                  "ported")
+                                  "ported (ROADMAP.md queue 1, item 8)")
 
 
 class Conv2D(nn.Module):

@@ -15,7 +15,11 @@ JAX step's f32 `lr` argument is); `Trainer.step` advances the scheduler
 after the update. `state_dict` / `set_state_dict` use the JAX layout:
 `step`, `{index}.{slot}` (with `master` under `multi_precision`) and
 `LR_Scheduler`. `SGD`, `Momentum` and `Adam` run
-that rule per tensor, eagerly in f32 torch ops.
+that rule per tensor, eagerly in f32 torch ops. `apply_gradients` takes
+Paddle's `(param, grad)` pairs and hands them to the clip (the JAX
+`apply_gradients`); the Trainer updates through `_apply_named`, whose
+clip sees the parameters' dotted names (the JAX `apply_gradients_pytree`
+with `clip_pytree`).
 
 `AdamW` groups its parameters by the AdamW kernel's template arguments
 (parameter, gradient and slot dtypes, master copy or not) and makes one
@@ -168,17 +172,59 @@ class Optimizer:
         if "LR_Scheduler" in state_dict and sched is not None:
             sched.set_state_dict(dict(state_dict["LR_Scheduler"]))
 
+    def _folds_clip(self, clip):
+        """Whether `_update` takes a global-norm clip as a scale factor
+        instead of clipped gradients (the fused AdamW does)."""
+        return False
+
     @torch.no_grad()
-    def apply_gradients(self, params, grads, lr=None):
-        """One update of `params` (in place) from `grads`, in the same
-        order, eagerly in f32: the gradient rescaled, then the L2 decay
-        added to it."""
+    def apply_gradients(self, params_grads):
+        """One update (in place) from `(param, grad)` pairs, Paddle's
+        form (the JAX `Optimizer.apply_gradients`): the clip receives the
+        pairs (a `None` gradient or a `need_clip=False` parameter passes
+        it unclipped), then every parameter with a gradient is updated."""
+        pairs = list(params_grads)
+        self._clip_and_update(
+            pairs, [p for p, _ in pairs], None,
+            all(getattr(p, "need_clip", True) for p, _ in pairs),
+            lambda clip: clip(pairs))
+
+    @torch.no_grad()
+    def _apply_named(self, names, params, grads, lr=None):
+        """The Trainer's update (the JAX `apply_gradients_pytree` with
+        `clip_pytree`): the clip sees every gradient under its
+        parameter's dotted name."""
+        params, names, grads = list(params), list(names), list(grads)
+        self._clip_and_update(
+            list(zip(params, grads)), names, lr, True,
+            lambda clip: zip(params, clip.clip_pytree(
+                dict(zip(names, grads))).values()))
+
+    def _clip_and_update(self, pairs, tags, lr, may_fold, clip_pairs):
+        """One step from `(param, grad)` pairs, `tags` their parameters
+        or names for the clip: a global-norm clip's scale is folded into
+        `_update` where the optimizer takes it so (`_folds_clip`) and
+        `may_fold` holds, else `clip_pairs(clip)` gives the clipped
+        pairs; every pair with a gradient is then updated."""
         lr = self.get_lr() if lr is None else float(lr)
         self._step_count += 1
+        clip, scale = self._grad_clip, None
+        if clip is not None:
+            if may_fold and self._folds_clip(clip):
+                kept = [(g, t) for (_, g), t in zip(pairs, tags)
+                        if g is not None]
+                if kept:
+                    scale = clip.scale([g for g, _ in kept],
+                                       [t for _, t in kept])
+            else:
+                pairs = clip_pairs(clip)
+        pairs = [(p, g) for p, g in pairs if g is not None]
+        self._update([p for p, _ in pairs], [g for _, g in pairs], lr, scale)
+
+    def _update(self, params, grads, lr, scale):
+        """Update `params` in place from clipped `grads`, eagerly in
+        f32: the gradient rescaled, then the L2 decay added to it."""
         step = self._step_count
-        params, grads = list(params), list(grads)
-        if self._grad_clip is not None:
-            grads = self._grad_clip(grads)
         for p, g in zip(params, grads):
             slots = self._slots(p)
             master = slots.get("master")
@@ -275,16 +321,13 @@ class AdamW(Adam):
                          weight_decay, grad_clip, lazy_mode,
                          multi_precision, accumulator_dtype=accumulator_dtype)
 
-    @torch.no_grad()
-    def apply_gradients(self, params, grads, lr=None):
-        """One update of `params` (in place) from `grads`: the clip's
-        scale, then one fused multi-tensor AdamW update per group of
-        parameters that share their dtypes and master copy."""
-        lr = self.get_lr() if lr is None else float(lr)
-        self._step_count += 1
-        params, grads = list(params), list(grads)
-        scale = (self._grad_clip.scale(grads)
-                 if self._grad_clip is not None and grads else None)
+    def _folds_clip(self, clip):
+        return hasattr(clip, "scale")
+
+    def _update(self, params, grads, lr, scale):
+        """One fused multi-tensor AdamW update per group of parameters
+        that share their dtypes and master copy, the global-norm clip's
+        `scale` folded in."""
         bc1, bc2 = self._bias_corrections(self._step_count)
         groups = {}
         for p, g in zip(params, grads):

@@ -67,15 +67,22 @@ class ContinuousBatchingEngine:
     the decision."""
 
     def __init__(self, decoder: PagedGPTDecoder, eos_token_id=None,
-                 max_new_tokens=64, k_max=None, prefix_cache=None,
-                 ragged=None, chunk_tokens=None, trace=None,
-                 host_tier=None, tier_policy="auto"):
+                 max_new_tokens=64, k_max=None, host_sync_s=None,
+                 prefix_cache=None, ragged=None, chunk_tokens=None,
+                 scheduler=None, trace=None, packed=None, host_tier=None,
+                 tier_policy="auto"):
         if max_new_tokens < 1:
             raise ValueError(
                 "max_new_tokens must be >= 1 (the prefill forward always "
                 f"produces one token), got {max_new_tokens}")
         if trace:
-            raise _not_ported("the flight recorder (trace=)")
+            raise _not_ported("the flight recorder (trace=; ROADMAP.md "
+                              "queue 1, item 4.1)")
+        for name, value in (("host_sync_s", host_sync_s),
+                            ("scheduler", scheduler), ("packed", packed)):
+            if value is not None:
+                raise _not_ported(f"the engine's {name}= (ROADMAP.md "
+                                  "queue 1, item 4.5)")
         self.d = decoder
         self.eos = eos_token_id
         self.max_new = max_new_tokens

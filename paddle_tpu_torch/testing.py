@@ -151,17 +151,11 @@ def check_ln_bwd(name, got, x, g, w, mean, rstd):
 
 
 class PerTensorAdamW(AdamW):
-    """`AdamW` with `apply_gradients` making one `adamw_update_` a
-    parameter, in the list's order, from the same clip scale and bias
-    corrections as the multi-tensor route."""
+    """`AdamW` whose update makes one `adamw_update_` a parameter, in
+    the list's order, from the same clip scale and bias corrections as
+    the multi-tensor route."""
 
-    @torch.no_grad()
-    def apply_gradients(self, params, grads, lr=None):
-        lr = self.get_lr() if lr is None else float(lr)
-        self._step_count += 1
-        params, grads = list(params), list(grads)
-        scale = (self._grad_clip.scale(grads)
-                 if self._grad_clip is not None and grads else None)
+    def _update(self, params, grads, lr, scale):
         bc1, bc2 = self._bias_corrections(self._step_count)
         for p, g in zip(params, grads):
             slots = self._slots(p)

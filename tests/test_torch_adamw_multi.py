@@ -165,7 +165,7 @@ def test_optimizer_calls_once_per_group(monkeypatch):
     grads[4] = grads[4].float()
     opt = AdamW(1e-3, multi_precision=True,
                 grad_clip=ClipGradByGlobalNorm(1.0))
-    opt.apply_gradients(params, grads)
+    opt.apply_gradients(list(zip(params, grads)))
     assert [ids for ids, _ in calls] == [
         [id(params[0]), id(params[2])], [id(params[1]), id(params[3])],
         [id(params[4])]]

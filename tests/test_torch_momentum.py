@@ -120,7 +120,8 @@ def test_steps_match_the_jax_rule(name, cls, kw, dtype):
             slots = opt._slots(p)
             for s, v in jstate["slots"][k].items():
                 slots[s] = _t(v).float() if s == "master" else _t(v)
-        opt.apply_gradients(tparams, [_t(g) for g in grads.values()])
+        opt.apply_gradients(list(zip(tparams,
+                                      [_t(g) for g in grads.values()])))
         params, jstate = jopt.apply_gradients_pytree(params, grads, jstate)
         for p, k in zip(tparams, params):
             assert p.dtype == _t(params[k]).dtype
@@ -136,7 +137,7 @@ def test_momentum_velocity_is_f32_and_rescale_precedes_decay():
     p = torch.ones(4, dtype=torch.bfloat16)
     opt = Momentum(learning_rate=1.0, momentum=0.5, parameters=[p],
                    rescale_grad=0.5, weight_decay=0.25)
-    opt.apply_gradients([p], [torch.full((4,), 2.0, dtype=torch.bfloat16)])
+    opt.apply_gradients([(p, torch.full((4,), 2.0, dtype=torch.bfloat16))])
     v = opt._slots(p)["velocity"]
     assert v.dtype == torch.float32
     # v = 0.5 * 2 + 0.25 * 1 = 1.25; p = 1 - 1.25
@@ -157,7 +158,7 @@ def test_decay_objects_act_as_their_coefficient(cls, decay):
         ps = [_t(v) for v in params.values()]
         opt = cls(learning_rate=LR, parameters=ps, weight_decay=wd)
         for _ in range(2):
-            opt.apply_gradients(ps, [_t(g) for g in grads.values()])
+            opt.apply_gradients(list(zip(ps, [_t(g) for g in grads.values()])))
         runs.append(ps)
     for a, b in zip(*runs):
         assert torch.equal(a, b)

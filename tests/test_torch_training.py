@@ -190,8 +190,8 @@ def test_optimizer_update_matches_jax(name, multi_precision, acc_dtype):
     to = opt_cls(grad_clip=ClipGradByGlobalNorm(1.0), **kw)
     tp = [torch.from_numpy(p0[k]).bfloat16() for k in shapes]
     for g in grads:
-        to.apply_gradients(tp, [torch.from_numpy(g[k]).bfloat16()
-                                for k in shapes])
+        to.apply_gradients(list(zip(tp, [torch.from_numpy(g[k]).bfloat16()
+                                         for k in shapes])))
     for t, k in zip(tp, shapes):
         np.testing.assert_allclose(
             t.float().numpy(), np.asarray(jp[k].astype(jnp.float32)),
