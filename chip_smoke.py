@@ -127,8 +127,16 @@ gather and scatter kernels as their own), times a step whose top-k gate
 derives the keys it never reads (as JAX's dispatch does) against the
 gate's own (which derives none), trains the "switch" and
 "gshard" gates a few steps each, and holds gpt_moe_tiny's training
-(the MoE clip, routing included) against the port's CPU run. Every
-phase raises on failure.
+(the MoE clip, routing included) against the port's CPU run. Slice 17
+holds the ragged kernel's dense form at the verify window (gpt_350m's
+16 heads of 64, W = k + 1 = 5) and at every pow2 prefill window 4-1024,
+times it at the verify shape, serves the gpt_1p3b traffic traced (streams
+byte-identical to an untraced run, a drift line a dispatch shape, a
+chrome trace that passes the schema check), as the dense window twin and
+through the dispatch-separate loop, and runs bench.py's run_speculative
+on gpt_350m (a constructed draft, an unrelated one, and sampled), every
+parting from the plain streams held to the teacher-forced oracle rule.
+Every phase raises on failure.
 The output is one line per phase, then one JSON line with the kernels'
 numbers, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the package next
@@ -1114,19 +1122,23 @@ def _w4_goals(goal, r, met):
 N_REQ, MAX_NEW, K_MAX = 32, 64, 8
 
 
-def _serve_run(dec, prompts, mods):
+def _serve_run(dec, prompts, mods, **eng_kw):
     """The main serving run: a warm-up request, then the 32 prompts x 64
-    new tokens through the default (ragged, packed) engine with k_max 8.
-    Every kernel count of `mods` is set to 0 just before the run and read
-    just after. Returns (engine, streams, wall seconds, {module: (kernel
+    new tokens through the default (ragged, packed) engine with k_max 8,
+    or the engine `eng_kw` asks for (the warm-up takes them too). Every
+    kernel count of `mods` is set to 0 just before the run and read just
+    after. Returns (engine, streams, wall seconds, {module: (kernel
     launches, plain launches)}, with the ragged kernel's device launches
     under "device")."""
     from paddle_tpu_torch.serving import ContinuousBatchingEngine
     # warm-up (cuBLAS handles, allocator): one short request
-    warm = ContinuousBatchingEngine(dec, max_new_tokens=4, k_max=K_MAX)
+    warm = ContinuousBatchingEngine(dec, max_new_tokens=4, k_max=K_MAX,
+                                    **{k: v for k, v in eng_kw.items()
+                                       if k != "trace"})
     warm.submit(prompts[0][:64])
     warm.run()
-    eng = ContinuousBatchingEngine(dec, max_new_tokens=MAX_NEW, k_max=K_MAX)
+    eng = ContinuousBatchingEngine(dec, max_new_tokens=MAX_NEW, k_max=K_MAX,
+                                   **eng_kw)
     rids = [eng.submit(p) for p in prompts]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5858,6 +5870,552 @@ def phase_moe_small_reference():
         routing_equal=routing_equal)
 
 
+# ---------------------------------------------------------------- slice 17
+# The serving engine's flight recorder, the dense window layout, the
+# dispatch-separate loop and speculative decoding, all over the ragged
+# kernel's dense form (q [n, W, H, D]) or its packed stream.
+
+SPEC_B, SPEC_PROMPT, SPEC_NEW, SPEC_K = 4, 64, 64, 4   # run_speculative's
+SPEC_PAGES = SPEC_B * ((SPEC_PROMPT + SPEC_NEW + SPEC_K + PS - 1) // PS) + 2
+SPEC_H, SPEC_D, SPEC_MP = 16, 64, 16        # gpt_350m: 16 x 64, 256 tokens
+SPEC_SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+# an acceptance draw u within TIE_TOL of min(1, p/q) is a tie: p and q
+# from bf16 logits move by more than that across row counts
+TIE_TOL = 1e-4
+# the dense prefill windows: every pow2 width up to the longest suffix
+# (768 tokens -> 1024), rows as many as keep a window call at 4096 tokens
+DENSE_WIDTHS = tuple(4 << i for i in range(9))
+
+
+def _d64_cases(rng):
+    """The forms slice 17's gpt_350m paths launch at head_dim 64 (16
+    heads, a pool of SPEC_PAGES pages, table width 16): (name, table
+    rows, q shape, row ids or None, start / positions). The verify
+    window (n 4, W 5, positions 64-127); the draft's decode_multi ticks
+    (dense W 1, n 4, positions 64-127); the packed prefill of 4 rows x
+    64 prompt tokens; the plain engine's ragged ticks: 4 decode rows
+    alone and 2 decode rows beside 2 rows prefilling 64-token chunks."""
+    n, hd = SPEC_B, (SPEC_H, SPEC_D)
+
+    def decode(k):
+        return rng.randint(SPEC_PROMPT, SPEC_PROMPT + SPEC_NEW, k)
+    mix_rows = np.concatenate([[0, 1], np.repeat([2, 3], SPEC_PROMPT)])
+    mix_pos = np.concatenate([decode(2), np.tile(np.arange(SPEC_PROMPT), 2)])
+    return [
+        ("verify", (n, SPEC_K + 1, *hd), None, decode(n)),
+        ("decode", (n, 1, *hd), None, decode(n)),
+        ("packed_prefill", (n * SPEC_PROMPT, *hd),
+         np.repeat(np.arange(n), SPEC_PROMPT),
+         np.tile(np.arange(SPEC_PROMPT), n)),
+        ("packed_decode", (n, *hd), np.arange(n), decode(n)),
+        ("packed_mix", (len(mix_rows), *hd), mix_rows, mix_pos)]
+
+
+def phase_dense_window_checks(rpa):
+    """The kernel at slice 17's shapes against its plain version, f32 and
+    bf16 (`_check_close`: f32 1e-5; bf16 one ulp of the f32 plain result
+    + 1e-5). At head_dim 64 (gpt_350m, `_d64_cases`): every form the
+    speculative phases launch, each through the wrapper and with both
+    launch plans forced (split and unsplit), since the plan the path
+    takes depends on its row count. At head_dim 128 (gpt_1p3b's pool,
+    table width 64): the dense prefill windows at every pow2 width
+    4-1024, a row from start 0 and the others from a cached start.
+    Returns the largest error."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    rng = np.random.RandomState(SEED + 17)
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        kp, vp = (torch.randn((SPEC_PAGES, PS, SPEC_H, SPEC_D),
+                              generator=gen, device="cuda").to(dtype)
+                  for _ in "kv")
+        table = torch.from_numpy(rng.randint(
+            0, SPEC_PAGES - 1, (SPEC_B, SPEC_MP)).astype(np.int32)).cuda()
+        scale = 1.0 / SPEC_D ** 0.5
+        for form, shape, rows, pos in _d64_cases(rng):
+            q = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            pos = torch.from_numpy(pos.astype(np.int32)).cuda()
+            if rows is None:
+                ref_args = (table, pos, scale)
+                plain = _ref(rpa, q, kp, vp, *ref_args)
+                plain32 = _ref(rpa, q.float(), kp.float(), vp.float(),
+                               *ref_args)
+                row_of = None
+                got = rpa.ragged_paged_attention(q, kp, vp, table, pos)
+            else:
+                row_of = torch.from_numpy(rows.astype(np.int32)).cuda()
+                ref_args = (table[row_of.long()], pos, scale)
+                plain = _ref(rpa, q[:, None], kp, vp, *ref_args)[:, 0]
+                plain32 = _ref(rpa, q[:, None].float(), kp.float(),
+                               vp.float(), *ref_args)[:, 0]
+                got = rpa.ragged_paged_attention_packed(q, kp, vp, table,
+                                                        row_of, pos)
+            for plan in ("wrapper", "split", "unsplit"):
+                if plan != "wrapper":
+                    got = rpa._launch(q, kp, vp, table, row_of, pos, scale,
+                                      split=plan == "split")
+                e = _check_close(f"{form} D=64 {plan}", got, plain, plain32)
+                err = max(err, e)
+                log("kernel", form=f"d64_{form}", plan=plan,
+                    dtype=str(dtype)[6:], tokens=q.shape[0] * (
+                        q.shape[1] if q.dim() == 4 else 1),
+                    heads=SPEC_H, head_dim=SPEC_D, pages=SPEC_PAGES,
+                    table=SPEC_MP, max_abs_err=f"{e:.3e}")
+        for W in DENSE_WIDTHS:
+            n, P = max(2, min(16, 4096 // W)), 16 * MP + 1
+            kp, vp = (torch.randn((P, PS, H, D), generator=gen,
+                                  device="cuda").to(dtype) for _ in "kv")
+            table = torch.from_numpy(rng.randint(
+                0, P - 1, (n, MP)).astype(np.int32)).cuda()
+            start = rng.randint(0, MP * PS - W + 1, n)
+            start[0] = 0
+            start = torch.from_numpy(start.astype(np.int32)).cuda()
+            q = torch.randn((n, W, H, D), generator=gen,
+                            device="cuda").to(dtype)
+            scale = 1.0 / D ** 0.5
+            got = rpa.ragged_paged_attention(q, kp, vp, table, start)
+            plain = _ref(rpa, q, kp, vp, table, start, scale)
+            plain32 = _ref(rpa, q.float(), kp.float(), vp.float(), table,
+                           start, scale)
+            e = _check_close(f"dense prefill W={W}", got, plain, plain32)
+            err = max(err, e)
+            log("kernel", form="dense_prefill", dtype=str(dtype)[6:], n=n,
+                W=W, heads=H, head_dim=D, pages=P, table=MP,
+                max_abs_err=f"{e:.3e}")
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_verify_timing(rpa, layers=24):
+    """The kernel at the verify window's shape (n 4, W 5, 16 heads of 64,
+    table width 16, positions 64-127, bf16), each launch on the next of
+    24 layer pools as the verify forward does: eager and CUDA-graph device
+    time beside the plain version, SDPA over K/V gathered to dense bf16
+    with the window's causal mask (never called by the port) and the
+    bound (bytes: each row's K/V prefix and the window's q and output)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    rng = np.random.RandomState(SEED + 18)
+    n, W, P, mp = SPEC_B, SPEC_K + 1, SPEC_PAGES, SPEC_MP
+    kp, vp = (torch.randn((layers, P, PS, SPEC_H, SPEC_D), generator=gen,
+                          device="cuda").to(torch.bfloat16) for _ in "kv")
+    # each row's 9 pages as the engine allots them, the rest scratch
+    per = P // n
+    table_np = np.full((n, mp), P - 1, np.int32)
+    for r, row in enumerate(rng.permutation(n * per).reshape(n, per)):
+        table_np[r, :per] = row
+    table = torch.from_numpy(table_np).cuda()
+    start_np = rng.randint(SPEC_PROMPT, SPEC_PROMPT + SPEC_NEW, n)
+    start = torch.from_numpy(start_np.astype(np.int32)).cuda()
+    q = torch.randn((layers, n, W, SPEC_H, SPEC_D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    scale = 1.0 / SPEC_D ** 0.5
+    ql, kl, vl = list(q), list(kp), list(vp)
+
+    def kern(i=0):
+        return rpa.ragged_paged_attention(ql[i % layers], kl[i % layers],
+                                          vl[i % layers], table, start)
+
+    def plain(i=0):
+        return _ref(rpa, ql[i % layers], kl[i % layers], vl[i % layers],
+                    table, start, scale)
+
+    keys = mp * PS
+    kd = [kl[l][table.long()].reshape(n, keys, SPEC_H, SPEC_D)
+          .transpose(1, 2) for l in range(2)]
+    vd = [vl[l][table.long()].reshape(n, keys, SPEC_H, SPEC_D)
+          .transpose(1, 2) for l in range(2)]
+    qpos = start.long()[:, None] + torch.arange(W, device="cuda")
+    mask = (torch.arange(keys, device="cuda")[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    qd = [x.transpose(1, 2) for x in ql]
+
+    def library(i=0):
+        return torch.nn.functional.scaled_dot_product_attention(
+            qd[i % layers], kd[i % 2], vd[i % 2], attn_mask=mask,
+            scale=scale)
+
+    seen = start_np.astype(np.int64) + W            # keys of a row
+    nbytes = int(seen.sum()) * 2 * SPEC_H * SPEC_D * 2 + \
+        2 * n * W * SPEC_H * SPEC_D * 2 + 4 * (n * mp + n)
+    flops = int(sum((s + j + 1) for s in start_np for j in range(W))) * \
+        SPEC_H * 4 * SPEC_D
+    r, host, per_call = _rpa_readings(rpa, kern, plain, library, nbytes,
+                                      flops, 240)
+    got, want = kern(), plain()
+    r["max_abs_err"] = float((got.float() - want.float()).abs().max())
+    log("kernel_time", pool="bf16", shape=f"verify n={n} W={W} H={SPEC_H} "
+        f"D={SPEC_D} ps={PS} MP={mp} mean_ctx={seen.mean():.1f}",
+        **{k: f"{v:.4f}" for k, v in r.items()
+           if k not in ("bound_by", "max_abs_err")},
+        bound_by=r["bound_by"], max_abs_err=f"{r['max_abs_err']:.3e}",
+        **{k: f"{v:.2f}" for k, v in host.items()},
+        device_launches_per_call=f"{per_call:g}")
+    return r
+
+
+def _counted(rpa, fn):
+    """fn() with the ragged kernel's counts set to 0 just before and read
+    just after; a plain launch is a failure. Returns (fn's result,
+    kernel launches)."""
+    rpa.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    if rpa.kernel_launches <= 0 or rpa.plain_launches:
+        raise AssertionError(f"ragged attention: {rpa.kernel_launches} "
+                             f"kernel, {rpa.plain_launches} plain launches")
+    return out, rpa.kernel_launches
+
+
+def _spec_models():
+    """bench.py's run_speculative models: gpt_350m (bf16, 24 layers,
+    random weights from SEED) with blocks 6-23's proj and fc2 zeroed —
+    their products still run, their residual adds nothing — and the
+    draft, its first 6 layers. Returns (cfg, state, draft cfg, draft
+    state)."""
+    from paddle_tpu_torch.models import gpt_350m, init_state_dict
+    cfg = gpt_350m(max_seq_len=max(256, SPEC_PROMPT + SPEC_NEW + SPEC_K + 8))
+    sd = init_state_dict(cfg, seed=SEED)
+    n_draft = max(1, cfg.num_layers // 4)
+    for i in range(n_draft, cfg.num_layers):
+        for name in ("proj", "fc2"):
+            for part in ("weight", "bias"):
+                sd[f"blocks.{i}.{name}.{part}"].zero_()
+    dcfg = gpt_350m(max_seq_len=cfg.max_seq_len, num_layers=n_draft)
+    dsd = {k: v for k, v in sd.items() if not k.startswith("blocks.")
+           or int(k.split(".")[1]) < n_draft}
+    return cfg, sd, dcfg, dsd
+
+
+def _spec_run(rpa, build, prompts):
+    """One drain of `prompts` through `build()` (built before the clock
+    starts), the ragged kernel counted over the run. Returns (engine,
+    streams, wall seconds, kernel launches)."""
+    eng = build()
+    rids = [eng.submit(p) for p in prompts]
+    torch.cuda.synchronize()
+
+    def drain():
+        t0 = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (out, wall), launches = _counted(rpa, drain)
+    streams = [out[r] for r in rids]
+    if any(len(s) != SPEC_NEW for s in streams):
+        raise AssertionError("a speculative request did not return "
+                             f"{SPEC_NEW} tokens")
+    return eng, streams, wall, launches
+
+
+def _accepted_share(eng):
+    """Drafts accepted over drafts judged: each verify of a slot emits the
+    accepted drafts plus one token (the first token comes from the
+    prefill; acceptance is capped at k - 1)."""
+    calls = round(sum(eng.stats.occupancy) * eng.d.max_batch)
+    accepted = eng.stats.tokens - SPEC_B - calls
+    return max(accepted, 0) / max(calls * (eng.k - 1), 1)
+
+
+def _verify_ms(dec):
+    """(eager ms, device ms) of one verify forward (`_verify_step`, W =
+    k + 1) of the target at the run's batch, rows at position 120 of their
+    pages: CUDA events around eager calls (the host's dispatch sets it),
+    and around the calls replayed from a CUDA graph (None when the forward
+    cannot be captured)."""
+    per = SPEC_PAGES // SPEC_B
+    table = np.full((SPEC_B, dec.max_pages), dec.num_pages - 1, np.int32)
+    for r in range(SPEC_B):
+        table[r, :per] = np.arange(r * per, (r + 1) * per)
+    win = dec._as_i32(np.random.RandomState(SEED).randint(
+        0, dec.cfg.vocab_size, (SPEC_B, SPEC_K + 1)))
+    lens = dec._as_i32(np.full(SPEC_B, 120, np.int32))
+    tbl = dec._as_i32(table)
+
+    def verify(i=0):
+        return dec._verify_step(win, lens, tbl)
+
+    eager = cuda_ms(verify, 10)
+    try:
+        device = cuda_graph_ms(verify, 10)
+    except RuntimeError as e:                  # capture refused
+        log("spec_verify_graph", captured=False, reason=repr(str(e)[:120]))
+        device = None
+    return eager, device
+
+
+def phase_speculative(rpa, smi):
+    """`[spec]`, `[spec_weak]`, `[spec_sampled]`: bench.py's
+    run_speculative at its size (batch 4, 64-token prompts, 64 new, k 4,
+    page_size 16, seed 0) on the card. The plain engine (default ragged)
+    and `SpeculativeEngine` each drain once to warm up and once timed;
+    partings from the plain streams are held to the oracle rule
+    (`_oracle_rule`: teacher-forced per-tick target, LOGIT_TOL). The weak
+    draft is an unrelated 6-layer model (seed 1). Sampled: both decoders
+    at temperature 0.8, top_k 50, top_p 0.95, target seed 0, draft seed 1
+    — two runs must be equal, acceptance decisions within TIE_TOL of the
+    draw are counted as ties, and at temperature 1e-4 the streams must
+    pass the oracle rule against the greedy ones. Returns the ragged
+    kernel's launches over every driven run."""
+    import paddle_tpu_torch.serving.engine as engine_module
+    from paddle_tpu_torch.models import init_state_dict
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          PagedGPTDecoder, SpeculativeEngine)
+    t_phase = time.perf_counter()
+    cfg, sd, dcfg, dsd = _spec_models()
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(0, cfg.vocab_size, SPEC_PROMPT).tolist()
+               for _ in range(SPEC_B)]
+
+    def make(c, state, **kw):
+        return PagedGPTDecoder(c, state, num_pages=SPEC_PAGES, page_size=PS,
+                               max_batch=SPEC_B, **kw)
+
+    def plain():
+        return ContinuousBatchingEngine(make(cfg, sd),
+                                        max_new_tokens=SPEC_NEW)
+
+    def spec(draft_state=dsd, **kw):
+        return SpeculativeEngine(make(cfg, sd, **kw),
+                                 make(dcfg, draft_state, **{
+                                     **kw, "seed": kw.get("seed", 0) + 1}),
+                                 max_new_tokens=SPEC_NEW, k=SPEC_K)
+
+    launches = 0
+    runs = {}
+    for name, build in (("plain", plain), ("spec", spec)):
+        _spec_run(rpa, build, prompts)                   # warm-up
+        runs[name] = _spec_run(rpa, build, prompts)
+        launches += runs[name][3]
+    eng_p, plain_streams, plain_s, _ = runs["plain"]
+    eng, got, spec_s, spec_launches = runs["spec"]
+    verify_ms, verify_device = _verify_ms(eng.d)
+    equal, forced, gap = _oracle_rule(eng.d, prompts, got, plain_streams)
+    log("spec", target=f"gpt_350m L{cfg.num_layers} h{cfg.hidden_size}",
+        draft_layers=dcfg.num_layers, dtype="bfloat16", batch=SPEC_B,
+        prompt=SPEC_PROMPT, new=SPEC_NEW, k=SPEC_K, page_size=PS,
+        plain_s=f"{plain_s:.3f}", spec_s=f"{spec_s:.3f}",
+        speedup=f"{plain_s / spec_s:.3f}", plain_k_max=eng_p.k_max,
+        target_calls=eng.target_calls,
+        accepted_share=f"{_accepted_share(eng):.4f}",
+        streams_equal=f"{equal}/{SPEC_B}", oracle_forced=forced,
+        max_logit_gap=f"{gap:.5f}", tolerance=LOGIT_TOL,
+        verify_ms=f"{verify_ms:.4f}",
+        verify_device_ms="not measured" if verify_device is None
+        else f"{verify_device:.4f}", kernel_launches=spec_launches,
+        gpu=repr(smi))
+
+    weak_state = init_state_dict(dcfg, seed=1)
+    eng, weak, wall, n = _spec_run(rpa, lambda: spec(weak_state), prompts)
+    launches += n
+    equal, forced, gap = _oracle_rule(eng.d, prompts, weak, plain_streams)
+    log("spec_weak", draft="unrelated gpt_350m L6 (seed 1)", k=SPEC_K,
+        spec_s=f"{wall:.3f}", target_calls=eng.target_calls,
+        accepted_share=f"{_accepted_share(eng):.4f}",
+        streams_equal=f"{equal}/{SPEC_B}", oracle_forced=forced,
+        max_logit_gap=f"{gap:.5f}", kernel_launches=n, gpu=repr(smi))
+    del weak_state
+
+    margins = []
+    accept = engine_module._spec_accept
+
+    def tap(p_rows, q_rows, drafts, gen_):
+        replay = np.random.default_rng()
+        replay.bit_generator.state = gen_.bit_generator.state
+        out = accept(p_rows, q_rows, drafts, gen_)
+        for j in range(min(out[0] + 1, len(drafts))):
+            d = int(drafts[j])
+            if q_rows[j, d] > 0:
+                margins.append(abs(replay.random() - min(
+                    1.0, float(p_rows[j, d]) / float(q_rows[j, d]))))
+        return out
+
+    engine_module._spec_accept = tap
+    try:
+        sampled = []
+        for _ in range(2):
+            eng, s, wall, n = _spec_run(
+                rpa, lambda: spec(**SPEC_SAMPLING, seed=0), prompts)
+            sampled.append(s)
+            launches += n
+        n_margins, ties = len(margins), sum(m <= TIE_TOL for m in margins)
+    finally:
+        engine_module._spec_accept = accept
+    if sampled[0] != sampled[1]:
+        raise AssertionError("two sampled speculative runs differ")
+    cold_kw = dict(SPEC_SAMPLING, temperature=1e-4, seed=0)
+    eng_c, cold, _, n = _spec_run(rpa, lambda: spec(**cold_kw), prompts)
+    launches += n
+    equal, forced, gap = _oracle_rule(eng_c.d, prompts, cold, plain_streams)
+    log("spec_sampled", **SPEC_SAMPLING, target_seed=0, draft_seed=1,
+        spec_s=f"{wall:.3f}", target_calls=eng.target_calls,
+        accepted_share=f"{_accepted_share(eng):.4f}",
+        runs_equal=True, decisions=n_margins, ties=ties, tie_tol=TIE_TOL,
+        min_margin=f"{min(margins, default=1.0):.3e}",
+        cold_streams_equal_greedy=f"{equal}/{SPEC_B}",
+        cold_oracle_forced=forced, cold_max_logit_gap=f"{gap:.5f}",
+        gpu=repr(smi))
+    log("spec_phases", total_s=f"{time.perf_counter() - t_phase:.1f}",
+        kernel_launches=launches)
+    return launches
+
+
+TRACE_PAIRS = 3       # (untraced, traced) pairs of [serve_trace], order alternating
+
+
+def phase_serve_trace(rpa, dec, prompts, streams, smi):
+    """`[serve_trace]`: the serving traffic in TRACE_PAIRS pairs of one
+    untraced run (no recorder event may be recorded) and one run with
+    `trace=FlightRecorder()`, the order alternating from pair to pair
+    (untraced first, then traced first, ...): every traced run's streams
+    must equal the untraced ones byte for byte. The wall times of every
+    run, the recorder's overhead (traced / untraced - 1) of each pair and
+    their median; from the last traced run, the events, the drift of each
+    dispatch shape against the H100's priced roofline
+    (`[serve_trace_drift]`), a chrome trace written under a temporary
+    directory that must pass `validate_chrome_trace`, and
+    `debug.serving_report()`'s schedule and pad fields. Returns the
+    kernel launches of every run."""
+    import os
+    import tempfile
+
+    from paddle_tpu_torch import debug
+    from paddle_tpu_torch.serving import (FlightRecorder, export_chrome_trace,
+                                          validate_chrome_trace)
+    walls = {"untraced": [], "traced": []}
+    plain, launches = None, 0
+    for pair in range(TRACE_PAIRS):
+        for traced in ((False, True) if pair % 2 == 0 else (True, False)):
+            before = FlightRecorder.total_events
+            kw = {"trace": FlightRecorder()} if traced else {}
+            eng_r, got, wall, counts = _serve_run(dec, prompts, (rpa,), **kw)
+            if not traced and FlightRecorder.total_events != before:
+                raise AssertionError("an untraced run recorded trace events")
+            if plain is None:
+                plain = got
+            elif got != plain:
+                raise AssertionError("a traced and an untraced run's streams "
+                                     "differ")
+            if counts["ragged_paged_attention"][1]:
+                raise AssertionError("a serving run took the plain version")
+            launches += counts["ragged_paged_attention"][0]
+            walls["traced" if traced else "untraced"].append(wall)
+            if traced:
+                eng, rec = eng_r, kw["trace"]
+    overheads = [t / u - 1 for t, u in zip(walls["traced"],
+                                           walls["untraced"])]
+    drift = rec.drift_report()
+    for d in drift:
+        log("serve_trace_drift", shape="x".join(map(str, d["shape"])),
+            n=d["n"], predicted_ms=f"{d['predicted_s'] * 1e3:.3f}",
+            measured_ms=f"{d['measured_s'] * 1e3:.3f}",
+            ratio=f"{d['ratio']:.2f}",
+            predicted_serial_ms=f"{d.get('predicted_serial_s', 0) * 1e3:.3f}",
+            drifting=d["drifting"], verdict=d.get("verdict", "-"),
+            gpu=repr(smi))
+    with tempfile.TemporaryDirectory() as td:
+        path = export_chrome_trace(os.path.join(td, "serve.json"),
+                                   recorders=rec)
+        problems = validate_chrome_trace(path)
+        with open(path) as f:
+            n_chrome = len(json.load(f)["traceEvents"])
+    if problems:
+        raise AssertionError(f"chrome trace: {problems[:3]}")
+    entry = next(e for e in debug.serving_report()
+                 if e["stats"]["engine_id"] == eng.stats.engine_id)
+    kinds = rec.summary()["kinds"]
+    log("serve_trace", model="gpt_1p3b", requests=N_REQ, max_new=MAX_NEW,
+        k_max=K_MAX, pairs=TRACE_PAIRS, order="alternating, untraced first",
+        streams_equal_untraced=f"{N_REQ}/{N_REQ}",
+        streams_equal_serve_run=f"{sum(a == b for a, b in zip(plain, streams))}"
+        f"/{N_REQ}",
+        wall_traced_s=[f"{w:.3f}" for w in walls["traced"]],
+        wall_untraced_s=[f"{w:.3f}" for w in walls["untraced"]],
+        overhead_per_pair=[f"{o:+.4f}" for o in overheads],
+        overhead_median=f"{float(np.median(overheads)):+.4f}",
+        overhead_spread=f"{min(overheads):+.4f}..{max(overheads):+.4f}",
+        events=len(rec.events), kinds=kinds, drift_shapes=len(drift),
+        drifting_shapes=len(entry["drifting_shapes"]),
+        chrome_events=n_chrome, chrome_problems=0,
+        schedule=entry.get("schedule"), pad=entry.get("pad"),
+        kernel_launches=launches, gpu=repr(smi))
+    return launches
+
+
+def phase_serve_dense(rpa, dec, prompts, streams, fields, smi):
+    """`[serve_dense]`: the serving traffic through the dense window twin
+    (`packed=False`: [16, w] windows a tick, through the kernel's dense
+    form) beside the packed run's tok/s; streams equal to the packed
+    run's, partings held to the oracle rule. Returns its launches."""
+    eng, got, wall, counts = _serve_run(dec, prompts, (rpa,), packed=False)
+    launches, plain = counts["ragged_paged_attention"]
+    if launches <= 0 or plain:
+        raise AssertionError(f"dense serving launches: {launches}, {plain}")
+    equal, forced, gap = _oracle_rule(dec, prompts, got, streams)
+    f = _serve_fields(eng, wall)
+    log("serve_dense", model="gpt_1p3b", packed=False, **f,
+        packed_gen_tok_per_s=fields["gen_tok_per_s"],
+        packed_pad_fraction=fields["pad_fraction"],
+        streams_equal=f"{equal}/{N_REQ}", oracle_forced=forced,
+        max_logit_gap=f"{gap:.5f}", tolerance=LOGIT_TOL,
+        kernel_launches=launches, gpu=repr(smi))
+    return launches
+
+
+def phase_serve_multi(rpa, dec, prompts, streams, smi):
+    """`[serve_multi]`: the serving traffic through the dispatch-separate
+    loop (`ragged=False`, k_max 8: a blocking prefill at each admission,
+    then decode-only horizons), once in each layout: packed (the packed
+    prefill) and `packed=False` (the dense prefill entry,
+    `prefill_suffix_batch(packed=False)`: prompts grouped by pow2 width
+    into [n, w] windows, which must be the only prefill entry the run
+    takes). Each: tok/s, `serve_schedule()`'s prefill syncs and the
+    decode rows they stalled, streams equal to the ragged run's, partings
+    held to the oracle rule. Returns the launches of both runs."""
+    total = 0
+    for packed in (True, False):
+        calls = {"_prefill_dense_batch": 0, "_prefill_packed_batch": 0}
+
+        def spy(name):
+            fn = getattr(dec, name)
+
+            def counted(*args, **kw):
+                calls[name] += 1
+                return fn(*args, **kw)
+            return counted
+        for name in calls:
+            setattr(dec, name, spy(name))
+        try:
+            eng, got, wall, counts = _serve_run(dec, prompts, (rpa,),
+                                                ragged=False, packed=packed)
+        finally:
+            for name in calls:
+                delattr(dec, name)
+        launches, plain = counts["ragged_paged_attention"]
+        if launches <= 0 or plain:
+            raise AssertionError(f"multi serving launches: {launches}, "
+                                 f"{plain}")
+        took = calls["_prefill_packed_batch" if packed
+                     else "_prefill_dense_batch"]
+        if not took or calls["_prefill_dense_batch" if packed
+                             else "_prefill_packed_batch"]:
+            raise AssertionError(f"packed={packed}: prefill entries {calls}")
+        syncs = [ev for ev in eng.serve_schedule()
+                 if ev["kind"] == "prefill_sync"]
+        equal, forced, gap = _oracle_rule(dec, prompts, got, streams)
+        log("serve_multi", model="gpt_1p3b", ragged=False, packed=packed,
+            k_max=eng.k_max, **_serve_fields(eng, wall),
+            prefill_syncs=len(syncs),
+            stalled_prefill_syncs=sum(ev["decode_active"] > 0
+                                      for ev in syncs),
+            stalled_decode_rows=sum(ev["decode_active"] for ev in syncs),
+            prefill_entry_calls=took,
+            streams_equal=f"{equal}/{N_REQ}", oracle_forced=forced,
+            max_logit_gap=f"{gap:.5f}", tolerance=LOGIT_TOL,
+            kernel_launches=launches, gpu=repr(smi))
+        total += launches
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5881,10 +6439,18 @@ def main():
     for lay in layouts:
         phase_chunk_mix_timing(rpa, lay)
         phase_split_plan_timing(rpa, lay)
+    dense_err = phase_dense_window_checks(rpa)
+    verify_timing = phase_verify_timing(rpa)
     w4_timing = phase_w4_timing(w4)
     sd, dec, prompts, streams, launches, greedy_fields = phase_serving(rpa)
     phase_profile(dec, prompts)
     nll_bf16 = phase_oracle(rpa, dec, prompts, streams)
+    t17 = time.perf_counter()
+    slice17_launches = (
+        phase_serve_trace(rpa, dec, prompts, streams, smi)
+        + phase_serve_dense(rpa, dec, prompts, streams, greedy_fields, smi)
+        + phase_serve_multi(rpa, dec, prompts, streams, smi))
+    log("serve_slice17_phases", total_s=f"{time.perf_counter() - t17:.1f}")
     del dec
     torch.cuda.empty_cache()
     phase_serve_sampled(sd, prompts, greedy_fields, rpa)
@@ -5895,6 +6461,9 @@ def main():
     prefix_launches, prefix_err = phase_prefix_serving(sd, rpa)
     tier_launches, tier_err = phase_serve_tier(sd, rpa)
     log("prefix_phases", total_s=f"{time.perf_counter() - t_prefix:.1f}")
+    torch.cuda.empty_cache()
+    slice17_launches += phase_speculative(rpa, smi)
+    torch.cuda.empty_cache()
     phase_generate(sd, smi)
     del sd
     torch.cuda.empty_cache()
@@ -5965,20 +6534,29 @@ def main():
     log("moe_phases", total_s=f"{time.perf_counter() - t_moe:.1f}")
     log("done", total_s=f"{time.perf_counter() - t_start:.1f}")
     # the cached runs (prefix cache, host tier, persistence) count too
+    # slice 17: traced, dense, dispatch-separate and speculative serving
     serve_launches = {
-        "bf16": launches["kernel"] + prefix_launches["bf16"] + tier_launches,
+        "bf16": launches["kernel"] + prefix_launches["bf16"] + tier_launches
+        + slice17_launches,
         "int8": quant_launches["int8"]["ragged_paged_attention"]
         + prefix_launches["int8"],
         "int4": quant_launches["int4"]["ragged_paged_attention"]
         + prefix_launches["int4"]}
     prefix_err["bf16"] = max(prefix_err["bf16"], tier_err)
     serve_err = {lay: max(e, prefix_err[lay]) for lay, e in serve_err.items()}
+    serve_err["bf16"] = max(serve_err["bf16"], dense_err,
+                            verify_timing["max_abs_err"])
     kernels = []
     for name, (source, replaces, lay) in SERVE_KERNELS.items():
+        # the bf16 row also carries the verify window's readings
+        extra = {} if lay != "bf16" else {
+            f"verify_{k}": v for k, v in verify_timing.items()
+            if k != "max_abs_err"}
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": serve_launches[lay],
-                        "max_abs_err": serve_err[lay], **serve_timing[lay]})
+                        "max_abs_err": serve_err[lay], **serve_timing[lay],
+                        **extra})
     kernels.append({"name": "w4_matmul", "route": "cuda",
                     "source": "paddle_tpu_torch/ops/csrc/w4_matmul.cu",
                     "replaces": "paddle_tpu/ops/w4_matmul.py:59",

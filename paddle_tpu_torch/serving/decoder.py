@@ -1,7 +1,8 @@
 """Paged-KV GPT decode executor over page pools (counterpart of
 `paddle_tpu/serving/decoder.py`): stacked weights, the per-tick decode,
-the fused multi-tick decode, the packed ragged horizon and the packed
-prefill.
+the fused multi-tick decode, the ragged horizon and the chunked prefill
+in both layouts (the packed token stream, the default, and the dense
+window twin, `packed=False`), and the speculative verify window.
 
 JAX compiles each of these into one program and threads the KV pools
 through them functionally (`donate_argnums` lets XLA reuse the
@@ -21,7 +22,11 @@ pools, int4 weights (`quant="w4a16"`), greedy and sampled decoding
 (`temperature`, `top_k`, `top_p`, `seed`: the JAX `mask_logits` and a
 threefry draw bit-equal to `jax.random`, keyed by (seed, request id,
 position) on every path, so a request's tokens do not depend on the
-schedule), the packed layout, one device. A quantized pool is a (pages,
+schedule), the packed layout and the dense window layout (one layer body,
+`_layer`, under both: the dense windows run it on their flattened
+[n * W] tokens and attend through the kernel's dense form), the verify
+window with the acceptance rule of speculative decoding (`verify`,
+`_spec_accept`), one device. A quantized pool is a (pages,
 scales) tuple per K and V; `_kv_set` quantizes each token from its own
 values as it writes it (plain PyTorch, as the JAX decoder's jnp), so
 stored bytes depend only on (request, position).
@@ -52,10 +57,11 @@ __all__ = ["PagedGPTDecoder", "MultiDecodeOut", "RaggedMultiOut",
 
 # decode_multi's result bundle (device tensors): a caller feeds
 # tokens/lens/done/remaining into the next horizon and fetches
-# tokens_block/done_before only at sync points
+# tokens_block/done_before only at sync points; logits_block [k, S, V]
+# is None unless asked for (speculation judges the draft's rows)
 MultiDecodeOut = collections.namedtuple(
     "MultiDecodeOut", ["tokens_block", "done_before", "tokens", "lens",
-                       "done", "remaining"])
+                       "done", "remaining", "logits_block"])
 
 # ragged_multi's result bundle: like MultiDecodeOut plus the device-
 # resident prompt-suffix carry (pend/pend_n), the per-tick `emitted`
@@ -74,7 +80,7 @@ def _not_ported(what):
     return NotImplementedError(
         f"{what} is not ported to paddle_tpu_torch yet (the port serves "
         "float32/bfloat16/int8/int4 pools and W4A16 weights, greedy or "
-        "sampled, packed, on one device; later slices add it)")
+        "sampled, packed or dense, on one device; later slices add it)")
 
 
 def pow2_at_least(n):
@@ -207,6 +213,31 @@ def pool_token_bytes(cfg, kv_quant=None, itemsize=2):
     return int(2 * per_tensor)
 
 
+def _spec_accept(p_rows, q_rows, drafts, rng):
+    """Rejection-sampling acceptance for ONE slot (Leviathan et al.; the
+    JAX `_spec_accept`, the same numpy draws): p_rows [n+1, V] target
+    probs — row j is the target's conditional AFTER the tokens preceding
+    draft j (row 0 judges drafts[0]), q_rows [n, V] draft probs, drafts
+    [n] proposed tokens. Accept draft j with prob min(1, p_j(d)/q_j(d));
+    on rejection emit a sample from norm(max(p_j - q_j, 0)); if every
+    draft is accepted emit a fresh sample from the last target row. The
+    emitted tokens are distributed EXACTLY as target-only sampling.
+    Returns (n_accepted, final_token)."""
+    n = len(drafts)
+    for j in range(n):
+        d = int(drafts[j])
+        q = q_rows[j, d]
+        p = p_rows[j, d]
+        if q <= 0.0 or rng.random() >= min(1.0, p / q):
+            resid = np.maximum(p_rows[j] - q_rows[j], 0.0)
+            tot = resid.sum()
+            if tot <= 1e-12:       # p==q everywhere: any target sample
+                resid, tot = p_rows[j], p_rows[j].sum()
+            return j, int(rng.choice(len(resid), p=resid / tot))
+    row = p_rows[n]
+    return n, int(rng.choice(len(row), p=row / row.sum()))
+
+
 def _sample_tokens(logits, sampling, keys):
     """Per-slot next token (the JAX `_sample_tokens`): greedy argmax, or
     one categorical draw a row from the `sampling` (temperature, top_k,
@@ -264,9 +295,12 @@ class PagedGPTDecoder:
                              f"got {kv_quant!r}")
         if mesh is not None:
             raise _not_ported("tensor-parallel serving (mesh=)")
-        if not packed:
-            raise _not_ported("the dense window layout (packed=False)")
         self.device = get_device(device)
+        # the ragged horizon's and the chunked prefill's default layout:
+        # the packed token stream, or the dense [n, W] window twin
+        self.packed = bool(packed)
+        # no LoRA bank: adapters are not ported (`adapter_salt`)
+        self.lora = None
         self.cfg = cfg
         self.page_size = page_size
         self.num_pages = num_pages
@@ -435,6 +469,16 @@ class PagedGPTDecoder:
                 else None)
         return _sample_tokens(logits, self.sampling, keys)
 
+    def _probs_of(self, logits):
+        """Softmax over the decoder's sampling mask (`mask_logits`: the
+        distribution its sampled tokens are drawn from; the plain softmax
+        on a greedy decoder), fetched to the host as f32 numpy — the rows
+        speculative acceptance judges."""
+        lg = logits.float()
+        if self.sampling:
+            lg = mask_logits(lg, *self.sampling)
+        return torch.softmax(lg, dim=-1).cpu().numpy()
+
     def _decode_step(self, tokens, lens, table, kids=None):
         """tokens [S], lens [S] (position of the incoming token), table
         [S, max_pages], kids [S] (sampling key ids, default the slot
@@ -446,16 +490,17 @@ class PagedGPTDecoder:
         return self._pick(logits, kids, lens), logits
 
     def _decode_multi_step(self, tokens, lens, table, kids, done, remaining,
-                           eos, k):
+                           eos, k, return_logits=False):
         """K fused decode ticks; each tick's token feeds the next on the
         device, tick j drawing with the (seed, kid, lens + j) keys the
         per-tick loop uses. `done` [S] freezes a slot from tick 0; a slot
         also freezes after emitting `eos` (-1: none) or after `remaining`
         tokens. Frozen slots' lens stop advancing and their K/V writes
         route to the scratch page. Returns (block [k, S], done_before
-        [k, S], tokens, lens, done, remaining)."""
+        [k, S], tokens, lens, done, remaining, logits [k, S, V] or
+        None)."""
         scratch = self.num_pages - 1
-        block, before = [], []
+        block, before, tick_logits = [], [], []
         for _ in range(k):
             pids = torch.where(done, scratch, self._slot_pids(table, lens))
             logits = self._forward_tokens(tokens, lens, table, pids,
@@ -467,9 +512,12 @@ class PagedGPTDecoder:
             lens = torch.where(done, lens, lens + 1)
             block.append(nxt)
             before.append(done)
+            if return_logits:
+                tick_logits.append(logits)
             tokens, done, remaining = nxt, new_done, rem
         return (torch.stack(block), torch.stack(before), tokens, lens, done,
-                remaining)
+                remaining,
+                torch.stack(tick_logits) if return_logits else None)
 
     def _packed_forward(self, ptok, pos, rows, write_ok, table, last_idx,
                         sample_pos, kids, live):
@@ -556,6 +604,112 @@ class PagedGPTDecoder:
         return (torch.stack(block), torch.stack(emitted), torch.stack(real),
                 tokens, lens, done, remaining, pend, pend_n)
 
+    def _windowed_forward(self, ids, pos, write_ok, table):
+        """The dense WINDOW forward, one body for every dense path (the
+        JAX `_windowed_layer`: the verify window, the dense prefill and
+        each tick of the dense ragged twin). ids / pos [n, W]: row i's
+        window at positions pos[i, 0] + arange(W); K/V is written where
+        `write_ok` holds and routed to the scratch page elsewhere (padded
+        tail, frozen rows, table overflow); each window attends over its
+        own row's pages through the kernel's dense form (q [n, W, H, D],
+        start pos[:, 0]). The layers run `_layer` on the flattened
+        [n * W] tokens, so a position computes what the packed stream
+        computes for it. Returns the final hidden states [n, W, h]."""
+        n, W = ids.shape
+        ps, MP = self.page_size, table.shape[1]
+        H, D = self.cfg.num_heads, self.cfg.head_dim
+        x = self._embed(ids, pos).reshape(n * W, -1)
+        pids = table.gather(1, (pos.long() // ps).clamp(max=MP - 1))
+        pids = torch.where(write_ok, pids, self.num_pages - 1).reshape(-1)
+        offs = (pos % ps).reshape(-1)
+        start = pos[:, 0].contiguous()
+
+        def attend(q, kp, vp):
+            return rpa.ragged_paged_attention(
+                q.view(n, W, H, D), kp, vp, table, start).reshape(
+                    n * W, H, D)
+
+        for l in range(self.cfg.num_layers):
+            x = self._layer(l, x, pids, offs, attend)
+        return x.view(n, W, -1)
+
+    def _window_pos(self, start, W):
+        return start[:, None] + torch.arange(W, dtype=torch.int32,
+                                             device=self.device)
+
+    def _ragged_forward(self, ids, start, true_len, table, kids,
+                        frozen=None):
+        """The dense RAGGED chunk forward (the JAX `_ragged_forward`):
+        each row's [W]-wide window of new tokens at positions
+        start..true_len-1 (zero-padded past it), attending over the row's
+        paged prefix. K/V of padded positions, table overflow and
+        `frozen` rows goes to the scratch page. Returns the next token
+        [n], sampled at position true_len - 1 with the (seed, kid,
+        position) key."""
+        n, W = ids.shape
+        pos = self._window_pos(start, W)
+        ok = (pos < true_len[:, None]) & (pos < table.shape[1] *
+                                          self.page_size)
+        if frozen is not None:
+            ok = ok & ~frozen[:, None]
+        x = self._windowed_forward(ids, pos, ok, table)
+        col = (true_len - 1 - start).clamp(0, W - 1).long()
+        last = x[torch.arange(n, device=self.device), col]       # [n, h]
+        return self._pick(self._logits(last), kids, true_len - 1)
+
+    def _verify_step(self, tokens, lens, table):
+        """Speculative verify: tokens [S, W] (the last accepted token and
+        the draft's proposals) consumed in ONE forward — K/V written at
+        positions lens..lens+W-1 (past the table's capacity: scratch),
+        causal attention over the paged prefix. Rejected positions need
+        no cleanup: lens is the source of truth and stale entries are
+        overwritten. Returns (argmax [S, W] int32, f32 logits [S, W,
+        V])."""
+        S, W = tokens.shape
+        pos = self._window_pos(lens, W)
+        x = self._windowed_forward(
+            tokens, pos, pos < table.shape[1] * self.page_size, table)
+        logits = self._logits(x.reshape(S * W, -1)).view(S, W, -1)
+        return logits.argmax(-1).to(torch.int32), logits
+
+    def _ragged_multi_step(self, tokens, lens, table, kids, done, remaining,
+                           eos, pend, pend_n, w, k):
+        """K MIXED ticks in the DENSE [S, w] window layout (the packed
+        stream's A/B twin, the JAX `_ragged_multi_step`): a prefilling
+        row's window is its next min(pend_n, w) suffix tokens, a decode
+        row's its one token (zero-padded to w), a frozen row's writes go
+        to scratch. Emission, keys and the carry follow
+        `_packed_multi_step` exactly. Returns the RaggedMultiOut
+        fields."""
+        S, P = pend.shape
+        dev = self.device
+        pad = torch.zeros((S, max(w - 1, 0)), dtype=torch.int32, device=dev)
+        shift = torch.arange(P, device=dev) + w
+        shift_ok = shift < P
+        shift_idx = shift.clamp(max=P - 1).expand(S, P)
+        block, emitted, real = [], [], []
+        for _ in range(k):
+            is_pf = pend_n > 0
+            new_len = torch.where(is_pf, pend_n.clamp(max=w), 1).to(
+                torch.int32)
+            window = torch.cat([tokens[:, None], pad], dim=1)
+            ids = torch.where(is_pf[:, None], pend[:, :w], window)
+            nxt = self._ragged_forward(ids, lens, lens + new_len, table,
+                                       kids, frozen=done)
+            emit = ~done & (pend_n <= w)
+            nxt = torch.where(emit, nxt, tokens)
+            rem = torch.where(emit, remaining - 1, remaining)
+            new_done = done | (emit & ((nxt == eos) | (rem <= 0)))
+            real.append(torch.where(done, 0, new_len).sum().to(torch.int32))
+            lens = torch.where(done, lens, lens + new_len)
+            pend = torch.where(shift_ok, pend.gather(1, shift_idx), 0)
+            pend_n = (pend_n - w).clamp(min=0)
+            block.append(nxt)
+            emitted.append(emit)
+            tokens, done, remaining = nxt, new_done, rem
+        return (torch.stack(block), torch.stack(emitted), torch.stack(real),
+                tokens, lens, done, remaining, pend, pend_n)
+
     # -- host-side API -----------------------------------------------------
 
     def prefill(self, ids, page_ids, kid=None):
@@ -577,13 +731,59 @@ class PagedGPTDecoder:
         """Chunked prefill over page-table rows. requests: [(suffix_ids,
         start, pages), ...] — `pages` is the sequence's page list in
         block order, `start` the already-cached prefix length (0: the
-        suffix IS the prompt). Each group of up to max_batch requests
-        runs as ONE flat [total_tokens] stream, bucketed to a power of
-        two. Returns the first generated token per request (in
-        order)."""
-        if packed is False:
-            raise _not_ported("the dense window prefill (packed=False)")
-        return self._prefill_packed_batch(requests, kids=kids)
+        suffix IS the prompt). PACKED (`packed=None`: the decoder's
+        flag): each group of up to max_batch requests runs as ONE flat
+        [total_tokens] stream, bucketed to a power of two; `packed=False`
+        runs the dense window twin (`_prefill_dense_batch`), whose first
+        tokens are the same. Returns the first generated token per
+        request (in order)."""
+        if packed is None:
+            packed = self.packed
+        if packed:
+            return self._prefill_packed_batch(requests, kids=kids)
+        return self._prefill_dense_batch(requests, kids=kids)
+
+    def _prefill_dense_batch(self, requests, kids=None):
+        """DENSE prefill dispatch (the JAX `_prefill_suffix_step` path):
+        requests group by window width W (4 doubled to cover the suffix),
+        each group in chunks of nb rows (a power of two up to max_batch),
+        one `_ragged_forward` of [nb, W] windows a chunk. A request
+        samples at (kid, start + len - 1)."""
+        results = [None] * len(requests)
+        if kids is None:
+            kids = list(range(len(requests)))
+        MP = self.max_pages
+        groups = {}
+        for i, (ids, start, pages) in enumerate(requests):
+            ids = np.asarray(ids, np.int32).reshape(-1)
+            W = 4
+            while W < len(ids):
+                W *= 2
+            groups.setdefault(W, []).append((i, ids, int(start), pages))
+        for W, group in groups.items():
+            while group:
+                nb = 1
+                while nb * 2 <= len(group) and nb * 2 <= self.max_batch:
+                    nb *= 2
+                chunk, group = group[:nb], group[nb:]
+                pad = np.zeros((nb, W), np.int32)
+                st = np.zeros(nb, np.int32)
+                tl = np.ones(nb, np.int32)
+                tbl = np.full((nb, MP), self.num_pages - 1, np.int32)
+                kd = np.zeros(nb, np.int32)
+                for r, (i, ids, start, pages) in enumerate(chunk):
+                    pad[r, :len(ids)] = ids
+                    st[r] = start
+                    tl[r] = start + len(ids)
+                    m = min(len(pages), MP)
+                    tbl[r, :m] = pages[:m]     # rest stays on scratch
+                    kd[r] = kids[i]
+                nxt = self._ragged_forward(
+                    self._as_i32(pad), self._as_i32(st), self._as_i32(tl),
+                    self._as_i32(tbl), self._kids(kd)).tolist()
+                for r, (i, _, _, _) in enumerate(chunk):
+                    results[i] = nxt[r]
+        return results
 
     def _prefill_packed_batch(self, requests, kids=None):
         """PACKED prefill dispatch: the layout (flat tokens, per-token row
@@ -652,11 +852,12 @@ class PagedGPTDecoder:
         return nxt
 
     def decode_multi(self, tokens, lens, table, k, kids=None, done=None,
-                     remaining=None, eos=None):
+                     remaining=None, eos=None, return_logits=False):
         """Run `k` decode ticks device-resident: the tokens each tick
         emits feed the next without a host sync (see
         `_decode_multi_step`). Inputs and outputs may stay on the device.
-        Returns a MultiDecodeOut."""
+        Returns a MultiDecodeOut; its `logits_block` [k, S, V] is None
+        unless `return_logits` (speculation judges the draft's rows)."""
         k, S = int(k), self.max_batch
         if done is None:
             done = np.zeros(S, bool)
@@ -666,8 +867,21 @@ class PagedGPTDecoder:
             self._as_i32(tokens), self._as_i32(lens), self._as_i32(table),
             self._kids(kids),
             torch.as_tensor(done, dtype=torch.bool, device=self.device),
-            self._as_i32(remaining), -1 if eos is None else int(eos), k)
+            self._as_i32(remaining), -1 if eos is None else int(eos), k,
+            return_logits=bool(return_logits))
         return MultiDecodeOut(*out)
+
+    def verify(self, tokens, lens, table, return_probs=False):
+        """Batched speculative verify (see `_verify_step`): the target's
+        greedy choice after every window position, [S, W] int32 numpy;
+        with `return_probs` also the [S, W, V] f32 distributions
+        (`_probs_of`) acceptance compares with the draft's."""
+        nxt, logits = self._verify_step(self._as_i32(tokens),
+                                        self._as_i32(lens),
+                                        self._as_i32(table))
+        if return_probs:
+            return nxt.cpu().numpy(), self._probs_of(logits)
+        return nxt.cpu().numpy()
 
     @property
     def pend_capacity(self):
@@ -680,18 +894,27 @@ class PagedGPTDecoder:
                      packed=None, t_tokens=None):
         """Run `k` MIXED ragged ticks device-resident: decode rows and
         prefill-chunk rows serve together, up to w suffix tokens per
-        prefilling slot per tick, as the flat [t_tokens] packed stream.
-        `t_tokens` must cover the largest per-tick total (default: the
-        dense-equivalent S*w bound). `pend` [S, P] / `pend_n` [S] are the
-        carried prompt suffixes (P = `pend_capacity`). Returns a
-        RaggedMultiOut."""
-        if packed is False:
-            raise _not_ported("the dense ragged window twin (packed=False)")
+        prefilling slot per tick. PACKED (`packed=None`: the decoder's
+        flag): the flat [t_tokens] token stream; `t_tokens` must cover
+        the largest per-tick total (default: the dense-equivalent S*w
+        bound). `packed=False`: the dense [S, w] window twin
+        (`_ragged_multi_step`), the same streams. `pend` [S, P] /
+        `pend_n` [S] are the carried prompt suffixes (P =
+        `pend_capacity`). Returns a RaggedMultiOut."""
         k, w, S = int(k), int(w), self.max_batch
+        if packed is None:
+            packed = self.packed
         if done is None:
             done = np.zeros(S, bool)
         if remaining is None:
             remaining = np.full(S, _NO_LIMIT, np.int32)
+        carry = (self._as_i32(tokens), self._as_i32(lens),
+                 self._as_i32(table), self._kids(kids),
+                 torch.as_tensor(done, dtype=torch.bool, device=self.device),
+                 self._as_i32(remaining), -1 if eos is None else int(eos),
+                 self._as_i32(pend), self._as_i32(pend_n), w, k)
+        if not packed:
+            return RaggedMultiOut(*self._ragged_multi_step(*carry))
         if t_tokens is None:
             t_tokens = pow2_at_least(S * max(w, 1))
         t = max(int(t_tokens), 1)
@@ -701,13 +924,7 @@ class PagedGPTDecoder:
             raise ValueError(
                 f"t_tokens {t} < max_batch {S}: the packed bucket must "
                 "cover at least one token per slot")
-        out = self._packed_multi_step(
-            self._as_i32(tokens), self._as_i32(lens), self._as_i32(table),
-            self._kids(kids),
-            torch.as_tensor(done, dtype=torch.bool, device=self.device),
-            self._as_i32(remaining), -1 if eos is None else int(eos),
-            self._as_i32(pend), self._as_i32(pend_n), w, k, t)
-        return RaggedMultiOut(*out)
+        return RaggedMultiOut(*self._packed_multi_step(*carry, t))
 
     # -- pages: copy-on-write, host tier, persistence -----------------------
 

@@ -1,31 +1,45 @@
-"""Continuous-batching engine over the paged decoder (counterpart of
-`paddle_tpu/serving/engine.py` `ContinuousBatchingEngine`): slot
-scheduling, ragged chunked-prefill horizons, the per-tick loop, and
-prefix-cache admission with its host KV tier.
+"""Continuous-batching engines over the paged decoder (counterpart of
+`paddle_tpu/serving/engine.py`): slot scheduling, ragged chunked-prefill
+horizons, the dispatch-separate loop, the per-tick loop, prefix-cache
+admission with its host KV tier, the flight recorder's hooks and
+speculative decoding.
 
-Ported: the ragged packed horizon loop (`_run_ragged`, the default for
-k_max > 1) and the per-tick loop (`step` / `_run_per_tick`, k_max=1),
-which is the in-port oracle for it; content-addressed admission over a
-`PrefixCache` (mount, copy-on-write, publish, evict), the host tier
-behind it (`HostKVTier`: spill waves, priced restore or recompute) and
-the page ledger with its audit. Not ported yet: the flight recorder, the
-dispatch-separate baseline (`ragged=False` with k_max > 1), LoRA
-adapters, tenancy hooks and the speculative engine.
+Ported: the ragged horizon loop (`_run_ragged`, the default for
+k_max > 1) in the packed and the dense (`packed=False`) layout; the
+dispatch-separate loop (`_run_multi`, `ragged=False` with k_max > 1: a
+blocking prefill at admission, then decode-only `decode_multi`
+horizons); the per-tick loop (`step` / `_run_per_tick`, k_max=1), the
+in-port oracle for both; the scheduling-decision trace
+(`serve_schedule`); content-addressed admission over a `PrefixCache`
+(mount, copy-on-write, publish, evict), the host tier behind it
+(`HostKVTier`: spill waves, priced restore or recompute) and the page
+ledger with its audit; the flight recorder (`trace=`: lifecycle spans,
+priced tick records, drift); `SpeculativeEngine`, greedy and sampled.
+Not ported yet: LoRA adapters and the tenancy hooks.
 """
+import collections
 import time
 import weakref
 
 import numpy as np
 import torch
 
-from .decoder import PagedGPTDecoder, _not_ported
+from ..cost_model import (decode_horizon, decode_tick_roofline_s,
+                          kv_restore_s, measured_host_sync_s,
+                          ragged_tick_legs)
+from .decoder import PagedGPTDecoder, _spec_accept, pow2_at_least
 from .kv_tier import HostKVTier, restore_beats_recompute
 from .page_audit import audit_kv_scale_planes, audit_page_ledger
 from .prefix_cache import PrefixCache
 from .scheduler import RaggedScheduler
 from .stats import _ENGINES, ServeStats
+from .trace import FlightRecorder
 
-__all__ = ["ContinuousBatchingEngine"]
+__all__ = ["ContinuousBatchingEngine", "SpeculativeEngine"]
+
+# bounded schedule-event window (`serve_schedule`): the most recent
+# scheduling decisions, not the process lifetime
+_SCHED_WINDOW = 4096
 
 
 class ContinuousBatchingEngine:
@@ -43,9 +57,18 @@ class ContinuousBatchingEngine:
     (one-horizon-delayed retirement: a slot finishing inside block N
     stays frozen on the device through block N+1 — its writes route to
     the scratch page — and its pages are freed exactly once, when block
-    N is processed). `k_max=1` selects the per-tick loop (`step()` is the
-    per-tick API either way); `k_max=None` lets the scheduler price K
-    (`cost_model.decode_horizon`).
+    N is processed). `ragged=False` keeps the dispatch-separate loop
+    (`_run_multi`: a blocking prefill at admission, then decode-only
+    `decode_multi` horizons — the same streams). `k_max=1` selects the
+    per-tick loop (`step()` is the per-tick API either way); `k_max=None`
+    lets the scheduler (or, with `ragged=False`, the pure decode tick)
+    price K (`cost_model.decode_horizon`, with `host_sync_s` the host's
+    cost of a sync, measured when not given). `packed=False` serves the
+    ragged horizons and the admission prefill in the dense window layout
+    (default: the decoder's flag); `scheduler=` replaces the
+    `RaggedScheduler`. `trace` (a `FlightRecorder`, or True for a default
+    one) records lifecycle spans and priced tick records; off, every hook
+    is a dead branch.
 
     With `prefix_cache` (a `PrefixCache`, or True for a default one
     salted by `decoder.cache_fingerprint()`) admission is
@@ -75,14 +98,6 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 "max_new_tokens must be >= 1 (the prefill forward always "
                 f"produces one token), got {max_new_tokens}")
-        if trace:
-            raise _not_ported("the flight recorder (trace=; ROADMAP.md "
-                              "queue 1, item 4.1)")
-        for name, value in (("host_sync_s", host_sync_s),
-                            ("scheduler", scheduler), ("packed", packed)):
-            if value is not None:
-                raise _not_ported(f"the engine's {name}= (ROADMAP.md "
-                                  "queue 1, item 4.5)")
         self.d = decoder
         self.eos = eos_token_id
         self.max_new = max_new_tokens
@@ -109,17 +124,30 @@ class ContinuousBatchingEngine:
         self.steps = 0
         self.k_max = max(1, int(k_max)) if k_max is not None else None
         self._init_cache(prefix_cache, host_tier, tier_policy)
-        if ragged is False and self.k_max != 1:
-            raise _not_ported("the dispatch-separate baseline "
-                              "(ragged=False with k_max > 1)")
-        self.scheduler = None
-        if self.k_max is None or self.k_max > 1 or ragged:
+        self._restore_s_pending = 0.0    # priced H2D awaiting a horizon
+        if scheduler is None and ragged is not False and \
+                (self.k_max is None or self.k_max > 1 or ragged):
             # k_max=None: the scheduler prices K (cost_model)
-            self.scheduler = RaggedScheduler(
-                decoder, chunk_tokens=chunk_tokens, k_max=self.k_max)
-            self.k_max = self.scheduler.k_max
+            scheduler = RaggedScheduler(
+                decoder, chunk_tokens=chunk_tokens, k_max=self.k_max,
+                host_sync_s=host_sync_s)
+        self.scheduler = scheduler
+        if self.k_max is None:
+            if scheduler is not None:
+                self.k_max = scheduler.k_max
+            else:
+                # the dispatch-separate loop: K priced on the PURE decode
+                # tick (no chunk compute leg, no scheduler)
+                self.k_max = decode_horizon(decoder.step_hbm_bytes(),
+                                            host_sync_s=host_sync_s,
+                                            device=decoder.device)
         self.ragged = bool(self.k_max > 1 if ragged is None else ragged)
+        # the ragged horizons' (and the admission prefill's) layout: the
+        # packed token stream, or the dense [S, w] window twin
+        self.packed = bool(decoder.packed if packed is None else packed)
         self._prompt_len = [0] * S           # admitted prompt length/slot
+        # scheduling decisions: blocking prefills and ragged horizons
+        self._sched_events = collections.deque(maxlen=_SCHED_WINDOW)
         self.stats = ServeStats(
             engine=type(self).__name__, k_max=self.k_max,
             # num_pages - 1: the reserved scratch page never holds a
@@ -130,6 +158,23 @@ class ContinuousBatchingEngine:
             # a warm-started tier (PrefixCache.load) already holds bytes
             self.stats.host_tier_bytes = self.tier.bytes_used
         self._submit_t = {}                  # rid -> submit wall time
+        # FLIGHT RECORDER: off by default; every hook below is a dead
+        # `if self.trace is not None` branch
+        if trace is True:
+            trace = FlightRecorder()
+        self.trace = trace or None
+        self._trace_price = None         # `_price_inputs`, once
+        self._trace_pool_mark = (0, 0)   # (cow, evictions) marks
+        self._trace_warm = set()         # dispatch shapes already run
+        if self.trace is not None:
+            # the host-sync price is measured now, before any dispatch:
+            # pricing a tick later must not add a sync to the run
+            measured_host_sync_s(decoder.device)
+            self.trace.meta.update(
+                engine=type(self).__name__, k_max=self.k_max,
+                ragged=self.ragged, packed=self.packed,
+                page_size=decoder.page_size,
+                kv_quant=decoder.kv_quant or "none")
         _ENGINES.add(self)
 
     def _init_cache(self, prefix_cache, host_tier, tier_policy):
@@ -190,12 +235,73 @@ class ContinuousBatchingEngine:
         decoder._engines.add(self)
         self._cache_meta = {}                # rid -> (start, keys, n_hit)
 
+    # -- flight recorder (every method below runs only with tracing on) --
+
+    def _price_horizon(self, k, w, prefill_rows, decode_rows=0,
+                       serial=False):
+        """Roofline-PREDICTED wall cost of one dispatched horizon: k
+        mixed ticks (`cost_model.ragged_tick_legs` priced on the tick's
+        total new-token count — chunk rows at w each plus one per decode
+        row) plus ONE host sync. `serial=True` prices the SERIAL sum of
+        the legs instead of their overlapped max, so the drift ledger can
+        tell a mispriced leg from a serialized schedule."""
+        hbm, fpt, sync = self._price_inputs()
+        hbm_s, compute_s = ragged_tick_legs(
+            hbm, w * prefill_rows + decode_rows, fpt)
+        tick = (hbm_s + compute_s) if serial else max(hbm_s, compute_s)
+        return k * tick + sync
+
+    def _price_inputs(self):
+        """(step HBM bytes, matmul FLOPs a token, host sync seconds) of
+        the horizon pricing, computed once (the sync was measured when
+        the engine was built)."""
+        if self._trace_price is None:
+            self._trace_price = (self.d.step_hbm_bytes(),
+                                 self._flops_per_token(),
+                                 measured_host_sync_s(self.d.device))
+        return self._trace_price
+
+    def _trace_pool_delta(self):
+        """Pool events since the previous tick record (CoW copies,
+        evictions), folded into each tick so the trace shows WHICH
+        horizon paid for cache churn."""
+        cow, ev = self.stats.prefix_cow, self.stats.prefix_evictions
+        d = {"cow": cow - self._trace_pool_mark[0],
+             "evictions": ev - self._trace_pool_mark[1]}
+        self._trace_pool_mark = (cow, ev)
+        return d
+
+    def _trace_shape_warm(self, key):
+        """A dispatch shape's first run pays its one-time costs (cuBLAS
+        heuristics, allocator growth) inside the measured window: its
+        tick is recorded but kept OUT of the drift ledger."""
+        warm = key in self._trace_warm
+        self._trace_warm.add(key)
+        return warm
+
+    def _trace_admits(self, admitted, now):
+        """Admit events with the prefix-cache mount detail (cached span,
+        hit blocks)."""
+        for slot, rid, ids, _pages in admitted:
+            meta = self._cache_meta.get(rid)
+            self.trace.record(
+                "admit", ts=now, rid=rid, slot=slot,
+                prompt_tokens=len(ids),
+                cached_tokens=int(meta[0]) if meta else 0,
+                hit_blocks=int(meta[2]) if meta else 0)
+
+    def _trace_progress(self, rid):
+        """Per-N-token progress mark (N = recorder.progress_every)."""
+        n = len(self._outputs[rid])
+        if n % self.trace.progress_every == 0:
+            self.trace.record("progress", rid=rid, tokens=n)
+
     # -- host KV tier ----------------------------------------------------
 
     def _flops_per_token(self):
         """Matmul FLOPs one prompt token costs (the 2x-params GPT rule;
         the scheduler already holds it on ragged engines)."""
-        if self.scheduler is not None:
+        if hasattr(self.scheduler, "flops_per_token"):
             return self.scheduler.flops_per_token
         return 2.0 * self.d.cfg.num_params()
 
@@ -227,9 +333,12 @@ class ContinuousBatchingEngine:
         freed = self.cache.evict(need, exclude=exclude, spill=note)
         if pending:
             payloads = self.d.fetch_page_payloads([p for _, p in pending])
-            for (key, _page), payload in zip(pending, payloads):
+            for (key, page), payload in zip(pending, payloads):
                 if tier.put(key, payload):
                     self.stats.tier_spills += 1
+                    if self.trace is not None:
+                        self.trace.record("spill", page=int(page),
+                                          bytes=tier.entry_bytes(key))
             self.stats.host_tier_bytes = tier.bytes_used
         return freed
 
@@ -272,7 +381,7 @@ class ContinuousBatchingEngine:
             self.tier.touch(keys[lo + i])
         self.stats.tier_recomputes += n
 
-    def _tier_restore(self, keys, n_dev, pages, hold):
+    def _tier_restore(self, keys, n_dev, pages, hold, rid):
         """Re-mount `len(pages)` host-resident blocks (keys[n_dev:], their
         payloads pinned in `hold`) into freshly allocated device pages:
         ONE H2D + `index_copy_` per pool leaf for the whole span
@@ -281,8 +390,12 @@ class ContinuousBatchingEngine:
         under the held parent chain and the device-twin backref for the
         audit. Returns [(page, inserted)]: a capacity-refused insert
         leaves that page (and the rest of the chain) private to the
-        request."""
+        request. The priced H2D (`cost_model.kv_restore_s`) joins the
+        next horizon's prediction (`_note_restore`) and, with tracing on,
+        is recorded as an ("h2d_restore",) tick."""
         tier = self.tier
+        tot_bytes = sum(nbytes for _, _, nbytes in hold[:len(pages)])
+        t0 = time.perf_counter()
         self.d.mount_page_payloads(
             list(pages), [hold[i][1] for i in range(len(pages))])
         out = []
@@ -298,9 +411,34 @@ class ContinuousBatchingEngine:
                 else:
                     stop = True
             out.append((pid, ok))
+        dt = time.perf_counter() - t0
+        pred = kv_restore_s(tot_bytes, shared=getattr(tier, "shared", False))
         self.stats.tier_restores += len(pages)
         self.stats.host_tier_bytes = tier.bytes_used
+        self._note_restore(pred)
+        if self.trace is not None:
+            self.trace.tick(
+                "serve", ("h2d_restore",), dt, predicted_s=pred,
+                drift=self._trace_shape_warm(("h2d_restore",)),
+                rid=rid, blocks=len(pages), bytes=tot_bytes)
         return out
+
+    def _note_restore(self, seconds):
+        if hasattr(self.scheduler, "note_restore"):
+            self.scheduler.note_restore(seconds)
+        else:
+            self._restore_s_pending += float(seconds)
+
+    def _take_restore_s(self):
+        """Pending restore H2D price, drained once per dispatched horizon
+        (the mount lands inside exactly one measured window — the next
+        dispatch's)."""
+        if hasattr(self.scheduler, "take_restore_s"):
+            return self.scheduler.take_restore_s()
+        s, self._restore_s_pending = self._restore_s_pending, 0.0
+        return s
+
+    # -- requests and admission -------------------------------------------
 
     def submit(self, prompt_ids):
         """Queue one prompt (list, numpy array or tensor of token ids);
@@ -313,56 +451,84 @@ class ContinuousBatchingEngine:
                 "prompt must contain at least one token (prefill "
                 "samples the first generated token after the prompt's "
                 "last position — an empty prompt has none)")
-        total = len(ids) + self.max_new
+        decoders = [d for d, _, _ in self._pools()]
+        total = len(ids) + self.max_new + self._margin
+        tokens = f"prompt {len(ids)} + max_new {self.max_new}" + (
+            f" + speculation margin {self._margin}" if self._margin else "")
         need = self._pages_for(total)
-        if need > min(self.d.max_pages, self.d.num_pages - 1):
+        limit = min(min(d.max_pages, d.num_pages - 1) for d in decoders)
+        if need > limit:
             raise ValueError(
-                f"request needs {need} pages (prompt {len(ids)} + "
-                f"max_new {self.max_new} tokens) but the pool allows "
-                f"{min(self.d.max_pages, self.d.num_pages - 1)}")
-        if total > self.d.cfg.max_seq_len:
+                f"request needs {need} pages ({tokens} tokens) but the "
+                f"pool allows {limit}")
+        max_seq = min(d.cfg.max_seq_len for d in decoders)
+        if total > max_seq:
             raise ValueError(
-                f"prompt {len(ids)} + max_new {self.max_new} tokens "
-                f"exceeds the model's max_seq_len "
-                f"{self.d.cfg.max_seq_len} (positions past it have no "
-                "embedding)")
+                f"{tokens} tokens exceeds the model's max_seq_len "
+                f"{max_seq} (positions past it have no embedding)")
+        return self._register_request(ids)
+
+    def _register_request(self, ids):
+        """Queue a VALIDATED request: rid allocation, queue-wait stamp,
+        stats, the trace's submit record — one implementation for both
+        engines' submit()s, called only after validation so a rejected
+        submission leaves no trace in the stats."""
         rid = self._next_id
         self._next_id += 1
         self._submit_t[rid] = time.perf_counter()
         self.stats.requests += 1
         self._queue.append((rid, ids))
+        if self.trace is not None:
+            self.trace.record("submit", ts=self._submit_t[rid], rid=rid,
+                              prompt_tokens=len(ids))
         return rid
 
     def _pages_for(self, n_tokens):
         return (n_tokens + self.d.page_size - 1) // self.d.page_size
+
+    # positions a request may write past its prompt + max_new budget
+    _margin = 0
+
+    def _pools(self):
+        """(decoder, free list, per-slot page lists) of each page pool a
+        request holds pages in: the decoder's own here."""
+        return ((self.d, self._free, self._slot_pages),)
 
     def _note_resident(self):
         n = sum(r is not None for r in self._slot_req)
         self.stats.max_resident_slots = max(
             self.stats.max_resident_slots, n)
 
-    def _note_queue_waits(self, admitted):
+    def _note_admits(self, admitted):
+        """Queue-wait stamps (submit -> admit) and the trace's admit
+        records of one admission round."""
         now = time.perf_counter()
         for _, rid, _, _ in admitted:
             t0 = self._submit_t.get(rid)
             if t0 is not None:
                 self.stats.queue_wait_s.append(now - t0)
+        if self.trace is not None:
+            self._trace_admits(admitted, now)
 
     def _admit(self):
-        """Per-tick admission: gather every admittable request and
-        prefill them as ONE packed forward (host-blocking). Returns the
-        slots that entered decode."""
+        """Blocking admission (the per-tick and dispatch-separate loops):
+        gather every admittable request and prefill them in one forward
+        (host-blocking). Returns the slots that entered decode."""
         active0 = sum(r is not None for r in self._slot_req)
         admitted = self._gather_admissions()
         if not admitted:
             return []
-        self._note_queue_waits(admitted)
+        self._note_admits(admitted)
         self._table_cache = None
         firsts = self._prefill_admitted(admitted)
         self.stats.prefill_syncs += 1
+        # this prefill BLOCKED the host while `active0` slots sat decoding
+        self._sched_events.append(
+            {"kind": "prefill_sync", "decode_active": int(active0),
+             "rows": len(admitted)})
         if active0:
-            # this prefill BLOCKED the host while slots sat decoding
             self.stats.prefill_stall_syncs += 1
+        self._extra_prefill(admitted)
         done_t = time.perf_counter()
         live = []
         for (slot, rid, ids, pages), first in zip(admitted, firsts):
@@ -370,6 +536,8 @@ class ContinuousBatchingEngine:
             if t0 is not None:
                 self.stats.ttft_s.append(done_t - t0)
             self._outputs[rid] = [first]
+            if self.trace is not None:
+                self.trace.record("first_token", ts=done_t, rid=rid)
             self.stats.tokens += 1
             if (self.eos is not None and first == self.eos) \
                     or self.max_new <= 1:
@@ -379,23 +547,25 @@ class ContinuousBatchingEngine:
             self._lens[slot] = len(ids)
             self._tokens[slot] = first
             self._kids[slot] = rid
+            self._after_admit(slot, len(ids))
             live.append(slot)
         return live
 
     def _prefill_admitted(self, admitted):
-        """The per-tick path's blocking prefill of the admitted requests:
-        whole prompts without a prefix cache; with one, each request's
-        uncached suffix from its `start` (the cached span is mounted, zero
-        device work). Freshly computed full blocks are published to the
-        cache afterwards (`.tolist()` has synced, so their bytes are
-        written before any later mount reads them)."""
+        """The blocking prefill of the admitted requests, in the engine's
+        layout (`packed`): whole prompts without a prefix cache; with
+        one, each request's uncached suffix from its `start` (the cached
+        span is mounted, zero device work). Freshly computed full blocks
+        are published to the cache afterwards (`.tolist()` has synced, so
+        their bytes are written before any later mount reads them)."""
         reqs = []
         for _, rid, ids, pages in admitted:
             start = self._cache_meta[rid][0] if self.cache is not None \
                 else 0
             reqs.append((ids[start:], start, pages))
         firsts = self.d.prefill_suffix_batch(
-            reqs, kids=[rid for _, rid, _, _ in admitted])
+            reqs, kids=[rid for _, rid, _, _ in admitted],
+            packed=self.packed)
         for slot, rid, _, _ in admitted:
             self._publish_blocks(rid, slot)
         return firsts
@@ -404,7 +574,7 @@ class ContinuousBatchingEngine:
         """Publish a request's freshly computed full blocks to the prefix
         cache (the slot keeps holding the pages until retirement decrefs
         them). Called once the blocks' bytes are ordered before any future
-        reader: after the prefill sync on the per-tick path, at the first
+        reader: after the prefill sync on the blocking paths, at the first
         token's block processing on the ragged path. Publishing STOPS at
         the first refused insert (a same-batch duplicate keeps its copy
         private): a deeper block would chain under a parent this request
@@ -423,10 +593,11 @@ class ContinuousBatchingEngine:
                 break
             self._slot_shared[slot].add(pages[b])
 
-    def _occupy(self, slot, rid, pages):
+    def _occupy(self, slot, rid):
+        """Bind `rid` to `slot` (both admission paths): the request id and
+        the slot generation stamp the stale-block check compares."""
         self._slot_req[slot] = rid
         self._slot_gen[slot] += 1
-        self._slot_pages[slot] = pages
 
     def _gather_admissions(self):
         """Bind queued requests to free slots in order while their pages
@@ -435,15 +606,19 @@ class ContinuousBatchingEngine:
         if self.cache is not None:
             return self._gather_admissions_cached()
         admitted = []
+        pools = self._pools()
         for slot in range(self.d.max_batch):
             if self._slot_req[slot] is not None or not self._queue:
                 continue
             rid, ids = self._queue[0]
-            need = self._pages_for(len(ids) + self.max_new)
-            if need > self.d.max_pages or need > len(self._free):
+            need = self._pages_for(len(ids) + self.max_new + self._margin)
+            if any(need > d.max_pages or need > len(free)
+                   for d, free, _ in pools):
                 break
             self._queue.pop(0)
-            self._occupy(slot, rid, [self._free.pop() for _ in range(need)])
+            for _, free, held in pools:
+                held[slot] = [free.pop() for _ in range(need)]
+            self._occupy(slot, rid)
             admitted.append((slot, rid, ids, self._slot_pages[slot]))
         return admitted
 
@@ -516,7 +691,7 @@ class ContinuousBatchingEngine:
             if n_rest:
                 rest_pages = [privates.pop() for _ in range(n_rest)]
                 inserted = dict(self._tier_restore(keys, len(hits),
-                                                   rest_pages, hold))
+                                                   rest_pages, hold, rid))
                 if not all(inserted.values()):
                     # a refused restore insert breaks the held chain:
                     # publish nothing deeper for this request
@@ -538,15 +713,25 @@ class ContinuousBatchingEngine:
                     # the final block is a restore whose insert was
                     # refused: already private, return the spare page
                     self._free.append(privates.pop())
-            self._occupy(slot, rid, shared + privates)  # prefix first
+            pages = shared + privates        # block order: prefix first
+            self._occupy(slot, rid)
+            self._slot_pages[slot] = pages
             self._slot_shared[slot] = shared_set
             self._cache_meta[rid] = (start, keys_meta, n_hit)
             self.stats.prefix_hits += n_hit
             self.stats.prefix_misses += len(keys) - n_hit
             self.stats.prefix_tokens_saved += start
             self.stats.prefix_bytes_saved += start * tok_bytes
-            admitted.append((slot, rid, ids, self._slot_pages[slot]))
+            admitted.append((slot, rid, ids, pages))
         return admitted
+
+    def _extra_prefill(self, admitted):
+        """Hook after the blocking prefill (`SpeculativeEngine`: the
+        draft's prefill)."""
+
+    def _after_admit(self, slot, prompt_len):
+        """Hook for a slot entering decode (`SpeculativeEngine`: the
+        draft's length)."""
 
     def _retire(self, slot):
         """Give back the slot's pages — a shared page drops this request's
@@ -554,6 +739,10 @@ class ContinuousBatchingEngine:
         a private one returns to the free list — and clear every per-slot
         field (the generation bump makes any in-flight block of this
         occupancy stale)."""
+        if self.trace is not None:
+            rid = self._slot_req[slot]
+            self.trace.record("retire", rid=rid,
+                              tokens=len(self._outputs.get(rid, ())))
         shared = self._slot_shared[slot]
         for pid in self._slot_pages[slot]:
             if pid in shared:
@@ -603,16 +792,18 @@ class ContinuousBatchingEngine:
             findings += audit_kv_scale_planes(self.d, sorted(held))
         return findings
 
-    def _table(self):
-        """Page table with inactive/unused entries routed to the reserved
-        scratch page (their discarded KV writes must never land in
-        allocatable pages)."""
-        d = self.d
-        t = np.full((d.max_batch, d.max_pages), d.num_pages - 1, np.int32)
-        for s, pg in enumerate(self._slot_pages):
+    def _table(self, pages_per_slot, decoder):
+        """Page table of `decoder` with inactive/unused entries routed to
+        its reserved scratch page (their discarded KV writes must never
+        land in allocatable pages)."""
+        t = np.full((decoder.max_batch, decoder.max_pages),
+                    decoder.num_pages - 1, np.int32)
+        for s, pg in enumerate(pages_per_slot):
             if pg:
                 t[s, :len(pg)] = pg
         return t
+
+    # -- the per-tick loop ---------------------------------------------------
 
     def step(self):
         """Admit + one decode tick. Returns number of active slots."""
@@ -622,7 +813,7 @@ class ContinuousBatchingEngine:
         if not active:
             return 0
         if self._table_cache is None:        # slots changed since last tick
-            self._table_cache = self._table()
+            self._table_cache = self._table(self._slot_pages, self.d)
         nxt = self.d.decode(self._tokens, self._lens, self._table_cache,
                             kids=self._kids).cpu().numpy()
         self.steps += 1
@@ -639,6 +830,8 @@ class ContinuousBatchingEngine:
             tok = int(nxt[s])
             self._outputs[rid].append(tok)
             self.stats.tokens += 1
+            if self.trace is not None:
+                self._trace_progress(rid)
             self._lens[s] += 1
             self._tokens[s] = tok
             if (self.eos is not None and tok == self.eos) or \
@@ -649,12 +842,22 @@ class ContinuousBatchingEngine:
     def run(self, step_times=None, on_sync=None):
         """Drain the queue; returns {request_id: generated token list}.
         `step_times`, if given, receives wall seconds per host sync (per
-        tick on the per-tick path, per horizon on the ragged path).
+        tick on the per-tick path, per horizon on the multi-tick paths).
         `on_sync(engine)` is called after every processed host sync and
         may `submit()` new requests."""
         if self.ragged:
             return self._run_ragged(step_times, on_sync)
-        return self._run_per_tick(step_times, on_sync)
+        if self.k_max <= 1:
+            return self._run_per_tick(step_times, on_sync)
+        return self._run_multi(step_times, on_sync)
+
+    def serve_schedule(self):
+        """The recent scheduling-decision trace (bounded window): one
+        event per host-blocking prefill ("prefill_sync", with the decode
+        slots it stalled) and per ragged horizon ("horizon", with its k/w
+        and row mix). A prefill_sync with decode_active > 0 is the stall
+        the ragged path exists to remove."""
+        return list(self._sched_events)
 
     def _run_per_tick(self, step_times=None, on_sync=None):
         """Per-tick loop: one tick, one host sync per token."""
@@ -662,14 +865,34 @@ class ContinuousBatchingEngine:
             t0 = time.perf_counter()
             before = self.stats.tokens
             before_p = self.stats.prefill_syncs
-            self.step()
+            active = self.step()
             dt = time.perf_counter() - t0
             if step_times is not None:
                 step_times.append(dt)
             n = self.stats.tokens - before
+            # a restore on this blocking path always rides a
+            # prefill-polluted window, which the drift ledger excludes
+            self._take_restore_s()
+            clean = self.stats.prefill_syncs == before_p
+            if self.trace is not None and active:
+                # a step that contained a blocking prefill is not a decode
+                # tick: it is recorded unpriced, outside the drift ledger
+                warm = self._trace_shape_warm(("tick",))
+                self.trace.tick(
+                    "serve", ("tick", 1, 1), dt, ts=t0,
+                    predicted_s=(self._price_horizon(
+                        1, 1, 0, decode_rows=active) if clean else None),
+                    predicted_serial_s=(self._price_horizon(
+                        1, 1, 0, decode_rows=active, serial=True)
+                        if clean else None),
+                    drift=clean and warm, k=1, w=1,
+                    decode_rows=active, prefill_rows=0, tokens=n,
+                    tokens_dispatched=self.d.max_batch,
+                    tokens_padded=self.d.max_batch - active,
+                    pool=self._trace_pool_delta())
             # steady-state decode latency only: a sync that contained a
             # prefill would turn p99 into a prefill number
-            if n and self.stats.prefill_syncs == before_p:
+            if n and clean:
                 self.stats.token_time_s.extend([dt / n] * n)
             if on_sync is not None:
                 on_sync(self)
@@ -679,6 +902,175 @@ class ContinuousBatchingEngine:
         """Tokens this slot may still emit (host view, excludes ticks
         already dispatched but not yet processed)."""
         return self.max_new - len(self._outputs[self._slot_req[slot]])
+
+    # -- the dispatch-separate loop (ragged=False, k_max > 1) --------------
+
+    def _horizon(self, slots, inflight):
+        """Largest power-of-two tick count <= k_max that fits every
+        dispatchable slot's remaining budget."""
+        rem = min(self._budget_left(s) - inflight[s] for s in slots)
+        k = 1
+        while k * 2 <= min(rem, self.k_max):
+            k *= 2
+        return k
+
+    def _merge_carry(self, carry, admitted):
+        """Device-resident decode state (tokens, lens, done, remaining)
+        for the next horizon. Newly admitted slots are scattered into the
+        in-flight tensors with device ops; the carry never round-trips
+        through the host."""
+        S = self.d.max_batch
+        dev = self.d.device
+        if carry is None:
+            done = np.array([r is None for r in self._slot_req])
+            rem = np.array([self._budget_left(s) if self._slot_req[s]
+                            is not None else 0 for s in range(S)],
+                           np.int32)
+            return tuple(torch.tensor(a, device=dev) for a in
+                         (self._tokens, self._lens, done, rem))
+        if not admitted:
+            return carry
+        idx = (torch.as_tensor(admitted, dtype=torch.long, device=dev),)
+        new = (self._tokens[admitted], self._lens[admitted],
+               np.zeros(len(admitted), bool),
+               np.array([self._budget_left(s) for s in admitted],
+                        np.int32))
+        return tuple(c.index_put(idx, torch.as_tensor(v, device=dev))
+                     for c, v in zip(carry, new))
+
+    def _process_block(self, meta, inflight, step_times,
+                       prefilled_since=False, trace_ev=None):
+        """Fetch + bookkeep one finished decode horizon (called AFTER the
+        next horizon is dispatched, so the device->host wait overlaps
+        it)."""
+        block_d, done_before_d, k, rids, t0, had_prefill = meta
+        block = block_d.cpu().numpy()
+        done_before = done_before_d.cpu().numpy()
+        self.stats.decode_syncs += 1
+        # pad ledger: the fused loop computed k*S positions; frozen rows'
+        # ticks (done_before True) were filler
+        disp_toks = k * self.d.max_batch
+        pad_toks = int(done_before.sum())
+        self.stats.tokens_dispatched += disp_toks
+        self.stats.tokens_padded += pad_toks
+        emitted = 0
+        for s, rid in rids.items():
+            inflight[s] = max(0, inflight[s] - k)
+            if self._slot_req[s] != rid:
+                continue
+            for j in range(k):
+                if done_before[j, s]:
+                    break
+                tok = int(block[j, s])
+                self._outputs[rid].append(tok)
+                self.stats.tokens += 1
+                emitted += 1
+                if self.trace is not None:
+                    self._trace_progress(rid)
+                self._lens[s] += 1
+                self._tokens[s] = tok
+                if (self.eos is not None and tok == self.eos) or \
+                        len(self._outputs[rid]) >= self.max_new:
+                    self._retire(s)
+                    break
+        dt = time.perf_counter() - t0
+        if step_times is not None:
+            step_times.append(dt)
+        if trace_ev is not None:
+            # a window that held a prefill, the shape's first dispatch, or
+            # another shape's first dispatch inside this still-open
+            # window stays out of the drift ledger
+            self.trace.tick_complete(
+                trace_ev, dt, tokens=emitted,
+                tokens_dispatched=disp_toks, tokens_padded=pad_toks,
+                drift=(not (had_prefill or prefilled_since)
+                       and trace_ev.get("warm_shape", True)
+                       and not trace_ev.get("compiled_in_window")),
+                pool=self._trace_pool_delta())
+        # steady-state decode latency only: a prefill in the block's
+        # dispatch round or before its processing is kept out
+        if emitted and not had_prefill and not prefilled_since:
+            self.stats.token_time_s.extend([dt / emitted] * emitted)
+
+    def _run_multi(self, step_times=None, on_sync=None):
+        """Dispatch-separate drain: admission runs the blocking prefill,
+        then one K-tick decode-only horizon (`decode_multi`) is
+        dispatched and the PREVIOUS horizon processed while it runs.
+        Retirement is one horizon delayed — a slot finishing inside block
+        N stays frozen on the device through block N+1 (its K/V writes
+        route to the scratch page) and its pages are freed exactly once,
+        when block N's results land on the host."""
+        S = self.d.max_batch
+        pending = None               # the in-flight horizon's meta
+        pending_ev = None            # its open tick record (trace on)
+        carry = None                 # device (tokens, lens, done, rem)
+        inflight = [0] * S           # dispatched-not-yet-processed ticks
+        while (self._queue or pending is not None
+               or any(r is not None for r in self._slot_req)):
+            t0 = time.perf_counter()
+            before_p = self.stats.prefill_syncs
+            admitted = self._admit()
+            # a prefill ran iff the sync counter moved (a round whose
+            # admissions all finish at prefill admits no decode slot)
+            prefilled = self.stats.prefill_syncs != before_p
+            for s in admitted:
+                # a fresh request starts from a clean carry: ticks still
+                # in flight for the slot's previous request do not gate it
+                inflight[s] = 0
+            carry = self._merge_carry(carry, admitted)
+            # a live slot left out here is already frozen on the device
+            # (its device `remaining` is budget_left - inflight == 0)
+            disp = [s for s in range(S) if self._slot_req[s] is not None
+                    and self._budget_left(s) - inflight[s] > 0]
+            meta = None
+            meta_ev = None
+            if disp:
+                k = self._horizon(disp, inflight)
+                if self._table_cache is None:
+                    self._table_cache = self._table(self._slot_pages,
+                                                    self.d)
+                tokens_d, lens_d, done_d, rem_d = carry
+                out = self.d.decode_multi(
+                    tokens_d, lens_d, self._table_cache, k,
+                    kids=self._kids, done=done_d, remaining=rem_d,
+                    eos=self.eos)
+                carry = (out.tokens, out.lens, out.done, out.remaining)
+                self.steps += k
+                self.stats.ticks += k
+                self.stats.occupancy.append(len(disp) / S)
+                self._note_resident()
+                for s in disp:
+                    inflight[s] += k
+                meta = (out.tokens_block, out.done_before, k,
+                        {s: self._slot_req[s] for s in disp}, t0,
+                        prefilled)
+                # a restore dispatched this round lands inside THIS
+                # horizon's window (drained even when untraced)
+                restore_s = self._take_restore_s()
+                if self.trace is not None:
+                    meta_ev = self.trace.tick_dispatch(
+                        "serve", ("decode", k, 1), ts=t0,
+                        predicted_s=self._price_horizon(
+                            k, 1, 0, decode_rows=len(disp)) + restore_s,
+                        predicted_serial_s=self._price_horizon(
+                            k, 1, 0, decode_rows=len(disp), serial=True)
+                        + restore_s,
+                        k=k, w=1, decode_rows=len(disp), prefill_rows=0,
+                        warm_shape=self._trace_shape_warm(("decode", k)))
+                    if pending_ev is not None and \
+                            not meta_ev["warm_shape"]:
+                        # this first dispatch ran inside the PENDING
+                        # tick's still-open window
+                        pending_ev["compiled_in_window"] = True
+            if pending is not None:
+                self._process_block(pending, inflight, step_times,
+                                    prefilled_since=prefilled,
+                                    trace_ev=pending_ev)
+                if on_sync is not None:
+                    on_sync(self)
+            pending = meta
+            pending_ev = meta_ev
+        return dict(self._outputs)
 
     # -- ragged scheduling (chunked prefill INSIDE the decode horizon) --
 
@@ -691,7 +1083,7 @@ class ContinuousBatchingEngine:
         admitted = self._gather_admissions()
         if not admitted:
             return []
-        self._note_queue_waits(admitted)
+        self._note_admits(admitted)
         self._table_cache = None
         plans = []
         for slot, rid, ids, _pages in admitted:
@@ -703,6 +1095,7 @@ class ContinuousBatchingEngine:
             self._tokens[slot] = 0
             self._kids[slot] = rid
             self._prompt_len[slot] = len(ids)
+            self._after_admit(slot, len(ids))
             self.scheduler.admit(slot, len(suffix))
             self.stats.prefill_chunk_tokens += len(suffix)
             plans.append((slot, rid, suffix))
@@ -717,6 +1110,8 @@ class ContinuousBatchingEngine:
         t0 = self._submit_t.pop(rid, None)
         if t0 is not None:
             self.stats.ttft_s.append(time.perf_counter() - t0)
+        if self.trace is not None:
+            self.trace.record("first_token", rid=rid)
         self._publish_blocks(rid, slot)
         # prompt fully consumed; the emitted token is not consumed yet
         self._lens[slot] = self._prompt_len[slot]
@@ -757,7 +1152,8 @@ class ContinuousBatchingEngine:
         return tuple(c.index_put(idx, torch.as_tensor(v, device=dev))
                      for c, v in zip(carry, new))
 
-    def _process_ragged_block(self, meta, inflight, step_times):
+    def _process_ragged_block(self, meta, inflight, step_times,
+                              trace_ev=None):
         """Fetch + bookkeep one finished mixed horizon (called AFTER the
         next horizon is dispatched, so the device->host wait overlaps
         it). The per-tick `emitted` mask separates real tokens from
@@ -768,7 +1164,8 @@ class ContinuousBatchingEngine:
         block = block_d.cpu().numpy()
         emitted = emitted_d.cpu().numpy()
         # pad ledger: dispatched is the horizon's layout cost (k * the
-        # packed t_tokens bucket); real is the device's per-tick count
+        # packed t_tokens bucket, or k*S*w dense); real is the device's
+        # per-tick count
         pad_toks = disp_toks - int(real_d.sum())
         self.stats.tokens_dispatched += disp_toks
         self.stats.tokens_padded += pad_toks
@@ -792,6 +1189,8 @@ class ContinuousBatchingEngine:
                 self._outputs[rid].append(tok)
                 self.stats.tokens += 1
                 n_emitted += 1
+                if self.trace is not None:
+                    self._trace_progress(rid)
                 self._tokens[s] = tok
                 if (self.eos is not None and tok == self.eos) or \
                         len(self._outputs[rid]) >= self.max_new:
@@ -800,6 +1199,16 @@ class ContinuousBatchingEngine:
         dt = time.perf_counter() - t0
         if step_times is not None:
             step_times.append(dt)
+        if trace_ev is not None:
+            # a shape's first dispatch (or another's inside this still-
+            # open window) stays out of the drift ledger; steady ragged
+            # windows ARE the honest tick, chunk cost included
+            self.trace.tick_complete(
+                trace_ev, dt, tokens=n_emitted,
+                tokens_dispatched=disp_toks, tokens_padded=pad_toks,
+                drift=(trace_ev.get("warm_shape", True)
+                       and not trace_ev.get("compiled_in_window")),
+                pool=self._trace_pool_delta())
         if n_emitted:
             self.stats.token_time_s.extend([dt / n_emitted] * n_emitted)
 
@@ -845,6 +1254,7 @@ class ContinuousBatchingEngine:
         S = self.d.max_batch
         sched = self.scheduler
         pending = None               # the in-flight horizon's meta
+        pending_ev = None            # its open tick record (trace on)
         carry = None                 # (tokens, lens, done, rem, pend, pend_n)
         inflight = [0] * S           # in-flight EMISSION ticks per slot
         while (self._queue or pending is not None
@@ -859,20 +1269,28 @@ class ContinuousBatchingEngine:
             live = {s: self._slot_req[s] for s in range(S)
                     if self._slot_req[s] is not None}
             meta = None
+            meta_ev = None
             plan = sched.plan(live,
                               {s: self._budget_left(s) for s in live},
                               inflight) if live else None
             if plan is not None:
                 if self._table_cache is None:
-                    self._table_cache = self._table()
+                    self._table_cache = self._table(self._slot_pages,
+                                                    self.d)
                 tokens_d, lens_d, done_d, rem_d, pend_d, pend_n_d = carry
                 width = self._table_width(live, plan, inflight)
+                t_tokens = plan.t_tokens
+                if self.packed and t_tokens is None:
+                    # a custom scheduler may plan without t_tokens: the
+                    # dense-equivalent bucket, so the dispatch and the pad
+                    # ledger price the SAME layout
+                    t_tokens = pow2_at_least(S * max(plan.w, 1))
                 out = self.d.ragged_multi(
                     tokens_d, lens_d,
                     np.ascontiguousarray(self._table_cache[:, :width]),
                     plan.k, plan.w, pend_d, pend_n_d, kids=self._kids,
-                    done=done_d,
-                    remaining=rem_d, eos=self.eos, t_tokens=plan.t_tokens)
+                    done=done_d, remaining=rem_d, eos=self.eos,
+                    packed=self.packed, t_tokens=t_tokens)
                 carry = (out.tokens, out.lens, out.done, out.remaining,
                          out.pend, out.pend_n)
                 self.steps += plan.k
@@ -882,14 +1300,230 @@ class ContinuousBatchingEngine:
                 self._note_resident()
                 for s, e in plan.emit_ticks.items():
                     inflight[s] += e
+                # layout cost of this dispatch: the packed path pays the
+                # total-token bucket per tick, the dense twin the full
+                # [S, w] window grid
+                disp_toks = plan.k * (t_tokens if self.packed
+                                      else S * plan.w)
+                self._sched_events.append(
+                    {"kind": "horizon", "k": plan.k, "w": plan.w,
+                     "t_tokens": t_tokens if self.packed else None,
+                     "decode_rows": len(live) - plan.prefill_rows,
+                     "prefill_rows": plan.prefill_rows})
                 meta = (out.tokens_block, out.emitted, out.real,
-                        plan.k * plan.t_tokens, plan.k,
+                        disp_toks, plan.k,
                         {s: (rid, self._slot_gen[s])
                          for s, rid in live.items()},
                         plan.emit_ticks, t0)
+                # restores dispatched at this round's admission are ordered
+                # before this horizon's reads: their priced H2D belongs to
+                # this window's prediction (drained even when untraced)
+                restore_s = self._take_restore_s()
+                if self.trace is not None:
+                    decode_rows = len(live) - plan.prefill_rows
+                    shape = (("packed", plan.k, t_tokens) if self.packed
+                             else ("ragged", plan.k, plan.w))
+                    meta_ev = self.trace.tick_dispatch(
+                        "serve", shape, ts=t0,
+                        predicted_s=self._price_horizon(
+                            plan.k, plan.w, plan.prefill_rows,
+                            decode_rows=decode_rows) + restore_s,
+                        predicted_serial_s=self._price_horizon(
+                            plan.k, plan.w, plan.prefill_rows,
+                            decode_rows=decode_rows, serial=True)
+                        + restore_s,
+                        k=plan.k, w=plan.w, decode_rows=decode_rows,
+                        prefill_rows=plan.prefill_rows,
+                        warm_shape=self._trace_shape_warm(
+                            shape + (width,)))
+                    if pending_ev is not None and \
+                            not meta_ev["warm_shape"]:
+                        # see _run_multi: the first dispatch ran in the
+                        # pending tick's still-open window
+                        pending_ev["compiled_in_window"] = True
             if pending is not None:
-                self._process_ragged_block(pending, inflight, step_times)
+                self._process_ragged_block(pending, inflight, step_times,
+                                           trace_ev=pending_ev)
                 if on_sync is not None:
                     on_sync(self)
             pending = meta
+            pending_ev = meta_ev
         return dict(self._outputs)
+
+
+class SpeculativeEngine(ContinuousBatchingEngine):
+    """Speculative decoding over the paged engine (the JAX
+    `SpeculativeEngine`): a small DRAFT decoder proposes k tokens with k
+    device-resident decode ticks (`decode_multi`); the TARGET scores all
+    of them in ONE verify window (`PagedGPTDecoder.verify`, W = k + 1).
+    Greedy configs accept the longest matching prefix plus the target's
+    token at the first mismatch — exactly the target's greedy stream;
+    sampled configs (the same temperature / top-k / top-p on both
+    decoders) accept by rejection sampling (`_spec_accept`, host numpy
+    draws from a per-(seed, target call, slot) generator), so emitted
+    tokens are distributed as target-only sampling. Paged KV makes
+    rollback free: `lens` is the source of truth, rejected positions are
+    overwritten. Each pool holds its own pages (twin page pools), every
+    admission with a +k margin (a verify window writes up to k positions
+    past the accepted length). Acceptance is capped at k-1 drafts so the
+    draft cache (which holds proposals d1..d_{k-1}) never falls behind.
+    Runs the per-tick loop (`step()`); no prefix cache, no quantized
+    pools, no adapters."""
+
+    def __init__(self, decoder, draft_decoder, eos_token_id=None,
+                 max_new_tokens=64, k=4, trace=None):
+        if decoder.sampling != draft_decoder.sampling:
+            raise ValueError(
+                "speculative decoding needs the SAME sampling config on "
+                "target and draft (acceptance compares their masked "
+                f"distributions): {decoder.sampling} vs "
+                f"{draft_decoder.sampling}")
+        if draft_decoder.max_batch != decoder.max_batch or \
+                draft_decoder.page_size != decoder.page_size:
+            raise ValueError("draft/target max_batch and page_size must match")
+        if decoder.lora is not None or draft_decoder.lora is not None:
+            # the verify window runs the base weights only
+            raise ValueError(
+                "SpeculativeEngine does not support LoRA adapter banks: "
+                "the verify window does not gather adapters")
+        if decoder.kv_quant or draft_decoder.kv_quant:
+            # verify windows write up to k positions past the accepted
+            # length; the twin-pool rollback of quantized bytes + scales
+            # is unproven — refuse rather than risk a silent drift
+            quant = decoder.kv_quant or draft_decoder.kv_quant
+            raise ValueError(
+                f"SpeculativeEngine does not support quantized KV pools "
+                f"(kv_quant={quant!r}; int8 and int4 alike): use "
+                "ContinuousBatchingEngine, or plain bf16 pools for "
+                "speculation")
+        # k_max=1: the verify cadence IS this engine's horizon
+        super().__init__(decoder, eos_token_id, max_new_tokens, k_max=1,
+                         trace=trace)
+        self.draft = draft_decoder
+        self.k = int(k)
+        self._draft_free = list(range(draft_decoder.num_pages - 2, -1, -1))
+        self._draft_pages = [[] for _ in range(decoder.max_batch)]
+        self._dlens = np.zeros(decoder.max_batch, np.int32)
+        self.target_calls = 0
+
+    @property
+    def _margin(self):
+        # a verify window can write up to k positions past the final
+        # accepted length
+        return self.k
+
+    def _pools(self):
+        return super()._pools() + (
+            (self.draft, self._draft_free, self._draft_pages),)
+
+    def _extra_prefill(self, admitted):
+        self.draft.prefill_batch(           # draft's guesses discarded
+            [(ids, self._draft_pages[slot])
+             for slot, _, ids, _ in admitted],
+            kids=[rid for _, rid, _, _ in admitted])
+
+    def _after_admit(self, slot, prompt_len):
+        self._dlens[slot] = prompt_len
+
+    def _retire(self, slot):
+        self._draft_free.extend(self._draft_pages[slot])
+        self._draft_pages[slot] = []
+        self._dlens[slot] = 0
+        super()._retire(slot)
+
+    def step(self):
+        self._admit()
+        active = [s for s in range(self.d.max_batch)
+                  if self._slot_req[s] is not None]
+        if not active:
+            return 0
+        k = self.k
+        if self._table_cache is None:        # slots changed since last tick
+            self._table_cache = (self._table(self._slot_pages, self.d),
+                                 self._table(self._draft_pages, self.draft))
+        ttable, dtable = self._table_cache
+        sampled = self.d.sampling is not None
+
+        # the draft proposes k tokens: k device-resident ticks, one fetch
+        qrows = None
+        out = self.draft.decode_multi(self._tokens, self._dlens, dtable,
+                                      k, kids=self._kids,
+                                      return_logits=sampled)
+        proposals = out.tokens_block.cpu().numpy().T.astype(np.int32)
+        if sampled and k > 1:
+            # the k-th draft's distribution is never judged (acceptance
+            # is capped at k-1): skip its transfer
+            qp = self.draft._probs_of(out.logits_block[:k - 1])
+            qrows = np.moveaxis(qp, 0, 1)          # [S, k-1, V]
+        self.stats.ticks += k
+        self.stats.decode_syncs += 1
+
+        # the target verifies [cur, d1..dk] in one forward
+        window = np.concatenate(
+            [self._tokens[:, None], proposals[:, :k]], axis=1)  # [S, k+1]
+        if sampled:
+            tgt, prows = self.d.verify(window, self._lens, ttable,
+                                       return_probs=True)
+        else:
+            tgt = self.d.verify(window, self._lens, ttable)     # [S, k+1]
+        self.target_calls += 1
+        self.steps += 1
+        self.stats.ticks += 1
+        self.stats.decode_syncs += 1
+        # pad ledger: k draft positions plus a (k+1)-wide verify window
+        # per batch row; rows with no request were padding (rejected
+        # drafts are the engine's gamble, not the layout's padding)
+        S_all = self.d.max_batch
+        self.stats.tokens_dispatched += S_all * (2 * k + 1)
+        self.stats.tokens_padded += (S_all - len(active)) * (2 * k + 1)
+        self.stats.occupancy.append(len(active) / self.d.max_batch)
+        self._note_resident()
+
+        for s in active:
+            rid = self._slot_req[s]
+            if sampled:
+                rng = np.random.default_rng(
+                    (self.d.seed * 1000003 + self.target_calls) * 4093 + s)
+                a, tok = _spec_accept(
+                    prows[s, :k],
+                    qrows[s] if qrows is not None else
+                    np.zeros((0, prows.shape[-1])),
+                    proposals[s, :k - 1], rng)
+                emitted = [int(t) for t in proposals[s, :a]] + [tok]
+            else:
+                a = 0
+                while a < k - 1 and proposals[s, a] == tgt[s, a]:
+                    a += 1
+                emitted = [int(t) for t in proposals[s, :a]] + \
+                    [int(tgt[s, a])]
+            L = int(self._lens[s])
+            self._lens[s] = L + a + 1
+            self._dlens[s] = L + a + 1
+            self._tokens[s] = emitted[-1]
+            done = False
+            for t in emitted:
+                self._outputs[rid].append(t)
+                self.stats.tokens += 1
+                if self.trace is not None:
+                    self._trace_progress(rid)
+                if (self.eos is not None and t == self.eos) or \
+                        len(self._outputs[rid]) >= self.max_new:
+                    done = True      # tokens speculated past the stop
+                    break            # point are simply never appended
+            if done:
+                self._retire(s)
+        return len(active)
+
+    def _price_horizon(self, k, w, prefill_rows, decode_rows=0,
+                       serial=False):
+        """One SPEC step's roofline price, in place of the plain decode
+        tick's: k device-resident draft ticks (the draft's HBM leg), one
+        (k+1)-position verify forward over the target (HBM vs window
+        compute) and the step's TWO host syncs (draft fetch, verify
+        fetch). `serial=True` sums the verify legs instead of taking
+        their max."""
+        hbm, fpt, sync = self._price_inputs()
+        draft = self.k * decode_tick_roofline_s(self.draft.step_hbm_bytes())
+        hbm_s, compute_s = ragged_tick_legs(hbm, self.k + 1, fpt)
+        verify = (hbm_s + compute_s) if serial else max(hbm_s, compute_s)
+        return draft + verify + 2 * sync

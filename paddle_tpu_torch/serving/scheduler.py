@@ -1,7 +1,7 @@
 """Ragged chunk-admission scheduling: token-budgeted prefill chunks
 inside the decode horizon (counterpart of
-`paddle_tpu/serving/scheduler.py`; the tiered-KV restore pricing is not
-ported, since the port has no host KV tier yet).
+`paddle_tpu/serving/scheduler.py`, with the tiered-KV restore price the
+flight recorder's horizon pricing drains).
 
 The dispatch-separate engine paid for prompt admission with a
 HOST-BLOCKING prefill: one big forward over the whole (uncached)
@@ -98,6 +98,24 @@ class RaggedScheduler:
                                    flops_per_token=self.flops_per_token)
         self.k_max = max(1, int(k_max))
         self._pf_left = np.zeros(decoder.max_batch, np.int64)
+        self._restore_s = 0.0       # in-flight tiered-KV H2D (seconds)
+
+    # ------------------------------------------------- tiered-KV restores
+
+    def note_restore(self, seconds):
+        """Admission just dispatched a host-tier page restore priced at
+        `seconds` of H2D (`cost_model.kv_restore_s`). The mount is
+        ordered on the decoder's stream before the NEXT horizon's reads,
+        so that horizon's wall time carries the wire cost —
+        `take_restore_s` hands the accumulated price to the engine's
+        horizon pricing so the drift ledger compares like with like."""
+        self._restore_s += float(seconds)
+
+    def take_restore_s(self):
+        """Drain the pending restore price (called once per dispatched
+        horizon — the H2D lands inside exactly one measured window)."""
+        s, self._restore_s = self._restore_s, 0.0
+        return s
 
     # ------------------------------------------------------ accounting
 

@@ -133,10 +133,22 @@ def test_engine_takes_host_sync_s_fifth():
     eng = ContinuousBatchingEngine(dec, None, 4, 1, None, True)
     assert eng.cache is not None
     assert ContinuousBatchingEngine(dec, None, 4, 1).cache is None
-    for kw in ({"host_sync_s": 0.001}, {"scheduler": object()},
-               {"packed": True}, {"trace": True}):
-        with pytest.raises(NotImplementedError):
-            ContinuousBatchingEngine(dec, max_new_tokens=4, **kw)
+    # host_sync_s fifth prices K: the dispatch-separate loop's pure decode
+    # tick, the ragged scheduler's mixed tick
+    from paddle_tpu_torch.cost_model import decode_horizon
+    eng = ContinuousBatchingEngine(dec, None, 4, None, 0.01, ragged=False)
+    assert eng.k_max == decode_horizon(dec.step_hbm_bytes(),
+                                       host_sync_s=0.01, device="cpu")
+    cheap = ContinuousBatchingEngine(dec, None, 4, None, 1e-9)
+    assert cheap.scheduler.k_max <= \
+        ContinuousBatchingEngine(dec, None, 4, None, 0.01).scheduler.k_max
+    sched = cheap.scheduler
+    eng = ContinuousBatchingEngine(dec, max_new_tokens=4, scheduler=sched)
+    assert eng.scheduler is sched and eng.k_max == sched.k_max
+    assert not ContinuousBatchingEngine(dec, max_new_tokens=4,
+                                        packed=False).packed
+    assert ContinuousBatchingEngine(dec, max_new_tokens=4,
+                                    trace=True).trace is not None
 
 
 def test_apply_gradients_takes_pairs():

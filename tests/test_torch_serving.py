@@ -150,12 +150,17 @@ def test_unported_options_raise(models):
     # the JAX decoder's sampling tuple and seed
     dec = _decoder(models, temperature=0.7, top_k=5, seed=9)
     assert dec.sampling == (0.7, 5, 1.0) and dec.seed == 9
-    # the prefix cache is ported (test_torch_prefix_cache.py); the
-    # flight recorder is not
+    # the flight recorder and the dispatch-separate loop are ported
+    # (test_torch_trace.py, test_torch_dense_windows.py); tensor-parallel
+    # serving and LoRA adapters are not
+    eng = ContinuousBatchingEngine(_decoder(models), trace=True)
+    assert eng.trace is not None and eng.trace.meta["ragged"]
+    eng = ContinuousBatchingEngine(_decoder(models), ragged=False, k_max=4)
+    assert not eng.ragged and eng.k_max == 4 and eng.scheduler is None
     with pytest.raises(NotImplementedError):
-        ContinuousBatchingEngine(_decoder(models), trace=True)
+        _decoder(models, mesh=object())
     with pytest.raises(NotImplementedError):
-        ContinuousBatchingEngine(_decoder(models), ragged=False, k_max=4)
+        _decoder(models).adapter_salt(1)
 
 
 def test_port_imports_no_jax_and_refuses_missing_card():
@@ -170,7 +175,8 @@ import paddle_tpu_torch
 import paddle_tpu_torch.cost_model, paddle_tpu_torch.models
 import paddle_tpu_torch.ops.ragged_paged_attention
 import paddle_tpu_torch.ops.w4_matmul, paddle_tpu_torch.quantization
-import paddle_tpu_torch.serving
+import paddle_tpu_torch.serving, paddle_tpu_torch.serving.trace
+import paddle_tpu_torch.debug
 import paddle_tpu_torch.ops.block_sparse_attention
 import paddle_tpu_torch.ops.paged_attention, paddle_tpu_torch.nn.functional
 bad = sorted(m for m in sys.modules
