@@ -136,6 +136,17 @@ chrome trace that passes the schema check), as the dense window twin and
 through the dispatch-separate loop, and runs bench.py's run_speculative
 on gpt_350m (a constructed draft, an unrelated one, and sampled), every
 parting from the plain streams held to the teacher-forced oracle rule.
+Slice 18 (multi-tenant serving) holds the per-token LoRA delta kernel
+against its plain version (T 1-1024, f32 and bf16, 1-8 adapters of mixed
+ranks; id-0 rows untouched, a token's bits independent of T) and times it
+beside two `torch.bmm`; serves the gpt_1p3b traffic with a bank of 4
+rank-16 adapters (every request on id 0 byte-identical to the no-bank
+run; mixed ids against per-adapter runs); runs bench.py's multi-tenant
+traffic (a throughput flood over 4 adapters, latency arrivals that
+preempt) through the class-blind and the tenant engine, then through the
+precision-routed engine (int8 latency, int4 throughput pools); and drives
+fleets of 1 and 3 replicas (round-robin and threaded) over a shared host
+KV tier, with a respawned replica warm-starting from it.
 Every phase raises on failure.
 The output is one line per phase, then one JSON line with the kernels'
 numbers, the card's name and power limit, and as the last line
@@ -1283,11 +1294,12 @@ N_ORACLE = 4
 LOGIT_TOL = 0.1
 
 
-def _teacher_force(dec, prompts, streams):
+def _teacher_force(dec, prompts, streams, aids=None):
     """Teacher-force the per-tick decoder (`_decode_step`) with each
-    request's prompt and then `streams` (all of one length). Overwrites
-    the pool's first pages. Returns (the largest gap between a tick's best
-    logit and the stream token's, the mean NLL of the stream tokens)."""
+    request's prompt and then `streams` (all of one length), each request
+    on its adapter (`aids`, a bank attached). Overwrites the pool's first
+    pages. Returns (the largest gap between a tick's best logit and the
+    stream token's, the mean NLL of the stream tokens)."""
     n = len(streams)
     new = len(streams[0])
     ps = dec.page_size
@@ -1297,16 +1309,18 @@ def _teacher_force(dec, prompts, streams):
         need = (len(prompts[r]) + new + ps - 1) // ps
         tbl[r, :need] = np.arange(nxt_page, nxt_page + need)
         nxt_page += need
-    dec.prefill_batch([(prompts[r][:-1], tbl[r][tbl[r] < dec.num_pages - 1]
-                        .tolist()) for r in range(n)])
+    dec.prefill_suffix_batch(
+        [(prompts[r][:-1], 0, tbl[r][tbl[r] < dec.num_pages - 1].tolist())
+         for r in range(n)], aids=aids)
     table = dec._as_i32(tbl)
+    aids = dec._aids([0] * n if aids is None else list(aids))
     gap, nll = 0.0, []
     for i in range(new):
         toks = [prompts[r][-1] if i == 0 else streams[r][i - 1]
                 for r in range(n)]
         lens = [len(prompts[r]) - 1 + i for r in range(n)]
         _, logits = dec._decode_step(dec._as_i32(toks), dec._as_i32(lens),
-                                     table)
+                                     table, aids=aids)
         if not torch.isfinite(logits).all():
             raise AssertionError("non-finite per-tick logits")
         chosen = logits[torch.arange(n, device=logits.device),
@@ -5066,21 +5080,24 @@ def _cache_fields(eng, mark, wall, n_new, n_req):
     return out
 
 
-def _oracle_rule(dec, prompts, streams, ref, also=()):
+def _oracle_rule(dec, prompts, streams, ref, also=(), aids=None):
     """The oracle rule for the streams of a cached run: a stream equal to
     its twin's (`ref`: the same traffic without the cache, or with a
     capacity-0 tier) passes; each stream that parts, and each of `also`,
-    is teacher-forced through the per-tick decoder, and its every token
-    must score within LOGIT_TOL of the tick's best logit. Overwrites the
-    pool's first pages: run it after the decoder's engines are done.
-    Returns (streams equal, streams forced, the largest gap)."""
+    is teacher-forced through the per-tick decoder (on its adapter,
+    `aids`), and its every token must score within LOGIT_TOL of the tick's
+    best logit. Overwrites the pool's first pages: run it after the
+    decoder's engines are done. Returns (streams equal, streams forced,
+    the largest gap)."""
     check = sorted({i for i, (a, b) in enumerate(zip(streams, ref))
                     if a != b} | set(also))
     gap = 0.0
     for lo in range(0, len(check), 8):
         idx = check[lo:lo + 8]
         g, _ = _teacher_force(dec, [prompts[i] for i in idx],
-                              [streams[i] for i in idx])
+                              [streams[i] for i in idx],
+                              aids=None if aids is None
+                              else [aids[i] for i in idx])
         gap = max(gap, g)
     if gap > LOGIT_TOL:
         raise AssertionError(f"a cached stream's token scores {gap:.4f} "
@@ -6416,6 +6433,760 @@ def phase_serve_multi(rpa, dec, prompts, streams, smi):
     return total
 
 
+# ------------------------------------------------------------- slice 18
+
+LORA_N, LORA_RANK, LORA_SEED = 4, 16, 9     # the serving bank
+LORA_TOL = 1e-5
+# [lora_kernel] cases: (T, dtype, adapters, ranks); the ragged mix is 4
+# decode rows beside 2 x 256-token chunks
+LORA_CASES = [(T, dt, n, r) for T in (1, 16, 516, 1024)
+              for dt in (torch.float32, torch.bfloat16)
+              for n, r in ((1, (4,)), (4, (16, 4, 16, 8)),
+                           (8, (16, 4, 12, 16, 2, 16, 8, 16)))]
+TEN_FLOOD, TEN_FLOOD_LEN, TEN_LAT, TEN_LAT_LEN = 32, 256, 8, 384
+TEN_BATCH = 16
+# the resident flood fills the pool: 16 slots x ceil((256 + 64) / 16)
+TEN_PAGES = TEN_BATCH * ((TEN_FLOOD_LEN + MAX_NEW + PS - 1) // PS) + 1
+FLEET_TEMPLATES, FLEET_TEMPLATE_LEN, FLEET_SUFFIX = 8, 512, 64
+# 3 waves (bench.py's run_fleet runs 5): two warm the caches and fill the
+# shared tier (with 2, too few templates reach it before the respawn), the
+# third is timed
+FLEET_REQ, FLEET_WAVES, FLEET_BATCH, FLEET_ZIPF = 48, 3, 8, 0.7
+FLEET_REPLICAS = 3
+# the fleet runs gpt_1p3b's width at 4 of its 24 layers, so that its 10
+# waves (3 fleets x 3, 1 respawn) fit the smoke's time limit (at 8 layers
+# the phase took ~105 s of a 1023 s run on the H100)
+FLEET_LAYERS = 4
+# one replica's cliff: one full batch of private-template requests
+FLEET_PAGES = FLEET_BATCH * (
+    (FLEET_TEMPLATE_LEN + FLEET_SUFFIX + MAX_NEW + PS - 1) // PS) + 1
+FLEET_TIER_BYTES = 4 << 30
+FLEET_DIR = "_archive/fleet_tier"          # under the checkout, gitignored
+TRACE_DIR = "_archive/slice18_traces"
+
+
+def _lora_bank(dec, ranks, seed):
+    """One layer's f32 bank [n+1, h, R] / [n+1, R, N] of adapters with
+    `ranks` (`make_lora_bank`'s draws), packed as serving packs it:
+    `attach_adapters` on the 1-layer decoder `dec` (mixed ranks
+    zero-padded, id 0 the zero bank)."""
+    from paddle_tpu_torch.serving import make_lora_bank
+    dec.attach_adapters([ab for i, r in enumerate(ranks)
+                         for ab in make_lora_bank(dec.cfg, 1, rank=r,
+                                                  seed=seed + i)])
+    return dec.lora["lora_A"][0], dec.lora["lora_B"][0]
+
+
+def _lora_inputs(cfg, T, dtype, n, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h, N = cfg.hidden_size, 3 * cfg.num_heads * cfg.head_dim
+    y = torch.randn((T, h), generator=gen, device="cuda").to(dtype)
+    qkv = torch.randn((T, N), generator=gen, device="cuda").to(dtype)
+    aids = torch.randint(0, n + 1, (T,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    aids[0] = 0
+    return y, qkv, aids
+
+
+def _lora_plain(lora, qkv, y, A, B, aids):
+    """The plain version on the card (not counted): qkv + cast(delta),
+    and the f32 delta."""
+    d = lora._lora_delta_ref(y, A, B, aids)
+    return qkv + d.to(qkv.dtype), d
+
+
+def _lora_bound(aids, h, R, N, itemsize):
+    """(bound ms, bound_by) for this run's ids: the ids read; for the rows
+    with a nonzero id (an id-0 row is neither read nor written) y read
+    and qkv read and written, and each distinct adapter's A and B read
+    once; the f32 FMAs of those rows over the f32 CUDA-core peak."""
+    ids = aids.tolist()
+    live = sum(1 for a in ids if a)
+    distinct = len(set(ids) - {0})
+    nbytes = (4 * len(ids) + live * (h + 2 * N) * itemsize
+              + distinct * (h * R + R * N) * 4)
+    flops = 2.0 * live * R * (h + N)
+    b_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    f_ms = flops / H100_F32_FLOPS * 1e3
+    return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
+
+
+def phase_lora_kernel(sd, lora):
+    """[lora_kernel]: the per-token LoRA delta kernel against its plain
+    version at gpt_1p3b's qkv width (h 2048, N 6144): T 1, 16, a ragged
+    mix (516) and 1024; f32 and bf16; 1, 4 and 8 adapters of mixed ranks
+    (R 4 and 16); ids including 0. Within f32 1e-5 / one bf16 ulp of the
+    plain version, id-0 rows bit-unchanged, each of the first rows of a
+    1024-token call bit-equal alone, two launches bit-equal. Then timed at
+    decode (T 16, 4 adapters, R 16, bf16) and at a 1024-token chunk:
+    eager (CUDA events) and CUDA-graph device ms, beside the plain
+    version, two `torch.bmm` over a pre-gathered bank (the library
+    yardstick, gather untimed) and the bound. Each bank is packed by
+    `attach_adapters`. Returns (max error, the decode shape's timing
+    row)."""
+    from paddle_tpu_torch.models import gpt_1p3b
+    from paddle_tpu_torch.serving import PagedGPTDecoder
+    cfg = gpt_1p3b()
+    h, N = cfg.hidden_size, 3 * cfg.num_heads * cfg.head_dim
+    packer = PagedGPTDecoder(gpt_1p3b(num_layers=1), sd, num_pages=2,
+                             page_size=PS, max_batch=1)
+    err = 0.0
+    for ci, (T, dtype, n, ranks) in enumerate(LORA_CASES):
+        A, B = _lora_bank(packer, ranks, SEED + 10 * ci)
+        y, qkv, aids = _lora_inputs(cfg, T, dtype, n, SEED + 100 + ci)
+        plain, d32 = _lora_plain(lora, qkv, y, A, B, aids)
+        got = qkv.clone()
+        lora.lora_delta_(got, y, A, B, aids)
+        again = qkv.clone()
+        lora.lora_delta_(again, y, A, B, aids)
+        torch.cuda.synchronize()
+        name = f"lora T{T} {str(dtype)[6:]} n{n} R{max(ranks)}"
+        if dtype == torch.float32:
+            tol = LORA_TOL * (1.0 + plain.abs())
+            if not bool(((got - plain).abs() <= tol).all()):
+                raise AssertionError(f"{name}: f32 off the plain version")
+        else:
+            # the delta alone (a zero qkv) is within one bf16 ulp of the
+            # plain f32 delta, and the add rounds at JAX's points:
+            # bf16(f32(q) + f32(bf16(delta))) bit for bit
+            d16 = torch.zeros_like(qkv)
+            lora.lora_delta_(d16, y, A, B, aids)
+            _check_close(name + " delta", d16, d32.to(dtype), d32)
+            if not _bits_equal(got, (qkv.float() + d16.float()).to(dtype)):
+                raise AssertionError(f"{name}: the add's rounding points")
+        e = float((got.float() - plain.float()).abs().max())
+        err = max(err, e)
+        zero = aids == 0
+        if not _bits_equal(got[zero], qkv[zero]):
+            raise AssertionError(f"{name}: an id-0 row changed")
+        if not _bits_equal(got, again):
+            raise AssertionError(f"{name}: two launches differ")
+        alone_ok = True
+        if T == 1024:
+            for S in (1, 16, 17, 300):
+                sub = qkv[:S].clone()
+                lora.lora_delta_(sub, y[:S].contiguous(), A, B,
+                                 aids[:S].contiguous())
+                alone_ok &= _bits_equal(sub, got[:S])
+            if not alone_ok:
+                raise AssertionError(f"{name}: a token's bits depend on T")
+        log("kernel", form="lora_delta", case=repr(name), max_abs_err=f"{e:.3e}",
+            zero_rows=int(zero.sum()), bit_equal_alone=alone_ok)
+    rows = {}
+    for label, T in (("decode", 16), ("chunk", 1024)):
+        n, ranks = LORA_N, (LORA_RANK,) * LORA_N
+        A, B = _lora_bank(packer, ranks, LORA_SEED)
+        y, qkv, _ = _lora_inputs(cfg, T, torch.bfloat16, n, SEED + 8)
+        # every id in turn: 0 (skipped rows) and the 4 adapters
+        aids = torch.arange(T, device="cuda", dtype=torch.int32) % (n + 1)
+        work = qkv.clone()
+        ms = cuda_ms(lambda i=0: lora.lora_delta_(work, y, A, B, aids), 200)
+        dev_ms = cuda_graph_ms(
+            lambda i=0: lora.lora_delta_(work, y, A, B, aids), 200)
+        plain_ms = cuda_ms(lambda i=0: _lora_plain(lora, qkv, y, A, B, aids),
+                           20)
+        Ag, Bg = A[aids.long()], B[aids.long()]          # untimed gather
+        y32 = y.float()[:, None, :]
+
+        def bmm(i=0):
+            return torch.bmm(torch.bmm(y32, Ag), Bg)
+        lib_ms = cuda_ms(bmm, 200)
+        lib_dev = cuda_graph_ms(bmm, 200)
+        b_ms, by = _lora_bound(aids, h, LORA_RANK, N, 2)
+        rows[label] = {"ms": round(ms, 4), "device_ms": round(dev_ms, 4),
+                       "plain_ms": round(plain_ms, 4),
+                       "bound_ms": round(b_ms, 5), "bound_by": by,
+                       "library_ms": round(lib_ms, 4),
+                       "library_device_ms": round(lib_dev, 4)}
+        log("kernel_time", kernel="lora_delta", shape=label, T=T,
+            adapters=n, rank=LORA_RANK, dtype="bf16",
+            bound_share=f"{b_ms / dev_ms:.3f}",
+            **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+               for k, v in rows[label].items()})
+    row = dict(rows["decode"])
+    row.update({f"chunk_{k}": v for k, v in rows["chunk"].items()
+                if k != "bound_by"})
+    return err, row
+
+
+def _launch_counts(mods):
+    return {m.__name__.rsplit(".", 1)[1]: (m.kernel_launches,
+                                           m.plain_launches) for m in mods}
+
+
+def _drive(eng, prompts, mods, adapters=None, on_sync=None, **sub_kw):
+    """Submit `prompts` (on `adapters`), drain with `on_sync`, the counts
+    of every kernel module in `mods` set to 0 just before the run and read
+    just after: each must have launched its kernel and never its plain
+    version. Returns (streams, wall seconds, counts)."""
+    rids = [eng.submit(p, **({"adapter": adapters[i]} if adapters else {}),
+                       **sub_kw) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    for m in mods:
+        m.reset_counts()
+    t0 = time.perf_counter()
+    out = eng.run(on_sync=on_sync)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts(mods)
+    for name, (k, p) in counts.items():
+        if k <= 0 or p:
+            raise AssertionError(f"{name}: {k} kernel, {p} plain launches")
+    return [out[r] for r in rids], wall, counts
+
+
+def _audit_hook(findings):
+    def hook(e):
+        findings.extend(e.audit_pages())
+    return hook
+
+
+def phase_serve_lora(sd, rpa, lora, streams, fields):
+    """[serve_lora]: the serving traffic (32 requests, 64-768-token
+    prompts, 64 new, k_max 8, max_batch 16) on gpt_1p3b with a bank of 4
+    rank-16 adapters (`make_lora_bank(cfg, 4, rank=16, seed=9)`). Every
+    request on id 0: streams byte-identical to the no-bank run of
+    `[serve]` (`streams`). Requests spread over ids 0-4: each stream
+    equal to, or within the oracle rule of, the same request in a
+    per-adapter run (one engine a id over the same bank serving only that
+    id's requests). Both kernels launch on every run, their plain versions
+    never; the page audit (slot_adapters rows included) is empty at every
+    sync. Returns the LoRA kernel's launches."""
+    from paddle_tpu_torch.models import gpt_1p3b
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          PagedGPTDecoder, make_lora_bank)
+    cfg = gpt_1p3b()
+    rng = np.random.RandomState(SEED)
+    lengths = rng.randint(64, 769, N_REQ)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in lengths]
+    dec = PagedGPTDecoder(cfg, sd, num_pages=16 * MP + 1, page_size=PS,
+                          max_batch=16)
+    dec.attach_adapters(make_lora_bank(cfg, LORA_N, rank=LORA_RANK,
+                                       seed=LORA_SEED))
+    mods = (rpa, lora)
+    warm = ContinuousBatchingEngine(dec, max_new_tokens=4, k_max=K_MAX)
+    warm.submit(prompts[0][:64], adapter=1)
+    warm.run()
+    findings = []
+
+    def engine():
+        return ContinuousBatchingEngine(dec, max_new_tokens=MAX_NEW,
+                                        k_max=K_MAX)
+    zero, wall0, counts0 = _drive(engine(), prompts, mods,
+                                  on_sync=_audit_hook(findings))
+    same0 = sum(a == b for a, b in zip(zero, streams))
+    if same0 != len(streams):
+        raise AssertionError(f"bank attached, every request on id 0: "
+                             f"{same0}/{len(streams)} streams equal the "
+                             "no-bank run's")
+    aids = [i % (LORA_N + 1) for i in range(N_REQ)]
+    mixed, wall, counts = _drive(engine(), prompts, mods, adapters=aids,
+                                 on_sync=_audit_hook(findings))
+    single = [None] * N_REQ
+    for a in range(LORA_N + 1):
+        idx = [i for i in range(N_REQ) if aids[i] == a]
+        got, _, _ = _drive(engine(), [prompts[i] for i in idx], mods,
+                           adapters=[a] * len(idx),
+                           on_sync=_audit_hook(findings))
+        for i, s in zip(idx, got):
+            single[i] = s
+    if findings:
+        raise AssertionError("serve_lora page audit: " +
+                             "; ".join(str(f) for f in findings[:3]))
+    if any(len(s) != MAX_NEW for s in mixed):
+        raise AssertionError("a LoRA request did not return 64 tokens")
+    if len({tuple(mixed[i]) for i in range(N_REQ)}) < N_REQ // 2:
+        raise AssertionError("adapter streams collapsed")
+    equal, forced, gap = _oracle_rule(dec, prompts, mixed, single, aids=aids)
+    distinct = sum(mixed[i] != zero[i] for i in range(N_REQ) if aids[i])
+    log("serve_lora", model="gpt_1p3b", adapters=LORA_N, rank=LORA_RANK,
+        requests=N_REQ, max_new=MAX_NEW, wall_s=f"{wall:.3f}",
+        gen_tok_per_s=f"{N_REQ * MAX_NEW / wall:.1f}",
+        id0_gen_tok_per_s=f"{N_REQ * MAX_NEW / wall0:.1f}",
+        nobank_gen_tok_per_s=fields["gen_tok_per_s"],
+        id0_streams_equal_nobank=f"{same0}/{N_REQ}",
+        streams_equal_single_adapter=f"{equal}/{N_REQ}",
+        oracle_forced=forced, oracle_gap=f"{gap:.4f}",
+        adapted_streams_differing_from_base=f"{distinct}/"
+        f"{sum(1 for a in aids if a)}",
+        lora_launches=counts["lora_delta"][0],
+        lora_launches_id0_run=counts0["lora_delta"][0],
+        rpa_launches=counts["ragged_paged_attention"][0],
+        plain_launches=0, audit_findings=0)
+    return (counts["lora_delta"][0] + counts0["lora_delta"][0],
+            counts["ragged_paged_attention"][0]
+            + counts0["ragged_paged_attention"][0])
+
+
+def _tenancy_traffic(vocab):
+    """bench.py's run_multi_tenant at gpt_1p3b width: a throughput flood
+    (32 x 256-token prompts over adapters 1-4, tenants batch0 / batch1)
+    and 8 latency prompts of 384 tokens (tenant chat, ids 0-4 in turn)
+    arriving at token-count points spread over the flood's drain."""
+    rng = np.random.RandomState(SEED + 31)
+    flood = [rng.randint(0, vocab, TEN_FLOOD_LEN).tolist()
+             for _ in range(TEN_FLOOD)]
+    lat = [rng.randint(0, vocab, TEN_LAT_LEN).tolist()
+           for _ in range(TEN_LAT)]
+    arrive = [int(TEN_FLOOD * MAX_NEW * (i + 1) / (TEN_LAT + 2))
+              for i in range(TEN_LAT)]
+    return flood, lat, arrive
+
+
+def _serve_tenancy(eng, flood, lat, arrive, mods, adapters=True,
+                   tenant_kw=True):
+    """Drive the tenancy traffic through `eng`: the flood up front, each
+    latency prompt submitted at the first sync past its token-count point.
+    TTFT of a latency request is read at the host sync that brings its
+    first token (the same clock for every engine). Returns (streams by
+    rid, wall, counts, latency TTFTs in s, audit findings)."""
+    sub_t, ttft, findings = {}, {}, []
+    state = {"n": 0}
+    lat_rids = []
+
+    def kw(i, slo, tenant):
+        d = {}
+        if adapters:
+            d["adapter"] = (i % LORA_N) + 1 if slo == "throughput" \
+                else i % (LORA_N + 1)
+        if tenant_kw:
+            d.update(tenant=tenant, slo=slo)
+        return d
+
+    def on_sync(e):
+        findings.extend(e.audit_pages())
+        now = time.perf_counter()
+        for r in lat_rids:
+            if r not in ttft and e._outputs.get(r):
+                ttft[r] = now - sub_t[r]
+        while state["n"] < len(lat) and \
+                e.stats.tokens >= arrive[state["n"]]:
+            i = state["n"]
+            r = e.submit(lat[i], **kw(i, "latency", "chat"))
+            sub_t[r] = time.perf_counter()
+            lat_rids.append(r)
+            state["n"] += 1
+    rids = [eng.submit(p, **kw(i, "throughput", f"batch{i % 2}"))
+            for i, p in enumerate(flood)]
+    torch.cuda.synchronize()
+    for m in mods:
+        m.reset_counts()
+    t0 = time.perf_counter()
+    out = eng.run(on_sync=on_sync)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts(mods)
+    for name, (k, p) in counts.items():
+        if k <= 0 or p:
+            raise AssertionError(f"{name}: {k} kernel, {p} plain launches")
+    if state["n"] != len(lat) or len(ttft) != len(lat):
+        raise AssertionError("latency arrivals did not all fire and land")
+    rids += lat_rids
+    return ({r: out[r] for r in rids}, wall, counts,
+            [ttft[r] for r in lat_rids], findings)
+
+
+def phase_tenancy(sd, rpa, lora):
+    """[tenancy]: bench.py's run_multi_tenant at gpt_1p3b width (bf16,
+    page 16, the 4-adapter bank): the flood of 32 x 256 tokens and 8
+    latency arrivals of 384 tokens, 64 new each, max_batch 16, a pool of
+    TEN_PAGES that the resident flood fills, a prefix cache; through the
+    class-blind `ContinuousBatchingEngine` and the `TenantEngine` (both
+    traced). Reports latency TTFT p50/p99, tok/s, preemptions and resumes
+    (>= 1 each); every tenant stream equal to the blind engine's (its
+    never-preempted twin) or within the oracle rule; the tenant trace's
+    chrome export passes the schema check with one pid per tenant; the
+    audit is empty at every sync. JAX's bar (latency TTFT p99 >= 2x
+    better at >= 0.85x the tok/s) is a reading. Returns (LoRA kernel
+    launches, ragged kernel launches)."""
+    import os
+    import shutil as _sh
+    from paddle_tpu_torch.models import gpt_1p3b
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          PagedGPTDecoder, PrefixCache,
+                                          TenantEngine, export_chrome_trace,
+                                          make_lora_bank,
+                                          validate_chrome_trace)
+    cfg = gpt_1p3b()
+    flood, lat, arrive = _tenancy_traffic(cfg.vocab_size)
+    dec = PagedGPTDecoder(cfg, sd, num_pages=TEN_PAGES, page_size=PS,
+                          max_batch=TEN_BATCH)
+    dec.attach_adapters(make_lora_bank(cfg, LORA_N, rank=LORA_RANK,
+                                       seed=LORA_SEED))
+    mods = (rpa, lora)
+    runs = {}
+    for label in ("blind", "tenant"):
+        cache = PrefixCache(PS, salt=dec.cache_fingerprint())
+        if label == "blind":
+            eng = ContinuousBatchingEngine(dec, max_new_tokens=MAX_NEW,
+                                           k_max=K_MAX, prefix_cache=cache,
+                                           trace=True)
+        else:
+            eng = TenantEngine(dec, max_new_tokens=MAX_NEW, k_max=K_MAX,
+                               prefix_cache=cache, trace=True)
+        out, wall, counts, ttft, findings = _serve_tenancy(
+            eng, flood, lat, arrive, mods, tenant_kw=label == "tenant")
+        if findings:
+            raise AssertionError(f"tenancy {label} audit: {findings[0]}")
+        runs[label] = dict(out=out, wall=wall, counts=counts, ttft=ttft,
+                           eng=eng)
+    t = runs["tenant"]["eng"]
+    if t.stats.preemptions < 1 or t.stats.resumes < 1:
+        raise AssertionError(f"tenancy: {t.stats.preemptions} preemptions, "
+                             f"{t.stats.resumes} resumes (need >= 1 each)")
+    preempted = sorted({ev["rid"] for ev in t.trace.events
+                        if ev["kind"] == "preempt"})
+    rids = sorted(runs["blind"]["out"])
+    prompts = flood + lat
+    aids = [(i % LORA_N) + 1 for i in range(TEN_FLOOD)] + \
+        [i % (LORA_N + 1) for i in range(TEN_LAT)]
+    got = [runs["tenant"]["out"][r] for r in rids]
+    ref = [runs["blind"]["out"][r] for r in rids]
+    here = os.path.dirname(os.path.abspath(__file__))
+    tdir = os.path.join(here, TRACE_DIR)
+    os.makedirs(tdir, exist_ok=True)
+    path = export_chrome_trace(os.path.join(tdir, "tenancy.json"), t.trace)
+    problems = validate_chrome_trace(path)
+    with open(path) as f:
+        names = [e["args"]["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "M" and e.get("name") == "process_name"]
+    _sh.rmtree(tdir, ignore_errors=True)
+    tenants = sorted(n.split("tenant=")[1] for n in names if "tenant=" in n)
+    if problems or tenants != ["batch0", "batch1", "chat"]:
+        raise AssertionError(f"tenancy trace: {problems[:3]}, {tenants}")
+    equal, forced, gap = _oracle_rule(dec, prompts, got, ref, aids=aids)
+    pre_equal = sum(got[r] == ref[r] for r in preempted)
+    reading = {}
+    for label, r in runs.items():
+        tt = np.asarray(r["ttft"]) * 1e3
+        reading[label] = (float(np.percentile(tt, 50)),
+                          float(np.percentile(tt, 99)),
+                          (TEN_FLOOD + TEN_LAT) * MAX_NEW / r["wall"])
+        log("tenancy", engine=label, wall_s=f"{r['wall']:.3f}",
+            gen_tok_per_s=f"{reading[label][2]:.1f}",
+            latency_ttft_p50_ms=f"{reading[label][0]:.1f}",
+            latency_ttft_p99_ms=f"{reading[label][1]:.1f}",
+            preemptions=r["eng"].stats.preemptions,
+            resumes=r["eng"].stats.resumes,
+            lora_launches=r["counts"]["lora_delta"][0],
+            rpa_launches=r["counts"]["ragged_paged_attention"][0])
+    b, tn = reading["blind"], reading["tenant"]
+    summ = t.tenancy_summary()
+    log("tenancy_summary", pool_pages=TEN_PAGES, streams_equal_blind=
+        f"{equal}/{len(rids)}", oracle_forced=forced,
+        oracle_gap=f"{gap:.4f}", preempted_rids=len(preempted),
+        preempted_equal_twin=f"{pre_equal}/{len(preempted)}",
+        ttft_p99_ratio_blind_over_tenant=f"{b[1] / tn[1]:.2f}",
+        tok_per_s_ratio_tenant_over_blind=f"{tn[2] / b[2]:.3f}",
+        jax_bar_ttft_2x="met" if b[1] >= 2 * tn[1] else "missed",
+        jax_bar_tok_085x="met" if tn[2] >= 0.85 * b[2] else "missed",
+        fairness_jain=summ["fairness_jain"],
+        latency_target_ms=summ["classes"]["latency"]["roofline_target_ms"],
+        k_latency=t.scheduler.k_latency, trace_tenant_pids=len(tenants))
+    return (sum(r["counts"]["lora_delta"][0] for r in runs.values()),
+            sum(r["counts"]["ragged_paged_attention"][0]
+                for r in runs.values()))
+
+
+class _PoolSpy:
+    """Stands in for the decoder module's `rpa`: passes every call to the
+    kernel's wrappers and counts the calls by the pool layout they read
+    (bf16, int8, int4)."""
+
+    def __init__(self, rpa):
+        self.rpa, self.calls = rpa, {}
+
+    def _note(self, kp):
+        lay = "bf16" if not isinstance(kp, tuple) else (
+            "int4" if kp[0].dtype == torch.uint8 else "int8")
+        self.calls[lay] = self.calls.get(lay, 0) + 1
+
+    def ragged_paged_attention(self, q, kp, vp, *args):
+        self._note(kp)
+        return self.rpa.ragged_paged_attention(q, kp, vp, *args)
+
+    def ragged_paged_attention_packed(self, q, kp, vp, *args):
+        self._note(kp)
+        return self.rpa.ragged_paged_attention_packed(q, kp, vp, *args)
+
+
+def phase_precision_routed(sd, rpa):
+    """[precision_routed]: the tenancy traffic (no adapters) through
+    `PrecisionRoutedEngine(kv_precision={"latency": "int8", "throughput":
+    "int4"})`: class_capacity(), the int8 and int4 branches of the ragged
+    kernel launched (counted by the pool they read), each class's streams
+    equal to, or within the oracle rule of, a single-precision
+    TenantEngine of that class's pool serving that class's requests under
+    the same rids. Returns the ragged kernel's calls by pool layout."""
+    import paddle_tpu_torch.serving.decoder as decoder_module
+    from paddle_tpu_torch.models import gpt_1p3b
+    from paddle_tpu_torch.serving import (PagedGPTDecoder,
+                                          PrecisionRoutedEngine, PrefixCache,
+                                          TenantEngine)
+    cfg = gpt_1p3b()
+    flood, lat, arrive = _tenancy_traffic(cfg.vocab_size)
+    prec = {"latency": "int8", "throughput": "int4"}
+    eng = PrecisionRoutedEngine(cfg, sd, kv_precision=prec,
+                                max_new_tokens=MAX_NEW, num_pages=TEN_PAGES,
+                                page_size=PS, max_batch=TEN_BATCH,
+                                k_max=K_MAX)
+    cap = eng.class_capacity()
+    for slo, row in cap.items():
+        log("precision_routed_capacity", slo=slo, **row)
+    spy = _PoolSpy(rpa)
+    state = {"n": 0}
+    lat_rids = []
+
+    def on_sync(router, e):
+        while state["n"] < len(lat) and \
+                sum(x.stats.tokens for x in router._unique_engines()) >= \
+                arrive[state["n"]]:
+            lat_rids.append(router.submit(lat[state["n"]], tenant="chat",
+                                          slo="latency"))
+            state["n"] += 1
+    rids = [eng.submit(p, tenant=f"batch{i % 2}") for i, p in
+            enumerate(flood)]
+    torch.cuda.synchronize()
+    rpa.reset_counts()
+    decoder_module.rpa = spy
+    try:
+        t0 = time.perf_counter()
+        out = eng.run(on_sync=on_sync)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        decoder_module.rpa = rpa
+    launches = rpa.kernel_launches
+    if rpa.plain_launches or not spy.calls.get("int8") or \
+            not spy.calls.get("int4") or spy.calls.get("bf16"):
+        raise AssertionError(f"precision routed launches: {spy.calls}, "
+                             f"plain {rpa.plain_launches}")
+    if state["n"] != len(lat):
+        raise AssertionError("latency arrivals did not all fire")
+    summ = eng.tenancy_summary()
+    del eng
+    torch.cuda.empty_cache()
+    checks = {}
+    for slo, quant, idx_rids, prompts in (
+            ("latency", "int8", lat_rids, lat),
+            ("throughput", "int4", rids, flood)):
+        dec = PagedGPTDecoder(cfg, sd, num_pages=TEN_PAGES, page_size=PS,
+                              max_batch=TEN_BATCH, kv_quant=quant)
+        twin = TenantEngine(dec, max_new_tokens=MAX_NEW, k_max=K_MAX,
+                            prefix_cache=PrefixCache(
+                                PS, salt=dec.cache_fingerprint()))
+        for r, p in zip(idx_rids, prompts):
+            twin._next_id = r
+            twin.submit(p, slo=slo)
+        twin_out = twin.run()
+        got = [out[r] for r in idx_rids]
+        ref = [twin_out[r] for r in idx_rids]
+        checks[slo] = _oracle_rule(dec, prompts, got, ref)
+        del dec, twin
+        torch.cuda.empty_cache()
+    log("precision_routed", wall_s=f"{wall:.3f}",
+        gen_tok_per_s=f"{(TEN_FLOOD + TEN_LAT) * MAX_NEW / wall:.1f}",
+        int8_calls=spy.calls["int8"], int4_calls=spy.calls["int4"],
+        rpa_launches=launches, plain_launches=0,
+        latency_equal_twin=f"{checks['latency'][0]}/{TEN_LAT}",
+        throughput_equal_twin=f"{checks['throughput'][0]}/{TEN_FLOOD}",
+        oracle_forced=checks["latency"][1] + checks["throughput"][1],
+        oracle_gap=f"{max(checks['latency'][2], checks['throughput'][2]):.4f}",
+        latency_ttft_p99_ms=summ["classes"]["latency"].get("ttft_p99_ms"),
+        throughput_ttft_p99_ms=summ["classes"]["throughput"].get(
+            "ttft_p99_ms"))
+    return spy.calls
+
+
+def _fleet_wave(vocab, wave):
+    """One wave of the fleet traffic (bench.py's run_fleet: every request
+    of the throughput class): 48 requests, each a Zipf(0.7) pick of 8
+    fixed 512-token templates plus a fresh 64-token suffix; tenants t0 /
+    t1."""
+    t_rng = np.random.RandomState(SEED + 41)
+    templates = [t_rng.randint(0, vocab, FLEET_TEMPLATE_LEN).tolist()
+                 for _ in range(FLEET_TEMPLATES)]
+    p = 1.0 / np.arange(1, FLEET_TEMPLATES + 1) ** FLEET_ZIPF
+    rng = np.random.RandomState(SEED + 50 + wave)
+    picks = rng.choice(FLEET_TEMPLATES, FLEET_REQ, p=p / p.sum())
+    reqs = []
+    for i, t in enumerate(picks):
+        reqs.append((templates[t] +
+                     rng.randint(0, vocab, FLEET_SUFFIX).tolist(),
+                     "throughput", f"t{i % 2}"))
+    return reqs
+
+
+def _fleet_engine(cfg, sd, tier_dir, trace=False):
+    from paddle_tpu_torch.serving import (PagedGPTDecoder, PrefixCache,
+                                          SharedHostKVTier, TenantEngine)
+    dec = PagedGPTDecoder(cfg, sd, num_pages=FLEET_PAGES, page_size=PS,
+                          max_batch=FLEET_BATCH)
+    tier = SharedHostKVTier(tier_dir, capacity_bytes=FLEET_TIER_BYTES,
+                            fingerprint=dec)
+    cache = PrefixCache(PS, salt=dec.cache_fingerprint(), tier=tier)
+    return TenantEngine(dec, max_new_tokens=MAX_NEW, k_max=K_MAX,
+                        prefix_cache=cache, tier_policy="restore",
+                        trace=trace or None)
+
+
+def _fleet_run_wave(router, reqs, parallel):
+    """Submit one wave, drain it; returns (streams in submission order,
+    wall seconds, the wave's block hit rate, its block hits)."""
+    before = router.merged_stats()
+    gids = [router.submit(p, tenant=t, slo=s) for p, s, t in reqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = router.run(parallel=parallel)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = router.merged_stats()
+    hits = after.prefix_hits - before.prefix_hits
+    misses = after.prefix_misses - before.prefix_misses
+    return [out[g] for g in gids], wall, hits / max(hits + misses, 1), hits
+
+
+def _fleet_respawn(cfg, sd, router, tier_dir, root):
+    """The respawn check of the 1-replica fleet after its waves. The
+    shared tier is copied as it stands at the kill; the next wave then
+    runs from that state three times: through the replica that was never
+    killed (the reference), through a fresh replica respawned over the
+    copy (the warm start) and through one respawned over an empty tier
+    (the cold start). A killed replica spills nothing, so the warm start
+    loses exactly the blocks that only the dead replica's pool held: a
+    request can miss its chain from the first such block on, and every
+    other block the reference hit is in the tier. So the warm start must
+    hit at least the reference's hits less those chain tails, beat the
+    cold start, restore, and recompute no restored span. Returns the
+    readings for the log."""
+    import os
+    import shutil as _sh
+    eng = router.engines[0]
+    snap = os.path.join(root, "respawn_tier")
+    _sh.copytree(tier_dir, snap)
+    pool_only = {k for k in eng.cache._entries if k not in eng.tier}
+    wave = _fleet_wave(cfg.vocab_size, FLEET_WAVES)
+    tails = 0
+    for p, _, _ in wave:
+        keys = eng.cache.block_keys(p)
+        tails += len(keys) - next(
+            (i for i, k in enumerate(keys) if k in pool_only), len(keys))
+    _, _, ref, ref_hits = _fleet_run_wave(router, wave, False)
+    router.respawn(0, _fleet_engine(cfg, sd, snap))
+    _, wall, post, post_hits = _fleet_run_wave(router, wave, False)
+    rs = router.engines[0].stats
+    router.respawn(0, _fleet_engine(cfg, sd, os.path.join(root, "cold")))
+    _, _, cold, _ = _fleet_run_wave(router, wave, False)
+    readings = dict(respawn_hit_rate=f"{post:.4f}",
+                    never_killed_hit_rate=f"{ref:.4f}",
+                    cold_respawn_hit_rate=f"{cold:.4f}",
+                    respawn_hits=post_hits, never_killed_hits=ref_hits,
+                    pool_only_blocks=len(pool_only),
+                    pool_only_chain_tails=tails,
+                    respawn_restores=rs.tier_restores,
+                    respawn_recomputes=rs.tier_recomputes,
+                    respawn_wall_s=f"{wall:.3f}")
+    if post_hits < ref_hits - tails or post <= cold or \
+            rs.tier_restores < 1 or rs.tier_recomputes:
+        raise AssertionError(f"respawn: {readings}")
+    return readings
+
+
+def phase_fleet(sd, rpa):
+    """[fleet]: bench.py's run_fleet at gpt_1p3b width (FLEET_LAYERS of its
+    layers): 8 templates of 512 tokens (Zipf 0.7), 64-token suffixes, 64
+    new, 48 requests a wave, 3 waves (cut from 5) with the last one timed;
+    replicas of max_batch 8
+    over a pool of FLEET_PAGES (one replica's cliff: the 1-replica fleet
+    spills to the shared tier and restores), `tier_policy="restore"`, the
+    store under the checkout. Fleets of 1 replica, 3 round-robin and 3 on
+    threads; streams equal across them or within the oracle rule; the
+    1-replica fleet restores at least once; a respawned replica 0 of the
+    1-replica fleet warm-starts from the shared tier (`_fleet_respawn`:
+    its hit rate on the next wave held to the never-killed replica's on
+    that wave); the traced 3-replica
+    export passes the schema check with disjoint pids per (replica,
+    tenant). Returns the ragged kernel's launches."""
+    import os
+    import shutil as _sh
+    from paddle_tpu_torch.models import gpt_1p3b
+    from paddle_tpu_torch.serving import FleetRouter, validate_chrome_trace
+    cfg = gpt_1p3b(num_layers=FLEET_LAYERS)
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, FLEET_DIR)
+    _sh.rmtree(root, ignore_errors=True)
+    waves = [_fleet_wave(cfg.vocab_size, w) for w in range(FLEET_WAVES)]
+    streams, launches = {}, 0
+    for label, n, parallel in (("1", 1, False), ("3_sequential", 3, False),
+                               ("3_parallel", 3, True)):
+        tier_dir = os.path.join(root, label)
+        router = FleetRouter([_fleet_engine(cfg, sd, tier_dir,
+                                            trace=label == "3_sequential")
+                              for _ in range(n)], affinity_blocks=2)
+        rpa.reset_counts()
+        got, walls, rates = [], [], []
+        for reqs in waves:
+            s, wall, rate, _ = _fleet_run_wave(router, reqs, parallel)
+            got.append(s)
+            walls.append(wall)
+            rates.append(rate)
+        if rpa.kernel_launches <= 0 or rpa.plain_launches:
+            raise AssertionError(f"fleet {label}: {rpa.kernel_launches} "
+                                 f"kernel, {rpa.plain_launches} plain")
+        launches += rpa.kernel_launches
+        st = router.merged_stats()
+        tier = router.engines[0].tier
+        findings = [f for e in router.engines for f in e.audit_pages()]
+        if findings:
+            raise AssertionError(f"fleet {label} audit: {findings[0]}")
+        extra = {}
+        if label == "1":
+            if st.tier_restores < 1:
+                raise AssertionError("the 1-replica fleet never restored")
+            extra = _fleet_respawn(cfg, sd, router, tier_dir, root)
+        if label == "3_sequential":
+            path = os.path.join(root, "fleet_trace.json")
+            router.export_trace(path)
+            problems = validate_chrome_trace(path)
+            with open(path) as f:
+                pids = {}
+                for e in json.load(f)["traceEvents"]:
+                    if e.get("ph") == "M" and e.get("name") == "process_name":
+                        rep = e["args"]["name"].split(" ")[0]
+                        pids.setdefault(rep, set()).add(e["pid"])
+            disjoint = all(not (pids[a] & pids[b]) for a in pids
+                           for b in pids if a < b)
+            if problems or len(pids) != FLEET_REPLICAS or not disjoint:
+                raise AssertionError(f"fleet trace: {problems[:3]}, {pids}")
+            extra = dict(trace_pid_blocks=len(pids),
+                         trace_pids=sum(len(v) for v in pids.values()))
+        streams[label] = [s for w in got for s in w]
+        log("fleet", replicas=n, parallel=parallel, layers=cfg.num_layers,
+            wave_walls_s=",".join(f"{w:.2f}" for w in walls),
+            gen_tok_per_s=f"{FLEET_REQ * MAX_NEW / walls[-1]:.1f}",
+            hit_rates=",".join(f"{r:.3f}" for r in rates),
+            tier_spills=st.tier_spills, tier_restores=st.tier_restores,
+            tier_recomputes=st.tier_recomputes,
+            shared_tier_entries=tier.n_entries,
+            shared_tier_MB=f"{tier.bytes_used / 1e6:.1f}",
+            rpa_launches=rpa.kernel_launches, **extra)
+        if label != "3_parallel":
+            del router
+            torch.cuda.empty_cache()
+    prompts = [p for w in waves for p, _, _ in w]
+    dec = router.engines[0].d
+    for label in ("3_sequential", "3_parallel"):
+        equal, forced, gap = _oracle_rule(dec, prompts, streams[label],
+                                          streams["1"])
+        log("fleet_streams", fleet=label, equal_1_replica=
+            f"{equal}/{len(prompts)}", oracle_forced=forced,
+            oracle_gap=f"{gap:.4f}")
+    del router
+    _sh.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6425,6 +7196,7 @@ def main():
     from paddle_tpu_torch.ops import dropout as D
     from paddle_tpu_torch.ops import fused_ops as X
     from paddle_tpu_torch.ops import layer_norm as LN
+    from paddle_tpu_torch.ops import lora_delta as lora
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     from paddle_tpu_torch.ops import w4_matmul as w4
@@ -6463,6 +7235,20 @@ def main():
     log("prefix_phases", total_s=f"{time.perf_counter() - t_prefix:.1f}")
     torch.cuda.empty_cache()
     slice17_launches += phase_speculative(rpa, smi)
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    lora_err, lora_timing = phase_lora_kernel(sd, lora)
+    lora_launches, slice18_launches = phase_serve_lora(sd, rpa, lora,
+                                                       streams, greedy_fields)
+    torch.cuda.empty_cache()
+    ten_lora, ten_rpa = phase_tenancy(sd, rpa, lora)
+    lora_launches += ten_lora
+    slice18_launches += ten_rpa
+    torch.cuda.empty_cache()
+    routed_calls = phase_precision_routed(sd, rpa)
+    torch.cuda.empty_cache()
+    slice18_launches += phase_fleet(sd, rpa)
+    log("slice18_phases", total_s=f"{time.perf_counter() - t18:.1f}")
     torch.cuda.empty_cache()
     phase_generate(sd, smi)
     del sd
@@ -6535,13 +7321,15 @@ def main():
     log("done", total_s=f"{time.perf_counter() - t_start:.1f}")
     # the cached runs (prefix cache, host tier, persistence) count too
     # slice 17: traced, dense, dispatch-separate and speculative serving
+    # slice 18: LoRA, tenancy and fleet serving (bf16), the precision-routed
+    # engine's int8 and int4 classes
     serve_launches = {
         "bf16": launches["kernel"] + prefix_launches["bf16"] + tier_launches
-        + slice17_launches,
+        + slice17_launches + slice18_launches,
         "int8": quant_launches["int8"]["ragged_paged_attention"]
-        + prefix_launches["int8"],
+        + prefix_launches["int8"] + routed_calls["int8"],
         "int4": quant_launches["int4"]["ragged_paged_attention"]
-        + prefix_launches["int4"]}
+        + prefix_launches["int4"] + routed_calls["int4"]}
     prefix_err["bf16"] = max(prefix_err["bf16"], tier_err)
     serve_err = {lay: max(e, prefix_err[lay]) for lay, e in serve_err.items()}
     serve_err["bf16"] = max(serve_err["bf16"], dense_err,
@@ -6628,6 +7416,12 @@ def main():
                         "launches": slice6_launches[name],
                         "max_abs_err": slice6_err[name],
                         **slice6_timing[name]})
+    # no Pallas kernel: the counterpart of the XLA-fused JAX `_lora_delta`
+    kernels.append({"name": "lora_delta", "route": "cuda",
+                    "source": "paddle_tpu_torch/ops/csrc/lora_delta.cu",
+                    "replaces": "paddle_tpu/serving/decoder.py:284",
+                    "launches": lora_launches, "max_abs_err": lora_err,
+                    **lora_timing})
     if any(k["route"] not in ("cuda", "triton") for k in kernels):
         raise AssertionError("a kernel's route is not cuda or triton")
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 """Serving cost model (counterpart of the decode/ragged half of
 `paddle_tpu/cost_model.py`): the roofline legs of a decode or mixed
 ragged tick, the ragged scheduler's chunk budget, the multi-step
-horizon K, and the host KV tier's restore-vs-recompute pricing
-(`prefill_ttft_s`, `kv_restore_s`).
+horizon K (and its per-SLO-class form for multi-tenant serving,
+`slo_horizon` / `slo_p99_target_s`), and the host KV tier's
+restore-vs-recompute pricing (`prefill_ttft_s`, `kv_restore_s`).
 
 The chip is an NVIDIA H100 SXM. Its peak figures below are NVIDIA's
 data-sheet values (dense bf16 tensor-core FLOP/s, HBM bytes/s and
@@ -20,7 +21,8 @@ import torch
 __all__ = ["ChipSpec", "H100_SXM", "decode_tick_roofline_s",
            "ragged_tick_legs", "ragged_tick_roofline_s",
            "ragged_chunk_tokens", "decode_horizon", "measured_host_sync_s",
-           "prefill_ttft_s", "kv_restore_s"]
+           "prefill_ttft_s", "kv_restore_s", "SLO_SYNC_FRAC", "slo_horizon",
+           "slo_p99_target_s"]
 
 
 @dataclass(frozen=True)
@@ -152,6 +154,51 @@ def decode_horizon(step_hbm_bytes, host_sync_s=None, chip=None,
         return int(k_cap)
     k = math.ceil(host_sync_s / (sync_overhead_frac * t))
     return int(min(max(k, 1), int(k_cap)))
+
+
+# Per-class sync-overhead budgets of multi-tenant serving
+# (serving.tenancy): the LATENCY tier accepts a much larger host-sync share
+# — syncing more often is what shortens the queue-wait / TTFT tail, since
+# admission (and preemption) happen only at horizon boundaries. The
+# THROUGHPUT tier keeps the default 10% amortization. Both classes price
+# through the same mixed-tick roofline, so the per-class targets are
+# roofline-derived, not hand-tuned.
+SLO_SYNC_FRAC = {"latency": 0.5, "throughput": 0.10}
+
+
+def slo_horizon(step_hbm_bytes, slo, host_sync_s=None, chip=None,
+                k_cap=32, chunk_tokens=0, flops_per_token=0.0,
+                device="cuda"):
+    """Per-SLO-class decode horizon K: `decode_horizon` priced with the
+    class's sync-overhead budget (`SLO_SYNC_FRAC`). The latency tier's
+    smaller K bounds how long a newly arrived latency prompt can wait for
+    the next admission boundary."""
+    frac = SLO_SYNC_FRAC.get(slo)
+    if frac is None:
+        raise ValueError(f"unknown SLO class {slo!r}; known: "
+                         f"{sorted(SLO_SYNC_FRAC)}")
+    return decode_horizon(step_hbm_bytes, host_sync_s=host_sync_s,
+                          chip=chip, k_cap=k_cap, sync_overhead_frac=frac,
+                          chunk_tokens=chunk_tokens,
+                          flops_per_token=flops_per_token, device=device)
+
+
+def slo_p99_target_s(step_hbm_bytes, slo, host_sync_s=None, chip=None,
+                     k_cap=32, chunk_tokens=0, flops_per_token=0.0,
+                     device="cuda"):
+    """Roofline-derived per-class p99 target for one horizon boundary: the
+    class's K ticks at the mixed-tick roofline plus one host sync — the
+    longest a request of that class should wait between two scheduling
+    opportunities on a correctly composed engine
+    (`TenantEngine.tenancy_summary` reports measured tails beside it)."""
+    if host_sync_s is None:
+        host_sync_s = measured_host_sync_s(device)
+    k = slo_horizon(step_hbm_bytes, slo, host_sync_s=host_sync_s,
+                    chip=chip, k_cap=k_cap, chunk_tokens=chunk_tokens,
+                    flops_per_token=flops_per_token)
+    tick = ragged_tick_roofline_s(step_hbm_bytes, chunk_tokens,
+                                  flops_per_token, chip=chip)
+    return k * tick + host_sync_s
 
 
 def prefill_ttft_s(prompt_tokens, flops_per_token, cached_frac=0.0,

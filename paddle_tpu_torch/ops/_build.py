@@ -9,7 +9,10 @@ headers it includes (`tc_tile.cuh`, `decode_attention.cuh`,
 `adamw.cuh`, `counter_hash.cuh`) and of the flags, so an edited source or header rebuilds
 and an unchanged one is reused.
 `build_all` starts one nvcc per source together, so the build takes as
-long as the slowest source, not the sum.
+long as the slowest source, not the sum. `load` and `build_all` hold one
+module lock, so threads that call a kernel for the first time together
+(the fleet router drains its replicas on threads) start one build, and a
+temp file is named by process and thread.
 """
 import ctypes
 import hashlib
@@ -17,6 +20,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -33,6 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 build_seconds = {}   # name -> seconds this process spent building it
 build_logs = {}      # name -> nvcc's output for that build
 _LIBS = {}
+_LOCK = threading.RLock()    # held by `build_all` and `load`
 
 
 def _nvcc():
@@ -78,40 +83,44 @@ def build_all(names=None):
     are not built yet, one nvcc process per source, all started
     together. Returns {name: seconds spent building it here} (0.0 for a
     library that was already built)."""
-    names = list(names) if names else sorted(p.stem for p in CSRC.glob("*.cu"))
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    running = {}
-    for name in names:
-        src, out = _target(name)
-        if out.exists():
-            build_seconds.setdefault(name, 0.0)
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        running[name] = (proc, tmp, out, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, out, t0) in running.items():
-        log = proc.communicate()[0].decode(errors="replace")
-        build_logs[name] = log
-        if proc.returncode:
-            failed.append(f"{name}:\n{log}")
-            continue
-        os.replace(tmp, out)          # atomic: concurrent builders agree
-        build_seconds[name] = time.perf_counter() - t0
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return {name: build_seconds[name] for name in names}
+    with _LOCK:
+        names = (list(names) if names
+                 else sorted(p.stem for p in CSRC.glob("*.cu")))
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        running = {}
+        for name in names:
+            src, out = _target(name)
+            if out.exists():
+                build_seconds.setdefault(name, 0.0)
+                continue
+            tmp = out.with_name(
+                f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            running[name] = (proc, tmp, out, time.perf_counter())
+        failed = []
+        for name, (proc, tmp, out, t0) in running.items():
+            log = proc.communicate()[0].decode(errors="replace")
+            build_logs[name] = log
+            if proc.returncode:
+                failed.append(f"{name}:\n{log}")
+                continue
+            os.replace(tmp, out)          # atomic: concurrent builders agree
+            build_seconds[name] = time.perf_counter() - t0
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        return {name: build_seconds[name] for name in names}
 
 
 def load(name):
     """The ctypes handle of kernel library `name`, building it first if
     needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        _, out = _target(name)
-        if not out.exists():
-            build_all([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(out))
-    return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            _, out = _target(name)
+            if not out.exists():
+                build_all([name])
+            lib = _LIBS[name] = ctypes.CDLL(str(out))
+        return lib

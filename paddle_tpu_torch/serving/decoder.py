@@ -26,7 +26,10 @@ schedule), the packed layout and the dense window layout (one layer body,
 `_layer`, under both: the dense windows run it on their flattened
 [n * W] tokens and attend through the kernel's dense form), the verify
 window with the acceptance rule of speculative decoding (`verify`,
-`_spec_accept`), one device. A quantized pool is a (pages,
+`_spec_accept`), multi-LoRA (`attach_adapters`: per-token adapter ids on
+every path, the delta added right after the qkv product by
+`ops.lora_delta`, the hand-written CUDA kernel on the card), one device. A
+quantized pool is a (pages,
 scales) tuple per K and V; `_kv_set` quantizes each token from its own
 values as it writes it (plain PyTorch, as the JAX decoder's jnp), so
 stored bytes depend only on (request, position).
@@ -49,6 +52,7 @@ import torch.nn.functional as F
 from .. import random as prng
 from ..device import get_device
 from ..models.generation import mask_logits
+from ..ops import lora_delta as lora
 from ..ops import ragged_paged_attention as rpa
 from ..ops import w4_matmul as w4
 
@@ -80,7 +84,8 @@ def _not_ported(what):
     return NotImplementedError(
         f"{what} is not ported to paddle_tpu_torch yet (the port serves "
         "float32/bfloat16/int8/int4 pools and W4A16 weights, greedy or "
-        "sampled, packed or dense, on one device; later slices add it)")
+        "sampled, packed or dense, with LoRA adapters, on one device; later "
+        "slices add it)")
 
 
 def pow2_at_least(n):
@@ -299,8 +304,12 @@ class PagedGPTDecoder:
         # the ragged horizon's and the chunked prefill's default layout:
         # the packed token stream, or the dense [n, W] window twin
         self.packed = bool(packed)
-        # no LoRA bank: adapters are not ported (`adapter_salt`)
+        # multi-LoRA: stacked low-rank adapter banks over the shared base
+        # weights (`attach_adapters`). None = no adapters: every forward
+        # then runs exactly the pre-tenancy launches
         self.lora = None
+        self.n_adapters = 0
+        self._adapter_salts = [b""]
         self.cfg = cfg
         self.page_size = page_size
         self.num_pages = num_pages
@@ -411,10 +420,12 @@ class PagedGPTDecoder:
         return (self.wte[tokens.long()] + self.wpe[pos]).to(
             self.compute_dtype)
 
-    def _layer(self, l, x, pids, offs, attend):
+    def _layer(self, l, x, pids, offs, attend, aids=None):
         """ONE transformer layer over flat new tokens x [T, h]: write each
         token's K/V at (pids, offs), attend through `attend(q, kp, vp)`
         (dense windows or the packed stream), then residual proj + FFN.
+        `aids` [T] (a bank attached; None otherwise) adds each token's
+        adapter delta right after the qkv product (`ops.lora_delta`).
         Per-token math is row-local, so a token's bytes do not depend on
         what else is in the batch (up to the matmul library's choice of
         algorithm for the batch size)."""
@@ -422,7 +433,11 @@ class PagedGPTDecoder:
         H, D = self.cfg.num_heads, self.cfg.head_dim
         T = x.shape[0]
         y = _ln(x, w["ln1_w"], w["ln1_b"])
-        qkv = _mm(y, w["qkv_w"], w["qkv_b"]).view(T, 3, H, D)
+        qkv = _mm(y, w["qkv_w"], w["qkv_b"])
+        if aids is not None:
+            lora.lora_delta_(qkv, y, self.lora["lora_A"][l],
+                             self.lora["lora_B"][l], aids)
+        qkv = qkv.view(T, 3, H, D)
         kp, vp = _at(self.k_pages, l), _at(self.v_pages, l)
         _kv_set(kp, pids, offs, qkv[:, 1])
         _kv_set(vp, pids, offs, qkv[:, 2])
@@ -436,11 +451,12 @@ class PagedGPTDecoder:
         x = _ln(x, self.ln_f_w, self.ln_f_b)
         return x.float() @ self.lm_head
 
-    def _forward_tokens(self, tokens, lens, table, pids, offs):
+    def _forward_tokens(self, tokens, lens, table, pids, offs, aids=None):
         """Shared single-position forward over all slots: embed `tokens`
         at position `lens`, write K/V at (pids, offs) — callers route
         frozen slots' pids to scratch — and attend over each slot's pages
-        (the dense kernel form, W=1). Returns logits [S, V]."""
+        (the dense kernel form, W=1); `aids` [S] the slots' adapters.
+        Returns logits [S, V]."""
         x = self._embed(tokens, lens)
 
         def attend(q, kp, vp):
@@ -448,7 +464,7 @@ class PagedGPTDecoder:
                                               lens)[:, 0]
 
         for l in range(self.cfg.num_layers):
-            x = self._layer(l, x, pids, offs, attend)
+            x = self._layer(l, x, pids, offs, attend, aids)
         return self._logits(x)
 
     def _slot_pids(self, table, lens):
@@ -479,18 +495,19 @@ class PagedGPTDecoder:
             lg = mask_logits(lg, *self.sampling)
         return torch.softmax(lg, dim=-1).cpu().numpy()
 
-    def _decode_step(self, tokens, lens, table, kids=None):
+    def _decode_step(self, tokens, lens, table, kids=None, aids=None):
         """tokens [S], lens [S] (position of the incoming token), table
         [S, max_pages], kids [S] (sampling key ids, default the slot
-        index) -> (next [S] int32, logits [S, V])."""
+        index), aids [S] (adapter ids, a bank attached) -> (next [S]
+        int32, logits [S, V])."""
         kids = self._kids(kids)
         pids = self._slot_pids(table, lens)
         logits = self._forward_tokens(tokens, lens, table, pids,
-                                      lens % self.page_size)
+                                      lens % self.page_size, aids)
         return self._pick(logits, kids, lens), logits
 
     def _decode_multi_step(self, tokens, lens, table, kids, done, remaining,
-                           eos, k, return_logits=False):
+                           eos, k, return_logits=False, aids=None):
         """K fused decode ticks; each tick's token feeds the next on the
         device, tick j drawing with the (seed, kid, lens + j) keys the
         per-tick loop uses. `done` [S] freezes a slot from tick 0; a slot
@@ -504,7 +521,7 @@ class PagedGPTDecoder:
         for _ in range(k):
             pids = torch.where(done, scratch, self._slot_pids(table, lens))
             logits = self._forward_tokens(tokens, lens, table, pids,
-                                          lens % self.page_size)
+                                          lens % self.page_size, aids)
             nxt = self._pick(logits, kids, lens)
             nxt = torch.where(done, tokens, nxt)
             rem = torch.where(done, remaining, remaining - 1)
@@ -520,15 +537,16 @@ class PagedGPTDecoder:
                 torch.stack(tick_logits) if return_logits else None)
 
     def _packed_forward(self, ptok, pos, rows, write_ok, table, last_idx,
-                        sample_pos, kids, live):
+                        sample_pos, kids, live, aids=None):
         """The shared PACKED forward: consume the flat token stream `ptok`
         [T] (token t = table row `rows[t]` at position `pos[t]`), write
         real tokens' K/V (`write_ok` False routes to scratch: padded tail,
         frozen rows, table overflow) and attend each token over its own
         row's pages. `last_idx` [S] indexes each row's last stream token,
         whose hidden state prices the row's logits (masked by `live`);
-        `sample_pos` [S] is the row's sampling position (true_len - 1) and
-        `kids` [S] its key id. Returns next [S] int32."""
+        `sample_pos` [S] is the row's sampling position (true_len - 1),
+        `kids` [S] its key id and `aids` [S] its adapter (each token wears
+        its row's: `aids[rows]`). Returns next [S] int32."""
         ps, MP = self.page_size, table.shape[1]
         x = self._embed(ptok, pos)
         col = (pos.long() // ps).clamp(max=MP - 1)
@@ -540,14 +558,15 @@ class PagedGPTDecoder:
             return rpa.ragged_paged_attention_packed(q, kp, vp, table, rows,
                                                      pos)
 
+        tok_aids = None if aids is None else aids[rows.long()].contiguous()
         for l in range(self.cfg.num_layers):
-            x = self._layer(l, x, pids, offs, attend)
+            x = self._layer(l, x, pids, offs, attend, tok_aids)
         last = x[last_idx.long().clamp(0, x.shape[0] - 1)]       # [S, h]
         last = torch.where(live[:, None], last, 0.0)
         return self._pick(self._logits(last), kids, sample_pos)
 
     def _packed_multi_step(self, tokens, lens, table, kids, done, remaining,
-                           eos, pend, pend_n, w, k, t):
+                           eos, pend, pend_n, w, k, t, aids=None):
         """K MIXED ticks over the PACKED [t] token stream: a tick's stream
         concatenates every live row's new tokens (decode rows ONE token,
         prefilling rows their next min(pend_n, w) suffix tokens, frozen
@@ -588,7 +607,7 @@ class PagedGPTDecoder:
             live = ~done & (nl > 0)
             nxt = self._packed_forward(ptok, pos, rows.to(torch.int32),
                                        write_ok, table, last_idx,
-                                       lens + nl - 1, kids, live)
+                                       lens + nl - 1, kids, live, aids)
             emit = ~done & (pend_n <= w)
             nxt = torch.where(emit, nxt, tokens)
             rem = torch.where(emit, remaining - 1, remaining)
@@ -604,7 +623,7 @@ class PagedGPTDecoder:
         return (torch.stack(block), torch.stack(emitted), torch.stack(real),
                 tokens, lens, done, remaining, pend, pend_n)
 
-    def _windowed_forward(self, ids, pos, write_ok, table):
+    def _windowed_forward(self, ids, pos, write_ok, table, aids=None):
         """The dense WINDOW forward, one body for every dense path (the
         JAX `_windowed_layer`: the verify window, the dense prefill and
         each tick of the dense ragged twin). ids / pos [n, W]: row i's
@@ -614,7 +633,8 @@ class PagedGPTDecoder:
         own row's pages through the kernel's dense form (q [n, W, H, D],
         start pos[:, 0]). The layers run `_layer` on the flattened
         [n * W] tokens, so a position computes what the packed stream
-        computes for it. Returns the final hidden states [n, W, h]."""
+        computes for it; every window token of row i wears row i's adapter
+        (`aids` [n]). Returns the final hidden states [n, W, h]."""
         n, W = ids.shape
         ps, MP = self.page_size, table.shape[1]
         H, D = self.cfg.num_heads, self.cfg.head_dim
@@ -629,8 +649,10 @@ class PagedGPTDecoder:
                 q.view(n, W, H, D), kp, vp, table, start).reshape(
                     n * W, H, D)
 
+        tok_aids = None if aids is None else \
+            aids[:, None].expand(n, W).reshape(-1).contiguous()
         for l in range(self.cfg.num_layers):
-            x = self._layer(l, x, pids, offs, attend)
+            x = self._layer(l, x, pids, offs, attend, tok_aids)
         return x.view(n, W, -1)
 
     def _window_pos(self, start, W):
@@ -638,7 +660,7 @@ class PagedGPTDecoder:
                                              device=self.device)
 
     def _ragged_forward(self, ids, start, true_len, table, kids,
-                        frozen=None):
+                        frozen=None, aids=None):
         """The dense RAGGED chunk forward (the JAX `_ragged_forward`):
         each row's [W]-wide window of new tokens at positions
         start..true_len-1 (zero-padded past it), attending over the row's
@@ -652,7 +674,7 @@ class PagedGPTDecoder:
                                           self.page_size)
         if frozen is not None:
             ok = ok & ~frozen[:, None]
-        x = self._windowed_forward(ids, pos, ok, table)
+        x = self._windowed_forward(ids, pos, ok, table, aids)
         col = (true_len - 1 - start).clamp(0, W - 1).long()
         last = x[torch.arange(n, device=self.device), col]       # [n, h]
         return self._pick(self._logits(last), kids, true_len - 1)
@@ -673,7 +695,7 @@ class PagedGPTDecoder:
         return logits.argmax(-1).to(torch.int32), logits
 
     def _ragged_multi_step(self, tokens, lens, table, kids, done, remaining,
-                           eos, pend, pend_n, w, k):
+                           eos, pend, pend_n, w, k, aids=None):
         """K MIXED ticks in the DENSE [S, w] window layout (the packed
         stream's A/B twin, the JAX `_ragged_multi_step`): a prefilling
         row's window is its next min(pend_n, w) suffix tokens, a decode
@@ -695,7 +717,7 @@ class PagedGPTDecoder:
             window = torch.cat([tokens[:, None], pad], dim=1)
             ids = torch.where(is_pf[:, None], pend[:, :w], window)
             nxt = self._ragged_forward(ids, lens, lens + new_len, table,
-                                       kids, frozen=done)
+                                       kids, frozen=done, aids=aids)
             emit = ~done & (pend_n <= w)
             nxt = torch.where(emit, nxt, tokens)
             rem = torch.where(emit, remaining - 1, remaining)
@@ -727,7 +749,8 @@ class PagedGPTDecoder:
         return self.prefill_suffix_batch(
             [(ids, 0, pages) for ids, pages in requests], kids=kids)
 
-    def prefill_suffix_batch(self, requests, kids=None, packed=None):
+    def prefill_suffix_batch(self, requests, kids=None, packed=None,
+                             aids=None):
         """Chunked prefill over page-table rows. requests: [(suffix_ids,
         start, pages), ...] — `pages` is the sequence's page list in
         block order, `start` the already-cached prefix length (0: the
@@ -735,15 +758,16 @@ class PagedGPTDecoder:
         flag): each group of up to max_batch requests runs as ONE flat
         [total_tokens] stream, bucketed to a power of two; `packed=False`
         runs the dense window twin (`_prefill_dense_batch`), whose first
-        tokens are the same. Returns the first generated token per
+        tokens are the same. `aids`: the requests' adapter ids (a bank
+        attached; default all base). Returns the first generated token per
         request (in order)."""
         if packed is None:
             packed = self.packed
         if packed:
-            return self._prefill_packed_batch(requests, kids=kids)
-        return self._prefill_dense_batch(requests, kids=kids)
+            return self._prefill_packed_batch(requests, kids=kids, aids=aids)
+        return self._prefill_dense_batch(requests, kids=kids, aids=aids)
 
-    def _prefill_dense_batch(self, requests, kids=None):
+    def _prefill_dense_batch(self, requests, kids=None, aids=None):
         """DENSE prefill dispatch (the JAX `_prefill_suffix_step` path):
         requests group by window width W (4 doubled to cover the suffix),
         each group in chunks of nb rows (a power of two up to max_batch),
@@ -752,6 +776,8 @@ class PagedGPTDecoder:
         results = [None] * len(requests)
         if kids is None:
             kids = list(range(len(requests)))
+        if aids is None:
+            aids = [0] * len(requests)
         MP = self.max_pages
         groups = {}
         for i, (ids, start, pages) in enumerate(requests):
@@ -771,6 +797,7 @@ class PagedGPTDecoder:
                 tl = np.ones(nb, np.int32)
                 tbl = np.full((nb, MP), self.num_pages - 1, np.int32)
                 kd = np.zeros(nb, np.int32)
+                ad = np.zeros(nb, np.int32)
                 for r, (i, ids, start, pages) in enumerate(chunk):
                     pad[r, :len(ids)] = ids
                     st[r] = start
@@ -778,14 +805,16 @@ class PagedGPTDecoder:
                     m = min(len(pages), MP)
                     tbl[r, :m] = pages[:m]     # rest stays on scratch
                     kd[r] = kids[i]
+                    ad[r] = aids[i]
                 nxt = self._ragged_forward(
                     self._as_i32(pad), self._as_i32(st), self._as_i32(tl),
-                    self._as_i32(tbl), self._kids(kd)).tolist()
+                    self._as_i32(tbl), self._kids(kd),
+                    aids=self._aids(ad)).tolist()
                 for r, (i, _, _, _) in enumerate(chunk):
                     results[i] = nxt[r]
         return results
 
-    def _prefill_packed_batch(self, requests, kids=None):
+    def _prefill_packed_batch(self, requests, kids=None, aids=None):
         """PACKED prefill dispatch: the layout (flat tokens, per-token row
         ids and positions) is built on the host, where all lengths are
         known, and sent to the device in one go per group. A request
@@ -793,6 +822,8 @@ class PagedGPTDecoder:
         results = [None] * len(requests)
         if kids is None:
             kids = list(range(len(requests)))
+        if aids is None:
+            aids = [0] * len(requests)
         S, MP, ps = self.max_batch, self.max_pages, self.page_size
         todo = list(enumerate(requests))
         while todo:
@@ -806,6 +837,7 @@ class PagedGPTDecoder:
             last_idx = np.zeros(S, np.int32)
             spos = np.zeros(S, np.int32)
             kd = np.zeros(S, np.int32)
+            ad = np.zeros(S, np.int32)
             live = np.zeros(S, bool)
             tbl = np.full((S, MP), self.num_pages - 1, np.int32)
             cur = 0
@@ -819,6 +851,7 @@ class PagedGPTDecoder:
                 last_idx[r] = max(cur + n - 1, 0)
                 spos[r] = int(start) + n - 1
                 kd[r] = kids[i]
+                ad[r] = aids[i]
                 live[r] = n > 0
                 m = min(len(pages), MP)
                 tbl[r, :m] = pages[:m]       # rest stays on scratch
@@ -828,7 +861,8 @@ class PagedGPTDecoder:
                 torch.as_tensor(ok, device=self.device), self._as_i32(tbl),
                 self._as_i32(last_idx), self._as_i32(spos),
                 self._kids(kd),
-                torch.as_tensor(live, device=self.device)).tolist()
+                torch.as_tensor(live, device=self.device),
+                aids=self._aids(ad)).tolist()
             for r, (i, _) in enumerate(chunk):
                 results[i] = nxt[r]
         return results
@@ -843,21 +877,44 @@ class PagedGPTDecoder:
             kids = np.arange(self.max_batch, dtype=np.int32)
         return self._as_i32(kids)
 
-    def decode(self, tokens, lens, table, kids=None):
+    def _aids(self, aids):
+        """Adapter ids on the device (numpy, list or tensor; default all
+        base), or None when no bank is attached — the forwards then run
+        no adapter launch at all. Host ids outside the bank raise here,
+        before a launch (the kernel skips rows it cannot index)."""
+        if self.lora is None:
+            return None
+        if aids is None:
+            aids = np.zeros(self.max_batch, np.int32)
+        if not isinstance(aids, torch.Tensor):
+            aids = np.asarray(aids, np.int32)
+            if aids.size and (aids.min() < 0 or
+                              aids.max() > self.n_adapters):
+                raise ValueError(
+                    f"adapter ids {sorted(set(aids.tolist()))} outside the "
+                    f"attached bank's 0 (base) .. {self.n_adapters}")
+        return self._as_i32(aids)
+
+    def decode(self, tokens, lens, table, kids=None, aids=None):
         """One decode step for all slots (greedy or sampled; `kids` the
         slots' key ids, default the slot index — the engine passes
-        request ids). Returns next [S] int32 on the device."""
+        request ids; `aids` [S] the slots' LoRA adapters when a bank is
+        attached, `attach_adapters`). Returns next [S] int32 on the
+        device."""
         nxt, _ = self._decode_step(self._as_i32(tokens), self._as_i32(lens),
-                                   self._as_i32(table), kids)
+                                   self._as_i32(table), kids,
+                                   aids=self._aids(aids))
         return nxt
 
     def decode_multi(self, tokens, lens, table, k, kids=None, done=None,
-                     remaining=None, eos=None, return_logits=False):
+                     remaining=None, eos=None, return_logits=False,
+                     aids=None):
         """Run `k` decode ticks device-resident: the tokens each tick
         emits feed the next without a host sync (see
         `_decode_multi_step`). Inputs and outputs may stay on the device.
-        Returns a MultiDecodeOut; its `logits_block` [k, S, V] is None
-        unless `return_logits` (speculation judges the draft's rows)."""
+        `aids` [S]: per-slot adapters (a bank attached). Returns a
+        MultiDecodeOut; its `logits_block` [k, S, V] is None unless
+        `return_logits` (speculation judges the draft's rows)."""
         k, S = int(k), self.max_batch
         if done is None:
             done = np.zeros(S, bool)
@@ -868,7 +925,7 @@ class PagedGPTDecoder:
             self._kids(kids),
             torch.as_tensor(done, dtype=torch.bool, device=self.device),
             self._as_i32(remaining), -1 if eos is None else int(eos), k,
-            return_logits=bool(return_logits))
+            return_logits=bool(return_logits), aids=self._aids(aids))
         return MultiDecodeOut(*out)
 
     def verify(self, tokens, lens, table, return_probs=False):
@@ -891,7 +948,7 @@ class PagedGPTDecoder:
 
     def ragged_multi(self, tokens, lens, table, k, w, pend, pend_n,
                      kids=None, done=None, remaining=None, eos=None,
-                     packed=None, t_tokens=None):
+                     packed=None, t_tokens=None, aids=None):
         """Run `k` MIXED ragged ticks device-resident: decode rows and
         prefill-chunk rows serve together, up to w suffix tokens per
         prefilling slot per tick. PACKED (`packed=None`: the decoder's
@@ -900,7 +957,8 @@ class PagedGPTDecoder:
         bound). `packed=False`: the dense [S, w] window twin
         (`_ragged_multi_step`), the same streams. `pend` [S, P] /
         `pend_n` [S] are the carried prompt suffixes (P =
-        `pend_capacity`). Returns a RaggedMultiOut."""
+        `pend_capacity`); `aids` [S] the slots' adapters (a bank
+        attached). Returns a RaggedMultiOut."""
         k, w, S = int(k), int(w), self.max_batch
         if packed is None:
             packed = self.packed
@@ -913,8 +971,10 @@ class PagedGPTDecoder:
                  torch.as_tensor(done, dtype=torch.bool, device=self.device),
                  self._as_i32(remaining), -1 if eos is None else int(eos),
                  self._as_i32(pend), self._as_i32(pend_n), w, k)
+        aids = self._aids(aids)
         if not packed:
-            return RaggedMultiOut(*self._ragged_multi_step(*carry))
+            return RaggedMultiOut(*self._ragged_multi_step(*carry,
+                                                           aids=aids))
         if t_tokens is None:
             t_tokens = pow2_at_least(S * max(w, 1))
         t = max(int(t_tokens), 1)
@@ -924,7 +984,7 @@ class PagedGPTDecoder:
             raise ValueError(
                 f"t_tokens {t} < max_batch {S}: the packed bucket must "
                 "cover at least one token per slot")
-        return RaggedMultiOut(*self._packed_multi_step(*carry, t))
+        return RaggedMultiOut(*self._packed_multi_step(*carry, t, aids=aids))
 
     # -- pages: copy-on-write, host tier, persistence -----------------------
 
@@ -1056,12 +1116,73 @@ class PagedGPTDecoder:
             for h, w in zip(have, want):
                 h.copy_(w)
 
+    # -- multi-LoRA ----------------------------------------------------------
+
+    def attach_adapters(self, adapters, alpha=None):
+        """Attach stacked low-rank (LoRA) adapter banks for multi-LoRA
+        serving (the JAX `attach_adapters`): `adapters` is a list of
+        per-adapter (A, B) pairs (numpy or tensors) with A [L, h, r] and
+        B [L, r, 3, H, D] (or [L, r, 3*H*D]) — the low-rank qkv delta of
+        one fine-tuned variant over the SHARED base weights. Adapter id 0
+        is the base model (an exact all-zero bank); caller adapters are
+        ids 1..n. Mixed ranks zero-pad to the max (zero rows and columns
+        add exact 0.0). `alpha` scales every delta by alpha/r, folded into
+        B here (default: alpha == r, scale 1). The bank lives on the
+        decoder's device as A [L, n+1, h, R] and B [L, n+1, R, 3*H*D] in
+        f32; each layer's delta reads it in place by adapter id
+        (`ops.lora_delta`). Per-adapter `adapter_salt`s — blake2b content
+        hashes, byte-equal to the JAX decoder's — keep prefix-cache pages
+        from aliasing across variants; `cache_fingerprint` keeps reading
+        the base weights only."""
+        cfg = self.cfg
+        L, h = cfg.num_layers, cfg.hidden_size
+        hd3 = 3 * cfg.num_heads * cfg.head_dim
+
+        def host(x):
+            if isinstance(x, torch.Tensor):
+                x = x.detach().cpu().float().numpy()
+            return np.asarray(x, np.float32)
+        ranks, pairs = [], []
+        for a, b in adapters:
+            a = host(a)
+            b = host(b).reshape(L, a.shape[-1], hd3)
+            if a.shape != (L, h, a.shape[-1]):
+                raise ValueError(
+                    f"adapter A must be [num_layers, hidden, r], got "
+                    f"{a.shape}")
+            if a.shape[-1] > lora.MAX_RANK:
+                raise ValueError(f"adapter rank {a.shape[-1]} > "
+                                 f"{lora.MAX_RANK}")
+            ranks.append(a.shape[-1])
+            pairs.append((a, b))
+        R = max(ranks) if ranks else 1
+        n = len(pairs)
+        A = np.zeros((L, n + 1, h, R), np.float32)
+        B = np.zeros((L, n + 1, R, hd3), np.float32)
+        salts = [b""]
+        for i, ((a, b), r) in enumerate(zip(pairs, ranks), start=1):
+            scale = (float(alpha) / r) if alpha is not None else 1.0
+            A[:, i, :, :r] = a
+            B[:, i, :r, :] = b * scale
+            # CONTENT hash, not content sums: two structurally related
+            # fine-tunes (a row permutation) can share every sum, and
+            # colliding salts would alias their cache pages
+            dig = hashlib.blake2b(digest_size=16)
+            dig.update(np.float32(scale).tobytes())
+            dig.update(a.tobytes())
+            dig.update(b.tobytes())
+            salts.append(dig.digest())
+        self.lora = {"lora_A": torch.from_numpy(A).to(self.device),
+                     "lora_B": torch.from_numpy(B).to(self.device)}
+        self.n_adapters = n
+        self._adapter_salts = salts
+        return self
+
     def adapter_salt(self, aid):
-        """Prefix-cache key salt of adapter `aid`: b"" for the base model
-        (id 0). LoRA adapters are not ported, so any other id raises."""
-        if int(aid) != 0:
-            raise _not_ported("LoRA adapters (adapter ids other than 0)")
-        return b""
+        """Prefix-cache key salt of adapter `aid` (b"" for the base model,
+        id 0): KV bytes written under an adapter depend on its bank, so
+        chain keys fold it in or pages would alias across variants."""
+        return self._adapter_salts[int(aid)]
 
     def cache_fingerprint(self):
         """Identity of this decoder's KV bytes, the prefix cache's root-key

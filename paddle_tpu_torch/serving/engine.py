@@ -14,8 +14,13 @@ in-port oracle for both; the scheduling-decision trace
 (mount, copy-on-write, publish, evict), the host tier behind it
 (`HostKVTier`: spill waves, priced restore or recompute) and the page
 ledger with its audit; the flight recorder (`trace=`: lifecycle spans,
-priced tick records, drift); `SpeculativeEngine`, greedy and sampled.
-Not ported yet: LoRA adapters and the tenancy hooks.
+priced tick records, drift); `SpeculativeEngine`, greedy and sampled;
+multi-LoRA (`submit(adapter=)`: per-slot adapter ids handed to every
+dispatch, adapter-salted prefix-cache keys, `slot_adapters` ledger rows)
+and the hooks the tenancy engine (`serving.tenancy`) overrides:
+`_admission_blocked`, `_note_queue_wait` / `_note_ttft` /
+`_note_resident`, and the resume-safe bookkeeping that lets a preempted
+request occupy a slot again (`_emit_base`, `_release_slot`).
 """
 import collections
 import time
@@ -114,9 +119,21 @@ class ContinuousBatchingEngine:
         # request id per slot: the sampling key id, so a request's draws
         # do not depend on which slot, batch or schedule served it
         self._kids = np.zeros(S, np.int32)
+        # LoRA adapter id per slot (only read when the decoder carries a
+        # bank) and per request (ids other than 0)
+        self._aids = np.zeros(S, np.int32)
+        self._rid_adapter = {}
         # per-slot admission generation: a block dispatched for an earlier
-        # occupancy of the slot must never book-keep against a later one
+        # occupancy of the slot must never book-keep against a later one —
+        # the rid alone cannot tell them apart once preemption
+        # (serving.tenancy) lets the SAME rid re-occupy a slot whose stale
+        # block is still in flight
         self._slot_gen = [0] * S
+        # rid -> output length at (re-)admission: the "first token of this
+        # admission" mark. 0 for fresh requests; a preempted request
+        # resumes with its generated prefix already in _outputs, and its
+        # first post-resume token must NOT restamp TTFT or republish
+        self._emit_base = {}
         self._table_cache = None             # rebuilt on admit/retire only
         self._queue = []                     # (req_id, ids)
         self._outputs = {}                   # req_id -> [generated ids]
@@ -440,9 +457,12 @@ class ContinuousBatchingEngine:
 
     # -- requests and admission -------------------------------------------
 
-    def submit(self, prompt_ids):
+    def submit(self, prompt_ids, adapter=None):
         """Queue one prompt (list, numpy array or tensor of token ids);
-        returns its request id."""
+        returns its request id. `adapter` selects a LoRA variant by id
+        (1..n over a bank attached with `PagedGPTDecoder.attach_adapters`;
+        0/None = base weights): requests of different adapters batch into
+        the same horizons, resolved per token on the device."""
         if isinstance(prompt_ids, torch.Tensor):
             prompt_ids = prompt_ids.cpu().numpy()
         ids = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
@@ -451,6 +471,7 @@ class ContinuousBatchingEngine:
                 "prompt must contain at least one token (prefill "
                 "samples the first generated token after the prompt's "
                 "last position — an empty prompt has none)")
+        aid = self._check_adapter(adapter)
         decoders = [d for d, _, _ in self._pools()]
         total = len(ids) + self.max_new + self._margin
         tokens = f"prompt {len(ids)} + max_new {self.max_new}" + (
@@ -466,22 +487,47 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"{tokens} tokens exceeds the model's max_seq_len "
                 f"{max_seq} (positions past it have no embedding)")
-        return self._register_request(ids)
+        return self._register_request(ids, adapter=aid)
 
-    def _register_request(self, ids):
+    def _check_adapter(self, adapter):
+        aid = int(adapter or 0)
+        if aid and self.d.lora is None:
+            raise ValueError(
+                f"adapter {aid} requested but the decoder carries no LoRA "
+                "bank — attach one with PagedGPTDecoder.attach_adapters")
+        if aid < 0 or aid > self.d.n_adapters:
+            raise ValueError(
+                f"adapter id {aid} out of range: the attached bank serves "
+                f"ids 0 (base) .. {self.d.n_adapters}")
+        return aid
+
+    def _register_request(self, ids, adapter=0, trace_fields=None):
         """Queue a VALIDATED request: rid allocation, queue-wait stamp,
         stats, the trace's submit record — one implementation for both
         engines' submit()s, called only after validation so a rejected
-        submission leaves no trace in the stats."""
+        submission leaves no trace in the stats. `trace_fields` ride into
+        the submit record (the tenancy engine stamps tenant/slo there;
+        the chrome exporter groups spans by it)."""
         rid = self._next_id
         self._next_id += 1
         self._submit_t[rid] = time.perf_counter()
         self.stats.requests += 1
+        if adapter:
+            self._rid_adapter[rid] = adapter
         self._queue.append((rid, ids))
         if self.trace is not None:
             self.trace.record("submit", ts=self._submit_t[rid], rid=rid,
-                              prompt_tokens=len(ids))
+                              prompt_tokens=len(ids),
+                              **(trace_fields or {}))
         return rid
+
+    def _request_max_new(self, rid):
+        """Tokens this request may still emit, for admission-time page
+        budgeting: max_new for a fresh request; a resumed (preempted) one
+        already banked len(outputs) of them, so its resume prompt
+        (original + generated prefix) plus the remainder needs exactly
+        the original page total."""
+        return self.max_new - len(self._outputs.get(rid, ()))
 
     def _pages_for(self, n_tokens):
         return (n_tokens + self.d.page_size - 1) // self.d.page_size
@@ -493,6 +539,16 @@ class ContinuousBatchingEngine:
         """(decoder, free list, per-slot page lists) of each page pool a
         request holds pages in: the decoder's own here."""
         return ((self.d, self._free, self._slot_pages),)
+
+    def _note_queue_wait(self, rid, dt):
+        """Queue-wait stamp hook (submit -> admit); the tenancy engine
+        also banks it per tenant."""
+        self.stats.queue_wait_s.append(dt)
+
+    def _note_ttft(self, rid, dt):
+        """TTFT stamp hook (submit -> first token); the tenancy engine
+        also banks it per tenant."""
+        self.stats.ttft_s.append(dt)
 
     def _note_resident(self):
         n = sum(r is not None for r in self._slot_req)
@@ -506,7 +562,7 @@ class ContinuousBatchingEngine:
         for _, rid, _, _ in admitted:
             t0 = self._submit_t.get(rid)
             if t0 is not None:
-                self.stats.queue_wait_s.append(now - t0)
+                self._note_queue_wait(rid, now - t0)
         if self.trace is not None:
             self._trace_admits(admitted, now)
 
@@ -534,7 +590,7 @@ class ContinuousBatchingEngine:
         for (slot, rid, ids, pages), first in zip(admitted, firsts):
             t0 = self._submit_t.pop(rid, None)
             if t0 is not None:
-                self.stats.ttft_s.append(done_t - t0)
+                self._note_ttft(rid, done_t - t0)
             self._outputs[rid] = [first]
             if self.trace is not None:
                 self.trace.record("first_token", ts=done_t, rid=rid)
@@ -565,7 +621,9 @@ class ContinuousBatchingEngine:
             reqs.append((ids[start:], start, pages))
         firsts = self.d.prefill_suffix_batch(
             reqs, kids=[rid for _, rid, _, _ in admitted],
-            packed=self.packed)
+            packed=self.packed,
+            aids=[self._rid_adapter.get(rid, 0)
+                  for _, rid, _, _ in admitted])
         for slot, rid, _, _ in admitted:
             self._publish_blocks(rid, slot)
         return firsts
@@ -594,32 +652,54 @@ class ContinuousBatchingEngine:
             self._slot_shared[slot].add(pages[b])
 
     def _occupy(self, slot, rid):
-        """Bind `rid` to `slot` (both admission paths): the request id and
-        the slot generation stamp the stale-block check compares."""
+        """Bind `rid` to `slot` (both admission paths): the request id, its
+        adapter id for the dispatch-side aids row, and the slot generation
+        stamp the stale-block check compares."""
         self._slot_req[slot] = rid
+        self._aids[slot] = self._rid_adapter.get(rid, 0)
         self._slot_gen[slot] += 1
+
+    def _admission_blocked(self, rid, need):
+        """The queue head cannot get its pages: True = wait (head-of-line).
+        The tenancy engine overrides it with preemption by page-spill —
+        parking a throughput victim's KV in the prefix cache frees or
+        parks enough pages that the admission can replan (False)."""
+        return True
 
     def _gather_admissions(self):
         """Bind queued requests to free slots in order while their pages
         fit (head-of-line: a request that does not fit waits, and so do
-        the ones behind it)."""
+        the ones behind it, unless `_admission_blocked` makes room)."""
         if self.cache is not None:
             return self._gather_admissions_cached()
         admitted = []
         pools = self._pools()
+        blocked = False
         for slot in range(self.d.max_batch):
+            if blocked:
+                break
             if self._slot_req[slot] is not None or not self._queue:
                 continue
-            rid, ids = self._queue[0]
-            need = self._pages_for(len(ids) + self.max_new + self._margin)
-            if any(need > d.max_pages or need > len(free)
-                   for d, free, _ in pools):
+            while True:
+                rid, ids = self._queue[0]
+                need = self._pages_for(len(ids) + self._request_max_new(rid)
+                                       + self._margin)
+                if any(need > d.max_pages for d, _, _ in pools):
+                    blocked = True           # permanently oversized head
+                    break
+                if any(need > len(free) for _, free, _ in pools):
+                    if self._admission_blocked(rid, need):
+                        blocked = True       # head-of-line: wait
+                        break
+                    # tenancy made room (a victim's pages freed): replan
+                    # THIS slot
+                    continue
+                self._queue.pop(0)
+                for _, free, held in pools:
+                    held[slot] = [free.pop() for _ in range(need)]
+                self._occupy(slot, rid)
+                admitted.append((slot, rid, ids, self._slot_pages[slot]))
                 break
-            self._queue.pop(0)
-            for _, free, held in pools:
-                held[slot] = [free.pop() for _ in range(need)]
-            self._occupy(slot, rid)
-            admitted.append((slot, rid, ids, self._slot_pages[slot]))
         return admitted
 
     def _gather_admissions_cached(self):
@@ -639,90 +719,102 @@ class ContinuousBatchingEngine:
         can cover the admission: mounted hits are excluded from eviction,
         so a full-span mount could otherwise block itself forever."""
         admitted = []
+        blocked = False
         ps = self.d.page_size
         tok_bytes = self.d.kv_page_bytes // ps
         for slot in range(self.d.max_batch):
+            if blocked:
+                break
             if self._slot_req[slot] is not None or not self._queue:
                 continue
-            rid, ids = self._queue[0]
-            L = len(ids)
-            total = self._pages_for(L + self.max_new)
-            if total > self.d.max_pages:
-                break                        # permanently oversized head
-            keys = self.cache.block_keys(ids,
-                                         extra_salt=self.d.adapter_salt(0))
-            hits = self.cache.match(keys)
-            n_dev = len(hits)
-            n_tier, do_restore, hold = self._tier_plan(keys, n_dev)
-            span = n_dev + (n_tier if do_restore else 0)
-            chosen = None
-            for n_hit in range(span, -1, -1):
-                start = n_hit * ps
-                # full hit: re-consume the last token
-                cow = n_hit > 0 and start >= L
-                if cow:
-                    start = L - 1
-                n_rest = max(0, n_hit - n_dev)
-                need_new = total - n_hit + (1 if cow else 0) + n_rest
-                if need_new <= len(self._free) + self.cache.evictable(
-                        exclude=keys[:n_hit]):
-                    chosen = (n_hit, start, cow, need_new, n_rest)
+            while True:
+                rid, ids = self._queue[0]
+                L = len(ids)
+                total = self._pages_for(L + self._request_max_new(rid))
+                if total > self.d.max_pages:
+                    blocked = True           # permanently oversized head
                     break
-            if chosen is None:
-                break                        # head-of-line: wait for pages
-            n_hit, start, cow, need_new, n_rest = chosen
-            hits = hits[:n_hit - n_rest]
-            self._queue.pop(0)
-            if n_tier:
-                # recompute-decided host blocks, plus any restore span the
-                # loop above degraded away, are re-prefilled
-                lo = max(n_hit, n_dev)
-                n_recomp = n_dev + n_tier - lo
-                if n_recomp:
-                    self._tier_recompute(keys, lo, n_recomp)
-            self.cache.mount(keys[:len(hits)])
-            if len(self._free) < need_new:
-                freed = self._spill_wave(need_new - len(self._free))
-                self.stats.prefix_evictions += len(freed)
-                self._free.extend(freed)
-            privates = [self._free.pop() for _ in range(need_new)]
-            keys_meta = keys
-            inserted = {}
-            if n_rest:
-                rest_pages = [privates.pop() for _ in range(n_rest)]
-                inserted = dict(self._tier_restore(keys, len(hits),
-                                                   rest_pages, hold, rid))
-                if not all(inserted.values()):
-                    # a refused restore insert breaks the held chain:
-                    # publish nothing deeper for this request
-                    keys_meta = keys[:len(hits)]
-                hits = hits + rest_pages
-            shared = list(hits)
-            shared_set = set(shared[:n_hit - n_rest]) | \
-                {p for p, ok in inserted.items() if ok}
-            if cow:
-                last = shared[-1]
-                if last in shared_set:
-                    dst = privates.pop()
-                    self.d.copy_page(last, dst)
-                    self.cache.release_page(last)
-                    self.stats.prefix_cow += 1
-                    shared_set.discard(last)
-                    shared[-1] = dst
-                else:
-                    # the final block is a restore whose insert was
-                    # refused: already private, return the spare page
-                    self._free.append(privates.pop())
-            pages = shared + privates        # block order: prefix first
-            self._occupy(slot, rid)
-            self._slot_pages[slot] = pages
-            self._slot_shared[slot] = shared_set
-            self._cache_meta[rid] = (start, keys_meta, n_hit)
-            self.stats.prefix_hits += n_hit
-            self.stats.prefix_misses += len(keys) - n_hit
-            self.stats.prefix_tokens_saved += start
-            self.stats.prefix_bytes_saved += start * tok_bytes
-            admitted.append((slot, rid, ids, pages))
+                keys = self.cache.block_keys(
+                    ids, extra_salt=self.d.adapter_salt(
+                        self._rid_adapter.get(rid, 0)))
+                hits = self.cache.match(keys)
+                n_dev = len(hits)
+                n_tier, do_restore, hold = self._tier_plan(keys, n_dev)
+                span = n_dev + (n_tier if do_restore else 0)
+                chosen = None
+                for n_hit in range(span, -1, -1):
+                    start = n_hit * ps
+                    # full hit: re-consume the last token
+                    cow = n_hit > 0 and start >= L
+                    if cow:
+                        start = L - 1
+                    n_rest = max(0, n_hit - n_dev)
+                    need_new = total - n_hit + (1 if cow else 0) + n_rest
+                    if need_new <= len(self._free) + self.cache.evictable(
+                            exclude=keys[:n_hit]):
+                        chosen = (n_hit, start, cow, need_new, n_rest)
+                        break
+                if chosen is None:
+                    if self._admission_blocked(rid, total):
+                        blocked = True       # head-of-line: wait for pages
+                        break
+                    # tenancy made room (a victim's pages parked or
+                    # freed): replan THIS slot from scratch
+                    continue
+                n_hit, start, cow, need_new, n_rest = chosen
+                hits = hits[:n_hit - n_rest]
+                self._queue.pop(0)
+                if n_tier:
+                    # recompute-decided host blocks, plus any restore span the
+                    # loop above degraded away, are re-prefilled
+                    lo = max(n_hit, n_dev)
+                    n_recomp = n_dev + n_tier - lo
+                    if n_recomp:
+                        self._tier_recompute(keys, lo, n_recomp)
+                self.cache.mount(keys[:len(hits)])
+                if len(self._free) < need_new:
+                    freed = self._spill_wave(need_new - len(self._free))
+                    self.stats.prefix_evictions += len(freed)
+                    self._free.extend(freed)
+                privates = [self._free.pop() for _ in range(need_new)]
+                keys_meta = keys
+                inserted = {}
+                if n_rest:
+                    rest_pages = [privates.pop() for _ in range(n_rest)]
+                    inserted = dict(self._tier_restore(keys, len(hits),
+                                                       rest_pages, hold, rid))
+                    if not all(inserted.values()):
+                        # a refused restore insert breaks the held chain:
+                        # publish nothing deeper for this request
+                        keys_meta = keys[:len(hits)]
+                    hits = hits + rest_pages
+                shared = list(hits)
+                shared_set = set(shared[:n_hit - n_rest]) | \
+                    {p for p, ok in inserted.items() if ok}
+                if cow:
+                    last = shared[-1]
+                    if last in shared_set:
+                        dst = privates.pop()
+                        self.d.copy_page(last, dst)
+                        self.cache.release_page(last)
+                        self.stats.prefix_cow += 1
+                        shared_set.discard(last)
+                        shared[-1] = dst
+                    else:
+                        # the final block is a restore whose insert was
+                        # refused: already private, return the spare page
+                        self._free.append(privates.pop())
+                pages = shared + privates        # block order: prefix first
+                self._occupy(slot, rid)
+                self._slot_pages[slot] = pages
+                self._slot_shared[slot] = shared_set
+                self._cache_meta[rid] = (start, keys_meta, n_hit)
+                self.stats.prefix_hits += n_hit
+                self.stats.prefix_misses += len(keys) - n_hit
+                self.stats.prefix_tokens_saved += start
+                self.stats.prefix_bytes_saved += start * tok_bytes
+                admitted.append((slot, rid, ids, pages))
+                break
         return admitted
 
     def _extra_prefill(self, admitted):
@@ -749,13 +841,24 @@ class ContinuousBatchingEngine:
                 self.cache.release_page(pid)
             else:
                 self._free.append(pid)
+        rid = self._slot_req[slot]
+        self._rid_adapter.pop(rid, None)
+        self._emit_base.pop(rid, None)
+        self._release_slot(slot)
         self.stats.completed += 1
+
+    def _release_slot(self, slot):
+        """Clear every per-slot field — retirement AND preemption (tenancy)
+        share this one sequence, so a field added for one cannot go stale
+        under the other (the generation bump, the adapter id and the
+        scheduler's retire all ride here)."""
         self._slot_shared[slot] = set()
         self._slot_req[slot] = None
         self._slot_pages[slot] = []
         self._slot_gen[slot] += 1
         self._lens[slot] = 0
         self._tokens[slot] = 0
+        self._aids[slot] = 0
         self._prompt_len[slot] = 0
         if self.scheduler is not None:
             self.scheduler.retire(slot)
@@ -775,6 +878,14 @@ class ContinuousBatchingEngine:
             "shared": {s: sorted(sh)
                        for s, sh in enumerate(self._slot_shared) if sh},
             "cache": self.cache.ledger() if self.cache else {},
+            # multi-LoRA rows: each occupied slot's adapter id and cache-key
+            # salt (hex) — the audit's cross-variant aliasing check
+            "slot_adapters": {
+                s: {"adapter": int(self._aids[s]),
+                    "salt": self.d.adapter_salt(int(self._aids[s])).hex()}
+                for s in range(self.d.max_batch)
+                if self._slot_req[s] is not None
+            } if self.d.lora is not None else {},
             "host": self.tier.ledger() if self.tier is not None else {},
         }
 
@@ -815,7 +926,7 @@ class ContinuousBatchingEngine:
         if self._table_cache is None:        # slots changed since last tick
             self._table_cache = self._table(self._slot_pages, self.d)
         nxt = self.d.decode(self._tokens, self._lens, self._table_cache,
-                            kids=self._kids).cpu().numpy()
+                            kids=self._kids, aids=self._aids).cpu().numpy()
         self.steps += 1
         self.stats.ticks += 1
         self.stats.decode_syncs += 1
@@ -1033,7 +1144,7 @@ class ContinuousBatchingEngine:
                 out = self.d.decode_multi(
                     tokens_d, lens_d, self._table_cache, k,
                     kids=self._kids, done=done_d, remaining=rem_d,
-                    eos=self.eos)
+                    eos=self.eos, aids=self._aids)
                 carry = (out.tokens, out.lens, out.done, out.remaining)
                 self.steps += k
                 self.stats.ticks += k
@@ -1090,7 +1201,9 @@ class ContinuousBatchingEngine:
             start = self._cache_meta[rid][0] if self.cache is not None \
                 else 0
             suffix = ids[start:]
-            self._outputs[rid] = []
+            # setdefault: a RESUMED request (tenancy preemption) keeps its
+            # generated prefix — the continuation appends to it
+            self._outputs.setdefault(rid, [])
             self._lens[slot] = start
             self._tokens[slot] = 0
             self._kids[slot] = rid
@@ -1109,7 +1222,7 @@ class ContinuousBatchingEngine:
         later mount's reads and any spill's copy)."""
         t0 = self._submit_t.pop(rid, None)
         if t0 is not None:
-            self.stats.ttft_s.append(time.perf_counter() - t0)
+            self._note_ttft(rid, time.perf_counter() - t0)
         if self.trace is not None:
             self.trace.record("first_token", rid=rid)
         self._publish_blocks(rid, slot)
@@ -1175,14 +1288,19 @@ class ContinuousBatchingEngine:
             if self._slot_req[s] != rid or self._slot_gen[s] != gen:
                 # stale block of a retired/re-admitted slot: its emit
                 # ticks were already discarded by the inflight reset at
-                # re-admission
+                # re-admission. The generation matters beyond the rid:
+                # preemption (tenancy) can resume the SAME rid into the
+                # same slot while its pre-preemption block is in flight —
+                # those tokens are regenerated after the resume
                 continue
             inflight[s] = max(0, inflight[s] - emit_ticks.get(s, 0))
             for j in range(k):
                 if not emitted[j, s]:
                     continue
                 tok = int(block[j, s])
-                if not self._outputs[rid]:
+                if len(self._outputs[rid]) == self._emit_base.get(rid, 0):
+                    # first token of THIS admission (a resume's _submit_t
+                    # is long popped: no second TTFT)
                     self._first_token(rid, s)
                 else:
                     self._lens[s] += 1
@@ -1231,9 +1349,12 @@ class ContinuousBatchingEngine:
             else:
                 # NOT host _lens: it lags at 0 until the first token is
                 # PROCESSED, while the device may already sit at
-                # prompt_len + in-flight emissions
+                # prompt_len + in-flight emissions. Outputs count from
+                # this ADMISSION's base: a resumed request's earlier
+                # tokens are already inside _prompt_len
                 pos = (self._prompt_len[s]
                        + len(self._outputs.get(rid, ()))
+                       - self._emit_base.get(rid, 0)
                        + inflight[s] + plan.k + 2)
             bound = max(bound, pos)
         need = min(self.d.max_pages, (bound + ps - 1) // ps + 1)
@@ -1290,7 +1411,7 @@ class ContinuousBatchingEngine:
                     np.ascontiguousarray(self._table_cache[:, :width]),
                     plan.k, plan.w, pend_d, pend_n_d, kids=self._kids,
                     done=done_d, remaining=rem_d, eos=self.eos,
-                    packed=self.packed, t_tokens=t_tokens)
+                    packed=self.packed, t_tokens=t_tokens, aids=self._aids)
                 carry = (out.tokens, out.lens, out.done, out.remaining,
                          out.pend, out.pend_n)
                 self.steps += plan.k

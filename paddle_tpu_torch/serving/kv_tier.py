@@ -68,9 +68,9 @@ def restore_beats_recompute(restore_bytes, span_tokens, flops_per_token,
     `prefill_ttft_s` with no sync floor — admission pays no extra sync
     either way), so the call sites (engine admission, tests) can never
     disagree on the formula. `shared=True` prices a cross-process
-    tier (the JAX package's `serving.fleet.SharedHostKVTier`, not
-    ported yet): the payload is read out of an shm-/file-backed store
-    first (`ChipSpec.host_read_bw`), THEN crosses PCIe — the engine
+    tier (`serving.fleet.SharedHostKVTier`): the payload is read out
+    of an shm-/file-backed store first (`ChipSpec.host_read_bw`), THEN
+    crosses PCIe — the engine
     passes the tier's own `shared` attribute."""
     from ..cost_model import kv_restore_s, prefill_ttft_s
     return kv_restore_s(restore_bytes, chip=chip, shared=shared) < \

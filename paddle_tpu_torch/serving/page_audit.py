@@ -33,8 +33,10 @@ def audit_page_ledger(ledger):
     (`ContinuousBatchingEngine.page_ledger()`): with a shared (prefix-
     cached) KV pool, every allocatable page must be owned EXACTLY once —
     on the free list, XOR held by slot(s) under a covering cache refcount,
-    XOR parked (refcount 0) in the cache's LRU — and a host-tier entry's
-    device twin must be a live cache-tracked page. Double frees, leaks,
+    XOR parked (refcount 0) in the cache's LRU — no page may be shared by
+    slots of different adapter salts (`slot_adapters` rows), and a
+    host-tier entry's device twin must be a live cache-tracked page.
+    Double frees, leaks,
     refcount drift and dropped unmounts surface as findings. Returns a
     list of Finding (empty = consistent)."""
     findings = []
@@ -64,6 +66,12 @@ def audit_page_ledger(ledger):
     for s, pages in slots.items():
         for p in pages:
             holders.setdefault(p, []).append(s)
+    # multi-LoRA rows: per-slot adapter salts — a page shared across slots
+    # whose salts DIFFER means one variant reads another's KV bytes (the
+    # adapter's delta is part of every write). The engine prevents it by
+    # folding `adapter_salt` into the chain keys; this proves it held.
+    slot_adapters = {int(s): dict(e) for s, e in
+                     (ledger.get("slot_adapters") or {}).items()}
     for p, hs in holders.items():
         if len(hs) > 1 and (p not in cache
                             or int(cache[p].get("refs", 0)) < len(hs)):
@@ -71,6 +79,16 @@ def audit_page_ledger(ledger):
                 "covering cache refcount (unaccounted aliasing)",
                 fix="mount shared pages through the prefix cache so "
                 "refcounts track every holder")
+        if len(hs) > 1 and slot_adapters:
+            salts = {slot_adapters.get(s, {}).get("salt", "") for s in hs}
+            if len(salts) > 1:
+                bad(f"page {p} is shared by slots {sorted(hs)} with "
+                    "DIFFERENT adapter fingerprints — a LoRA variant is "
+                    "aliasing another variant's KV bytes",
+                    fix="fold the request's adapter_salt into the "
+                    "prefix-cache chain keys (PrefixCache.block_keys(ids, "
+                    "extra_salt=...)) so cross-variant prompts never "
+                    "match the same entries")
     for p in seen:
         if p in holders:
             bad(f"page {p} is both free and held by slot(s) "

@@ -36,8 +36,7 @@ Timestamps are raw `time.perf_counter()` seconds. The port has no
 `profiler` module yet, so `export_chrome_trace(profiler=...)` raises;
 the request spans and tick records export alone. Token VALUES are never
 recorded (counts and ids only): traces are shareable without leaking
-prompt content. The tenancy engine is not ported either: an event that
-carries a `tenant` field makes `chrome_events` raise.
+prompt content.
 """
 import collections
 import json
@@ -211,26 +210,39 @@ class FlightRecorder:
         row per request), progress/preempt/resume marks as instants,
         tick records as "X" slices on a per-track scheduler row with
         predicted vs measured in args. Timestamps are perf_counter
-        microseconds. An event with a `tenant` field (the tenancy
-        engine's per-tenant pid groups, not ported) raises
-        NotImplementedError."""
+        microseconds.
+
+        TENANT grouping (serving.tenancy): requests whose submit
+        record carries a `tenant` field render under one pid PER
+        TENANT (pids after the tick row, sorted by tenant name), so a
+        multi-tenant trace reads as one Perfetto process per tenant;
+        untenanted requests keep the base `pid`."""
         out = [{"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
                 "args": {"name": f"{label} requests",
                          **({"meta": dict(self.meta)} if self.meta
                             else {})}}]
         spans = {}                       # rid -> {milestone: ts}
         ticks = []
+        rid_tenant = {}                  # rid -> tenant (span grouping)
         for ev in self.events:
             kind = ev["kind"]
-            if "tenant" in ev:
-                raise NotImplementedError(
-                    "per-tenant chrome-trace groups (the tenancy engine) "
-                    "are not ported to paddle_tpu_torch yet")
             if kind == "tick":
                 ticks.append(ev)
             elif "rid" in ev:
                 spans.setdefault(ev["rid"], []).append(ev)
+                if "tenant" in ev:
+                    rid_tenant.setdefault(ev["rid"], str(ev["tenant"]))
+        # tenant pids live PAST the tick row (pid + 1), so adding a
+        # tenant never renumbers the tick track
+        tenant_pid = {t: pid + 2 + i for i, t in
+                      enumerate(sorted(set(rid_tenant.values())))}
+        for t, tp in sorted(tenant_pid.items()):
+            out.append({"name": "process_name", "ph": "M", "pid": tp,
+                        "tid": 0,
+                        "args": {"name": f"{label} requests — "
+                                 f"tenant={t}"}})
         for rid, evs in sorted(spans.items()):
+            rpid = tenant_pid.get(rid_tenant.get(rid), pid)
             marks = {}
             for ev in evs:
                 marks.setdefault(ev["kind"], ev)
@@ -239,7 +251,7 @@ class FlightRecorder:
                             if k not in ("kind", "ts", "rid")}
                     out.append({"name": f"req{rid}:{ev['kind']}",
                                 "ph": "i", "s": "t",
-                                "ts": ev["ts"] * 1e6, "pid": pid,
+                                "ts": ev["ts"] * 1e6, "pid": rpid,
                                 "tid": int(rid), "args": args})
             for start, end, seg in self._SEGMENTS:
                 if start in marks and end in marks:
@@ -252,7 +264,7 @@ class FlightRecorder:
                     out.append({"name": f"req{rid}:{seg}", "ph": "X",
                                 "ts": t0 * 1e6,
                                 "dur": max(t1 * 1e6 - t0 * 1e6, 0.0),
-                                "pid": pid, "tid": int(rid),
+                                "pid": rpid, "tid": int(rid),
                                 "args": args})
         # MULTIPLE lanes per track: the engines close a tick's
         # measured window AFTER the next horizon is dispatched
@@ -323,9 +335,12 @@ def export_chrome_trace(path, recorders=(), profiler=None):
     `recorders` may be one FlightRecorder, a sequence of them, or a
     LABELED collection — a {label: recorder} dict or (label, recorder)
     pairs. Labels flow into every process_name/thread_name the recorder
-    emits; each recorder claims a contiguous pid block (requests row,
-    then the tick track), and the next one starts past the largest pid
-    the previous one emitted. `profiler` (a profiler's host timeline in
+    emits, so an N-replica fleet (`serving.fleet.FleetRouter.
+    export_trace` passes {"replica0": rec0, ...}) lands on ONE timeline
+    with distinct pids per (replica, tenant): each recorder claims a
+    contiguous pid block (requests row, tick track, then one pid per
+    tenant), and the next one starts past the largest pid the previous
+    one actually emitted. `profiler` (a profiler's host timeline in
     the JAX package) raises NotImplementedError: the port has no
     profiler module yet."""
     if profiler is not None:

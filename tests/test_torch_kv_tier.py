@@ -518,8 +518,8 @@ def test_save_and_load_pool_state_refuse_live_references(models):
     """save() under live requests would snapshot pages about to diverge,
     and load_pool_state under an engine holding pages (slot-held, or
     parked in its cache) would orphan its ledger: both refuse. A drained
-    cache-less engine's pool loads, by copy. adapter ids other than 0
-    raise."""
+    cache-less engine's pool loads, by copy. Without a bank, adapter ids
+    other than 0 have no salt (as in JAX)."""
     dec, eng = _engine(models, num_pages=32, max_new=8)
     donor = _decoder(models, num_pages=32)
     eng.submit(np.asarray(list(range(1, 33)), np.int32))
@@ -542,7 +542,7 @@ def test_save_and_load_pool_state_refuse_live_references(models):
     with pytest.raises(ValueError, match="quant config"):
         dec2.load_pool_state({**state, "kv_quant": "int8"})
     assert dec2.adapter_salt(0) == b""
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(IndexError):
         dec2.adapter_salt(1)
 
 

@@ -151,15 +151,16 @@ def test_unported_options_raise(models):
     dec = _decoder(models, temperature=0.7, top_k=5, seed=9)
     assert dec.sampling == (0.7, 5, 1.0) and dec.seed == 9
     # the flight recorder and the dispatch-separate loop are ported
-    # (test_torch_trace.py, test_torch_dense_windows.py); tensor-parallel
-    # serving and LoRA adapters are not
+    # (test_torch_trace.py, test_torch_dense_windows.py), and so are LoRA
+    # adapters (test_torch_lora.py: without a bank only the base id 0 has
+    # a salt, as in JAX); tensor-parallel serving is not
     eng = ContinuousBatchingEngine(_decoder(models), trace=True)
     assert eng.trace is not None and eng.trace.meta["ragged"]
     eng = ContinuousBatchingEngine(_decoder(models), ragged=False, k_max=4)
     assert not eng.ragged and eng.k_max == 4 and eng.scheduler is None
     with pytest.raises(NotImplementedError):
         _decoder(models, mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(IndexError):
         _decoder(models).adapter_salt(1)
 
 

@@ -352,7 +352,8 @@ def test_serving_report_front_door(models):
 def test_mixed_ragged_export_is_schema_clean(models, tmp_path):
     """A real mixed ragged run exports a chrome trace the schema check
     passes (the JAX validator agrees), with spans, instants and ticks;
-    a profiler and a tenant field raise (not ported)."""
+    a profiler raises (not ported); a tenant field puts the request's row
+    under a pid of its own, as the JAX recorder does."""
     rec = FlightRecorder(progress_every=4)
     _stream(models, [list(range(1, 41)), [3, 141, 59]], 9, k_max=4,
             chunk_tokens=8, trace=rec)
@@ -369,8 +370,11 @@ def test_mixed_ragged_export_is_schema_clean(models, tmp_path):
         export_chrome_trace(str(tmp_path / "p.json"), recorders=rec,
                             profiler=object())
     rec.record("submit", ts=1.0, rid=99, tenant="a")
-    with pytest.raises(NotImplementedError):
-        rec.chrome_events()
+    evs = rec.chrome_events()
+    assert evs == JaxRecorder.chrome_events(rec)
+    tenant_pid = [e["pid"] for e in evs if e.get("name") == "process_name"
+                  and e["args"]["name"].endswith("tenant=a")]
+    assert tenant_pid == [3]                 # past the tick row (pid 2)
 
 
 def test_recorder_outputs_equal_jax_on_identical_events():
