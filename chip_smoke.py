@@ -147,6 +147,16 @@ preempt) through the class-blind and the tenant engine, then through the
 precision-routed engine (int8 latency, int4 throughput pools); and drives
 fleets of 1 and 3 replicas (round-robin and threaded) over a shared host
 KV tier, with a respawned replica warm-starting from it.
+Slice 19 (int8 inference) holds the A8W8 row quantize and int8 GEMM
+bit-equal to their plain versions at gpt_1p3b's four products (f32, bf16
+and f16, both epilogue orders, dynamic and static scales, zero and +-127
+rows, a row's bits independent of T) and times them at T 16 and 1024
+beside the bound and `torch._int_mm`; serves the gpt_1p3b traffic with
+quant="a8w8" (streams against the bf16 run and the per-tick engine, the
+NLL of the bf16 streams); and runs paddle.quantization on gpt_1p3b at 4
+x 1024: quantize_model with int8 and int4 weights (the W4 kernel at
+4096 rows), PTQ (4 calibration batches) and QAT (3 AdamW steps, remat
+'none').
 Every phase raises on failure.
 The output is one line per phase, then one JSON line with the kernels'
 numbers, the card's name and power limit, and as the last line
@@ -172,9 +182,14 @@ H100_BF16_FLOPS = 989e12            # data sheet, bf16 dense tensor cores
 SEED = 0
 
 
+_T0 = time.perf_counter()
+
+
 def log(phase, **fields):
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
-          flush=True)
+    """One line a reading; `at_s` is the seconds since the script began,
+    the run's timeline."""
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items())
+          + f" at_s={time.perf_counter() - _T0:.1f}", flush=True)
 
 
 def cuda_ms(fn, iters):
@@ -1239,7 +1254,8 @@ def phase_profile(dec, prompts, **tags):
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    fam = {"attention": 0.0, "w4_matmul": 0.0, "gemm": 0.0, "other": 0.0}
+    fam = {"attention": 0.0, "w4_matmul": 0.0, "a8w8": 0.0, "gemm": 0.0,
+           "other": 0.0}
     kernels = []
     n_launch = 0
     for ev in prof.key_averages():
@@ -1257,6 +1273,8 @@ def phase_profile(dec, prompts, **tags):
             fam["attention"] += us
         elif "w4_matmul" in name:
             fam["w4_matmul"] += us
+        elif "a8w8" in name:
+            fam["a8w8"] += us
         elif any(t in name.lower() for t in ("gemm", "nvjet", "cutlass",
                                              "xmma")):
             fam["gemm"] += us                # cuBLAS / cuBLASLt kernels
@@ -7187,6 +7205,550 @@ def phase_fleet(sd, rpa):
     return launches
 
 
+# ---------------------------------------------------------------- slice 19
+# Int8 inference: the A8W8 kernels (row quantize, int8 GEMM), a8w8 serving
+# of gpt_1p3b, and paddle.quantization on gpt_1p3b: quantize_model (int8
+# and int4 weights), PTQ and QAT.
+
+H100_INT8_OPS = 1979e12             # data sheet, int8 dense tensor cores
+# gpt_1p3b's four products a layer: (name, K, N)
+A8_PRODUCTS = (("qkv", 2048, 6144), ("proj", 2048, 2048),
+               ("fc1", 2048, 8192), ("fc2", 8192, 2048))
+A8_DECODE_T, A8_CHUNK_T = 16, 1024
+# rows whose bits must not depend on the call's row count
+A8_ROWS = (1, 16, 17, 1024)
+A8_ITERS = 50
+# quantize_model / PTQ / QAT: batch 4 x 1024 of gpt_1p3b (all 24 layers)
+QM_B, QM_L = 4, 1024
+PTQ_CALIB = 4
+QAT_STEPS = 3
+
+
+def _ptxas_a8w8():
+    """Registers and spill stores of each a8w8 body from nvcc's log; raises
+    if an instantiation is missing (3 dtypes x 2 modes or orders)."""
+    from paddle_tpu_torch.ops import _build
+    text = _build.build_logs.get("a8w8_matmul")
+    if text is None:
+        log("ptxas_a8w8", checked=False,
+            reason="library built before this run")
+        return "not measured (library built before this run)"
+    entries = _ptxas_entries(text)
+    summary = []
+    for body in ("a8w8_quantize_rows_kernel<", "a8w8_gemm_decode_kernel<",
+                 "a8w8_gemm_tile_kernel<"):
+        got = [(_ptxas_number(r"Used (\d+) registers", regs),
+                _ptxas_number(r"(\d+) bytes spill stores", spill))
+               for fn, regs, spill in entries if fn and fn.startswith(body)]
+        if len(got) != 6:
+            raise RuntimeError(f"ptxas: {body}...> has {len(got)} of its 6 "
+                               "instantiations")
+        regs = f"{min(r for r, _ in got)}-{max(r for r, _ in got)}"
+        spill = max(b for _, b in got)
+        log("ptxas_a8w8", kernel=body.rstrip("<"), instantiations=len(got),
+            registers=regs, spill_store_bytes=spill)
+        summary.append(f"{body.rstrip('<')} {regs} regs, {spill} B spill")
+    return "; ".join(summary)
+
+
+def _a8_rows(gen, T, K, dtype):
+    """x [T, K] on the card: row 0 zero, row 1 with an exact multiple of
+    127 as its absmax (every element on the grid, the extremes +-127),
+    row 2 with exact halves of a step."""
+    x = torch.randn((T, K), generator=gen, device="cuda")
+    if T > 2:
+        x[0] = 0
+        x[1] = (torch.arange(K, device="cuda") % 255 - 127).float()
+        x[2] = torch.randint(-254, 255, (K,), generator=gen,
+                             device="cuda").float() / 2
+        x[2, 0] = 127.0
+    return x.to(dtype)
+
+
+def _a8_weight(gen, K, N):
+    """A quantized gpt_1p3b-like weight: K-contiguous int8 [N, K] and its
+    f32 scales, from N(0, 0.02) through `quantize_weight`."""
+    from paddle_tpu_torch.quantization import quantize_weight
+    w = torch.randn((K, N), generator=gen, device="cuda") * 0.02
+    q, s = quantize_weight(w, axis=0)
+    return q.t().contiguous(), s.reshape(-1)
+
+
+def _a8_bound(T, K, N, itemsize, bias_itemsize):
+    """(quantize bound ms, GEMM bound ms, GEMM bound_by): the quantize
+    reads x once and writes xq and sx; the GEMM reads xq, the int8 weight,
+    sx, sw and b once and writes the output, and does 2 T N K int8
+    operations at the dense int8 peak; the bound is the larger time."""
+    q_bytes = T * K * (itemsize + 1) + 4 * T
+    g_bytes = T * K + N * K + 4 * T + 4 * N + N * bias_itemsize \
+        + T * N * itemsize
+    b_ms = g_bytes / H100_HBM_BYTES_PER_S * 1e3
+    o_ms = 2.0 * T * N * K / H100_INT8_OPS * 1e3
+    return (q_bytes / H100_HBM_BYTES_PER_S * 1e3, max(b_ms, o_ms),
+            "bytes" if b_ms >= o_ms else "operations")
+
+
+def phase_a8w8_kernel(a8):
+    """[a8w8_kernel]: the row quantize and the int8 GEMM against their
+    plain versions at gpt_1p3b's four products, T 1024: dynamic and static
+    scales, both epilogue orders, f32 / bf16 / f16 x, an f32, bf16 or no
+    bias; bits equal; the first T rows (T in A8_ROWS) of a 1024-row call
+    bit-equal alone (a row's bits do not depend on T; T <= 16 runs the
+    decode body, T > 16 the tile body); two launches bit-equal; an odd
+    shape (K 40, N 130, T 300: the byte-wise loads). Then times at the
+    decode shape (T 16) and at a 1024-row chunk: eager (CUDA events),
+    device (CUDA-graph replay), the plain versions, `torch._int_mm` on the
+    same int8 operands (its int32 product only; it needs M > 16, so the
+    decode rows are padded to 32), and the bound. Returns (max error
+    {kernel: 0.0}, timing {kernel: fields}, ptxas summary)."""
+    from paddle_tpu_torch.quantization import quantize_weight
+    from paddle_tpu_torch.serving import decoder as sdec
+    ptxas = _ptxas_a8w8()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # the plain quantizers on the card divide as on the CPU (and in JAX):
+    # a CUDA division by a Python scalar would multiply by its reciprocal
+    w = torch.randn((2048, 2048), generator=gen, device="cuda") * 0.02
+    kv = torch.randn((1024, 16, 128), generator=gen, device="cuda")
+    same = {
+        "quantize_weight": all(
+            _bits_equal(a.cpu(), b) for bits in (8, 4) for a, b in zip(
+                quantize_weight(w, bits=bits),
+                quantize_weight(w.cpu(), bits=bits))),
+        "quantize_kv": all(
+            _bits_equal(a.cpu(), b) for fn in (sdec._quantize_kv,
+                                               sdec._quantize_kv_int4)
+            for a, b in zip(fn(kv), fn(kv.cpu()))),
+        "quantize_rows_plain": all(
+            _bits_equal(a.cpu(), b) for a, b in zip(
+                a8._quantize_rows_ref(w), a8._quantize_rows_ref(w.cpu())))}
+    log("kernel", form="a8w8_plain_division",
+        **{f"{k}_card_equals_cpu": v for k, v in same.items()})
+    if not all(same.values()):
+        raise AssertionError(f"a plain quantizer's bits differ between the "
+                             f"card and the CPU: {same}")
+    checked = 0
+    cases = [(name, K, N, dt) for name, K, N in A8_PRODUCTS
+             for dt in (torch.float32, torch.bfloat16, torch.float16)]
+    cases.append(("odd", 40, 130, torch.bfloat16))
+    for name, K, N, dt in cases:
+        T = A8_CHUNK_T if name != "odd" else 300
+        x = _a8_rows(gen, T, K, dt)
+        wt, sw = _a8_weight(gen, K, N)
+        b = {torch.float32: torch.randn(N, generator=gen, device="cuda"),
+             torch.bfloat16: torch.randn(N, generator=gen, device="cuda")
+             .bfloat16(), torch.float16: None}[dt]
+        static = torch.tensor(float(x.float().abs().max()) / 200.0,
+                              device="cuda")     # saturates some rows
+        for sx_in in (None, static):
+            xq, sx = a8.quantize_rows(x, sx_in)
+            pq, psx = a8._quantize_rows_ref(x, sx_in)
+            if not (_bits_equal(xq, pq) and _bits_equal(sx, psx)):
+                raise AssertionError(f"a8w8 quantize {name} {dt} "
+                                     f"static={sx_in is not None}: bits "
+                                     "differ from the plain version")
+            if sx_in is None and T > 2 and not (
+                    bool((xq[0] == 0).all())
+                    and int(xq[1].abs().max()) == 127):
+                raise AssertionError("zero / +-127 rows quantized wrongly")
+            for order in (a8.DECODER, a8.PTQ):
+                got = a8.a8w8_matmul(xq, sx, wt, sw, b, order, dt)
+                want = a8._a8w8_ref(xq, sx, wt, sw, b, order, dt)
+                again = a8.a8w8_matmul(xq, sx, wt, sw, b, order, dt)
+                if not (_bits_equal(got, want) and _bits_equal(got, again)):
+                    raise AssertionError(
+                        f"a8w8 GEMM {name} {dt} order {order}: bits differ "
+                        f"(max {float((got.float() - want.float()).abs().max())})")
+                checked += 1
+            rows_equal = []
+            full = a8.a8w8_matmul(xq, sx, wt, sw, b, a8.DECODER, dt)
+            for t in (A8_ROWS if name != "odd" else (1, 17)):
+                q1, s1 = a8.quantize_rows(x[:t].contiguous(), sx_in)
+                part = a8.a8w8_matmul(q1, s1, wt, sw, b, a8.DECODER, dt)
+                rows_equal.append(_bits_equal(q1, xq[:t])
+                                  and _bits_equal(part, full[:t]))
+            if not all(rows_equal):
+                raise AssertionError(f"a8w8 {name} {dt}: a row's bits "
+                                     f"depend on T ({rows_equal})")
+        log("kernel", form="a8w8", product=name, T=T, K=K, N=N,
+            dtype=str(dt).split(".")[1],
+            bias=None if b is None else str(b.dtype).split(".")[1],
+            quantize_bits_equal=True, gemm_bits_equal=True,
+            orders="decoder,ptq", scales="dynamic,static",
+            rows_bit_equal_alone=",".join(map(str, A8_ROWS if name != "odd"
+                                               else (1, 17))))
+    log("kernel", form="a8w8_summary", cases=checked,
+        routes=dict(sorted(a8.branch_launches.items())))
+
+    timing = {"a8w8_quantize_rows": {}, "a8w8_gemm": {}}
+    tot = {k: [0.0] * 6 for k in timing}
+    by_ms = {"bytes": 0.0, "operations": 0.0}   # the decode bound's parts
+    for T in (A8_DECODE_T, A8_CHUNK_T):
+        for name, K, N in A8_PRODUCTS:
+            dt = torch.bfloat16
+            x = _a8_rows(gen, T, K, dt)
+            wt, sw = _a8_weight(gen, K, N)
+            b = torch.randn(N, generator=gen, device="cuda").bfloat16()
+            xq, sx = a8.quantize_rows(x)
+            q_bound, g_bound, g_by = _a8_bound(T, K, N, 2, 2)
+            q_ms = cuda_ms(lambda i=0: a8.quantize_rows(x), A8_ITERS)
+            q_dev = cuda_graph_ms(lambda i=0: a8.quantize_rows(x), A8_ITERS)
+            q_plain = cuda_ms(lambda i=0: a8._quantize_rows_ref(x), 10)
+            g_ms = cuda_ms(lambda i=0: a8.a8w8_matmul(
+                xq, sx, wt, sw, b, a8.DECODER, dt), A8_ITERS)
+            g_dev = cuda_graph_ms(lambda i=0: a8.a8w8_matmul(
+                xq, sx, wt, sw, b, a8.DECODER, dt), A8_ITERS)
+            g_plain = cuda_ms(lambda i=0: a8._a8w8_ref(
+                xq, sx, wt, sw, b, a8.DECODER, dt), 5)
+            pad = max(T, 32)
+            xp = torch.zeros((pad, K), dtype=torch.int8, device="cuda")
+            xp[:T] = xq
+            wk = wt.t()                      # [K, N], column-major
+            lib_ms = cuda_ms(lambda i=0: torch._int_mm(xp, wk), A8_ITERS)
+            lib_dev = cuda_graph_ms(lambda i=0: torch._int_mm(xp, wk),
+                                    A8_ITERS)
+            log("kernel_time", kernel="a8w8", product=name, T=T, K=K, N=N,
+                dtype="bfloat16", quantize_ms=f"{q_ms:.4f}",
+                quantize_device_ms=f"{q_dev:.4f}",
+                quantize_plain_ms=f"{q_plain:.4f}",
+                quantize_bound_ms=f"{q_bound:.5f}",
+                gemm_ms=f"{g_ms:.4f}", gemm_device_ms=f"{g_dev:.4f}",
+                gemm_plain_ms=f"{g_plain:.4f}",
+                gemm_bound_ms=f"{g_bound:.5f}", gemm_bound_by=g_by,
+                int_mm_ms=f"{lib_ms:.4f}", int_mm_device_ms=f"{lib_dev:.4f}",
+                int_mm_rows=pad,
+                gemm_share_of_bound=f"{g_bound / g_dev:.3f}",
+                route=("decode" if T <= 16 else "tile"))
+            if T == A8_DECODE_T:
+                by_ms[g_by] += g_bound
+                for k, vals in (("a8w8_quantize_rows",
+                                 (q_ms, q_dev, q_plain, q_bound, None,
+                                  None)),
+                                ("a8w8_gemm",
+                                 (g_ms, g_dev, g_plain, g_bound, lib_ms,
+                                  lib_dev))):
+                    tot[k] = [a + (v or 0.0) for a, v in zip(tot[k], vals)]
+            else:
+                timing["a8w8_quantize_rows"][f"chunk_{name}_device_ms"] = \
+                    round(q_dev, 4)
+                timing["a8w8_gemm"][f"chunk_{name}_ms"] = round(g_ms, 4)
+                timing["a8w8_gemm"][f"chunk_{name}_device_ms"] = \
+                    round(g_dev, 4)
+                timing["a8w8_gemm"][f"chunk_{name}_bound_ms"] = \
+                    round(g_bound, 6)
+                timing["a8w8_gemm"][f"chunk_{name}_int_mm_ms"] = \
+                    round(lib_ms, 4)
+    # the JSON line: one layer's four products at the decode shape
+    for k, by, lib in (("a8w8_quantize_rows", "bytes", False),
+                       ("a8w8_gemm", max(by_ms, key=by_ms.get), True)):
+        ms, dev, plain, bound, lms, ldev = tot[k]
+        timing[k].update({
+            "ms": round(ms, 4), "device_ms": round(dev, 4),
+            "plain_ms": round(plain, 4), "bound_ms": round(bound, 6),
+            "bound_by": by, "library_ms": round(lms, 4) if lib else None,
+            **({"library_device_ms": round(ldev, 4),
+                "library": "torch._int_mm, rows padded to 32"}
+               if lib else {}),
+            "shape": "one gpt_1p3b layer's 4 products at T 16, bf16"})
+    err = {"a8w8_quantize_rows": 0.0, "a8w8_gemm": 0.0}
+    return err, timing, ptxas
+
+
+def phase_serve_a8w8(sd, prompts, ref_streams, nll_bf16, rpa, a8):
+    """[serve_a8w8]: the serving configuration with quant="a8w8" (int8
+    weights, dynamic int8 activations) on the bf16 pool, the bf16 run's
+    traffic. tok/s, TTFT, per-token latency, launches a tick, peak memory;
+    the streams that equal the bf16 run's, and the streams that equal the
+    per-tick engine's under a8w8 (all 32); the 4 oracle requests
+    teacher-forced on the per-tick decoder (LOGIT_TOL); and the NLL of the
+    bf16 run's streams against the bf16 decoder's (reported, not gated:
+    the weights are random). Returns the a8w8 kernels' launches."""
+    from paddle_tpu_torch.models import gpt_1p3b
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          PagedGPTDecoder)
+    cfg = gpt_1p3b()
+    t0 = time.perf_counter()
+    dec = PagedGPTDecoder(cfg, sd, num_pages=16 * MP + 1, page_size=PS,
+                          max_batch=16, quant="a8w8")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    eng, streams, wall, counts = _serve_run(dec, prompts, (rpa, a8))
+    quant, gemm = a8.quantize_launches, a8.gemm_launches
+    routes = dict(sorted(a8.branch_launches.items()))
+    plain = counts["ragged_paged_attention"][1] + counts["a8w8_matmul"][1]
+    # four products a layer, each one quantize and one GEMM
+    if gemm <= 0 or quant != gemm or plain or \
+            gemm % (4 * cfg.num_layers) or \
+            counts["ragged_paged_attention"][0] * 4 != gemm:
+        raise AssertionError(f"a8w8 launches on the card: quantize {quant}, "
+                             f"GEMM {gemm}, {counts}")
+    ticks = eng.stats.ticks
+    log("serve_a8w8", model="gpt_1p3b", layers=cfg.num_layers,
+        hidden=cfg.hidden_size, requests=N_REQ, max_new=MAX_NEW,
+        max_batch=16, k_max=K_MAX, setup_s=f"{setup_s:.2f}",
+        **_serve_fields(eng, wall),
+        a8w8_quantize_launches=quant, a8w8_gemm_launches=gemm, **routes,
+        a8w8_launches_per_tick=f"{(quant + gemm) / ticks:.1f}",
+        rpa_launches=counts["ragged_paged_attention"][0],
+        plain_launches=plain,
+        peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        weight_bytes_per_tick=dec.step_hbm_bytes(avg_ctx=0))
+    phase_profile(dec, prompts, mode="a8w8")
+    same_bf16 = sum(a == b for a, b in zip(streams, ref_streams))
+    per_tick = ContinuousBatchingEngine(dec, max_new_tokens=MAX_NEW, k_max=1)
+    rids = [per_tick.submit(p) for p in prompts]
+    out = per_tick.run()
+    same_tick = sum(out[r] == s for r, s in zip(rids, streams))
+    gap, _ = _teacher_force(dec, prompts[:N_ORACLE], streams[:N_ORACLE])
+    if gap > LOGIT_TOL:
+        raise AssertionError(f"an a8w8 engine token scores {gap:.4f} below "
+                             f"the per-tick best logit (tolerance "
+                             f"{LOGIT_TOL})")
+    _, nll = _teacher_force(dec, prompts[:N_ORACLE],
+                            ref_streams[:N_ORACLE])
+    log("serve_a8w8_oracle", streams_equal_bf16=f"{same_bf16}/{N_REQ}",
+        streams_equal_per_tick=f"{same_tick}/{N_REQ}",
+        max_logit_gap=f"{gap:.5f}", tolerance=LOGIT_TOL,
+        nll_of_bf16_streams=f"{nll:.5f}", nll_bf16=f"{nll_bf16:.5f}",
+        nll_delta=f"{nll - nll_bf16:.5f}",
+        nll_gate="none (random weights: reported only)")
+    del dec, eng, per_tick
+    torch.cuda.empty_cache()
+    return quant, gemm
+
+
+def _qm_model(cfg):
+    from paddle_tpu_torch.models import GPT
+    return GPT(cfg, device="cuda", seed=SEED).bfloat16().eval()
+
+
+def _qm_batch(cfg, seed):
+    ids = np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                              (QM_B, QM_L + 1))
+    return (torch.from_numpy(ids[:, :-1]).cuda(),
+            torch.from_numpy(ids[:, 1:]).cuda())
+
+
+def _qm_eval(model, ids, labels, reps=3):
+    """(f32 logits, mean NLL, eval ms a forward) of a no-grad forward at
+    QM_B x QM_L; the time is the mean of `reps` timed forwards after one
+    warm-up."""
+    with torch.no_grad():
+        logits = model(ids).float()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            model(ids)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        if not torch.isfinite(logits).all():
+            raise AssertionError("non-finite logits")
+        nll = float(torch.nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), labels.reshape(-1).long()))
+    return logits, nll, ms
+
+
+def _rel_err(got, want):
+    return float((got - want).norm() / want.norm())
+
+
+def phase_quant_model(w4, a8):
+    """[quant_model]: quantize_model(gpt_1p3b, weight_bits=8) and (4), bf16,
+    eval at 4 x 1024: the logits' relative error and the NLL against the
+    float model's, eval ms a forward, and W4 launches (96 a forward, at
+    4096 rows on the tensor-core prefill body)."""
+    import copy
+    from paddle_tpu_torch.models import gpt_1p3b
+    from paddle_tpu_torch.quantization import (QuantizedLinear,
+                                               QuantizedLinearW4,
+                                               quantize_model)
+    cfg = gpt_1p3b(max_seq_len=QM_L)
+    base = _qm_model(cfg)
+    ids, labels = _qm_batch(cfg, SEED)
+    ref, nll_ref, ms_ref = _qm_eval(base, ids, labels)
+    log("quant_model", weights="bfloat16", batch=f"{QM_B}x{QM_L}",
+        eval_ms=f"{ms_ref:.2f}", nll=f"{nll_ref:.5f}")
+    for bits, cls in ((8, QuantizedLinear), (4, QuantizedLinearW4)):
+        model = quantize_model(copy.deepcopy(base), weight_bits=bits)
+        n = sum(type(m) is cls for m in model.modules())
+        if n != 4 * cfg.num_layers:
+            raise AssertionError(f"quantize_model({bits}): {n} layers")
+        w4.reset_counts()
+        a8.reset_counts()
+        logits, nll, ms = _qm_eval(model, ids, labels)
+        calls = 4                              # one warm-up, 3 timed
+        if w4.plain_launches or a8.kernel_launches or \
+                w4.kernel_launches != (n * calls if bits == 4 else 0):
+            raise AssertionError(f"quantize_model({bits}): W4 launches "
+                                 f"{w4.kernel_launches}, plain "
+                                 f"{w4.plain_launches}")
+        log("quant_model", weight_bits=bits, layers_quantized=n,
+            batch=f"{QM_B}x{QM_L}", eval_ms=f"{ms:.2f}",
+            eval_ms_float=f"{ms_ref:.2f}",
+            logits_rel_err=f"{_rel_err(logits, ref):.5f}",
+            nll=f"{nll:.5f}", nll_float=f"{nll_ref:.5f}",
+            nll_delta=f"{nll - nll_ref:.5f}",
+            w4_launches_per_forward=w4.kernel_launches / calls,
+            w4_rows=QM_B * QM_L, **dict(sorted(w4.branch_launches.items())))
+        if bits == 4:
+            w4_launches = w4.kernel_launches
+        del model, logits
+        torch.cuda.empty_cache()
+    # row 11 at quantize_model's rows: each product alone at S 4096, bf16
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    w4_time = {"quant_model_launches": w4_launches,
+               "quant_model_rows": QM_B * QM_L}
+    for name, K, N in A8_PRODUCTS:
+        x = torch.randn((QM_B * QM_L, K), generator=gen,
+                        device="cuda").bfloat16()
+        packed, scale = w4.quantize_w4(torch.randn(
+            (K, N), generator=gen, device="cuda") * 0.02)
+        ms = cuda_ms(lambda i=0: w4.w4_matmul(x, packed, scale, K), 20)
+        dev = cuda_graph_ms(lambda i=0: w4.w4_matmul(x, packed, scale, K),
+                            20)
+        w4_time[f"s4096_{name}_ms"] = round(ms, 4)
+        w4_time[f"s4096_{name}_device_ms"] = round(dev, 4)
+        log("kernel_time", kernel="w4_matmul", product=name,
+            S=QM_B * QM_L, K=K, N=N, ms=f"{ms:.4f}", device_ms=f"{dev:.4f}",
+            bound_ms=f"{2.0 * QM_B * QM_L * K * N / H100_BF16_FLOPS * 1e3:.4f}",
+            body=dict(sorted(w4.branch_launches.items())))
+    return base, ids, labels, ref, nll_ref, w4_time
+
+
+def phase_ptq_gpt(a8, base, ids, labels, ref, nll_ref):
+    """[ptq_gpt]: PTQ on gpt_1p3b (bf16): calibrate on PTQ_CALIB batches of
+    4 x 1024, convert (every Linear -> QuantizedLinearA8W8, static
+    activation scales), evaluate: relative error and NLL against the float
+    model, A8W8 layers and launches (one quantize and one GEMM a layer a
+    forward, the GEMM on the tile body)."""
+    from paddle_tpu_torch.models import gpt_1p3b
+    from paddle_tpu_torch.quantization import PTQ, QuantizedLinearA8W8
+    cfg = gpt_1p3b(max_seq_len=QM_L)
+    model = base
+    ptq = PTQ(model)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(PTQ_CALIB):
+            model(_qm_batch(cfg, SEED + 1 + i)[0])
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    model = ptq.convert()
+    n = sum(isinstance(m, QuantizedLinearA8W8) for m in model.modules())
+    if n != 4 * cfg.num_layers:
+        raise AssertionError(f"PTQ converted {n} layers")
+    a8.reset_counts()
+    logits, nll, ms = _qm_eval(model, ids, labels)
+    calls = 4
+    if a8.plain_launches or a8.quantize_launches != n * calls or \
+            a8.gemm_launches != n * calls or \
+            a8.branch_launches.get("a8w8_gemm[tile]") != n * calls:
+        raise AssertionError(f"PTQ A8W8 launches: quantize "
+                             f"{a8.quantize_launches}, GEMM "
+                             f"{a8.gemm_launches}, {a8.branch_launches}, "
+                             f"plain {a8.plain_launches}")
+    log("ptq_gpt", model="gpt_1p3b", batch=f"{QM_B}x{QM_L}",
+        calibration=f"{PTQ_CALIB}x{QM_B}x{QM_L}", calib_s=f"{calib_s:.2f}",
+        a8w8_layers=n, eval_ms=f"{ms:.2f}",
+        logits_rel_err=f"{_rel_err(logits, ref):.5f}", nll=f"{nll:.5f}",
+        nll_float=f"{nll_ref:.5f}", nll_delta=f"{nll - nll_ref:.5f}",
+        a8w8_launches_per_forward=(a8.quantize_launches
+                                   + a8.gemm_launches) / calls,
+        **dict(sorted(a8.branch_launches.items())))
+    launches = (a8.quantize_launches, a8.gemm_launches)
+    del model, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_qat_gpt(a8, smi):
+    """[qat_gpt]: QAT on gpt_1p3b (bf16 weights, AdamW with bf16 slots and
+    the global-norm clip, the Trainer): quantize, QAT_STEPS steps at
+    4 x 1024 with remat 'none' (a recomputed forward would update the
+    observers twice a step, which JAX's eager loop never does), convert,
+    evaluate against the fake-quant model's eval logits: relative error,
+    NLL, A8W8 layers and launches; step ms beside a float step."""
+    from paddle_tpu_torch.distributed import Trainer
+    from paddle_tpu_torch.models import GPTPretrainingCriterion, gpt_1p3b
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn.quant import QuantizedLinear as FakeQuant
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.quantization import QAT, QuantizedLinearA8W8
+    cfg = gpt_1p3b(max_seq_len=QM_L, remat_policy="none")
+    crit = GPTPretrainingCriterion()
+    ids, labels = _qm_batch(cfg, SEED + 10)
+    batch = {"input_ids": ids, "labels": labels}
+    out = {}
+    for mode in ("float", "qat"):
+        model = _qm_model(cfg).train()
+        qat = QAT()
+        if mode == "qat":
+            qat.quantize(model)
+            n = sum(isinstance(m, FakeQuant) for m in model.modules())
+            if n != 4 * cfg.num_layers:
+                raise AssertionError(f"QAT wrapped {n} layers")
+        opt = AdamW(learning_rate=2e-4, weight_decay=0.1,
+                    grad_clip=ClipGradByGlobalNorm(1.0),
+                    accumulator_dtype="bfloat16")
+        trainer = Trainer(model, opt, lambda m, b: crit(
+            m(b["input_ids"]), b["labels"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(QAT_STEPS):
+            t0 = time.perf_counter()
+            losses.append(trainer.step(batch))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        losses = [float(v) for v in losses]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{mode} losses {losses}")
+        out[mode] = {"step_ms": sum(times[1:]) / (QAT_STEPS - 1) * 1e3,
+                     "losses": losses,
+                     "peak": torch.cuda.max_memory_allocated() / 1e9}
+        if mode == "float":
+            del trainer, model, opt
+            torch.cuda.empty_cache()
+            continue
+        seen = [int(m._fake_quant_input.seen) for m in model.modules()
+                if isinstance(m, FakeQuant)]
+        if min(seen) != 1:
+            raise AssertionError("a QAT observer saw no activation")
+        model.eval()
+        fake, nll_fake, _ = _qm_eval(model, ids, labels, reps=1)
+        del trainer, opt
+        torch.cuda.empty_cache()
+        qat.convert(model)
+        n = sum(isinstance(m, QuantizedLinearA8W8) for m in model.modules())
+        if n != 4 * cfg.num_layers:
+            raise AssertionError(f"QAT converted {n} layers")
+        a8.reset_counts()
+        logits, nll, ms = _qm_eval(model, ids, labels, reps=1)
+        calls = 2
+        if a8.plain_launches or a8.gemm_launches != n * calls or \
+                a8.quantize_launches != n * calls:
+            raise AssertionError(f"QAT A8W8 launches {a8.gemm_launches}, "
+                                 f"plain {a8.plain_launches}")
+        launches = (a8.quantize_launches, a8.gemm_launches)
+        log("qat_gpt", model="gpt_1p3b", batch=f"{QM_B}x{QM_L}",
+            remat="none (a recompute would update the observers twice a "
+            "step; JAX's eager loop updates them once)",
+            steps=QAT_STEPS, gpu=repr(smi),
+            step_ms=f"{out['qat']['step_ms']:.2f}",
+            float_step_ms=f"{out['float']['step_ms']:.2f}",
+            peak_mem_GB=f"{out['qat']['peak']:.2f}",
+            float_peak_mem_GB=f"{out['float']['peak']:.2f}",
+            losses=",".join(f"{v:.5f}" for v in out["qat"]["losses"]),
+            float_losses=",".join(f"{v:.5f}"
+                                  for v in out["float"]["losses"]),
+            a8w8_layers=n, eval_ms=f"{ms:.2f}",
+            logits_rel_err_vs_fake_quant=f"{_rel_err(logits, fake):.5f}",
+            nll=f"{nll:.5f}", nll_fake_quant=f"{nll_fake:.5f}",
+            a8w8_launches_per_forward=(a8.quantize_launches
+                                       + a8.gemm_launches) / calls)
+        del model, logits, fake
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7200,6 +7762,7 @@ def main():
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     from paddle_tpu_torch.ops import w4_matmul as w4
+    from paddle_tpu_torch.ops import a8w8_matmul as a8
     t_start = time.perf_counter()
     smi = phase_environment()
     layouts = [v[2] for v in SERVE_KERNELS.values()]
@@ -7207,6 +7770,7 @@ def main():
                           phase_kernel_long_rows(rpa, lay))
                  for lay in layouts}
     w4_err = phase_w4_checks(w4)
+    a8_err, a8_timing, a8_ptxas = phase_a8w8_kernel(a8)
     serve_timing = {lay: phase_kernel_timing(rpa, lay) for lay in layouts}
     for lay in layouts:
         phase_chunk_mix_timing(rpa, lay)
@@ -7228,6 +7792,9 @@ def main():
     phase_serve_sampled(sd, prompts, greedy_fields, rpa)
     quant_launches = phase_serve_quant(sd, prompts, streams, nll_bf16, rpa,
                                        w4)
+    torch.cuda.empty_cache()
+    a8_launches = [phase_serve_a8w8(sd, prompts, streams, nll_bf16, rpa,
+                                    a8)]
     torch.cuda.empty_cache()
     t_prefix = time.perf_counter()
     prefix_launches, prefix_err = phase_prefix_serving(sd, rpa)
@@ -7253,6 +7820,15 @@ def main():
     phase_generate(sd, smi)
     del sd
     torch.cuda.empty_cache()
+    t19 = time.perf_counter()
+    qm = phase_quant_model(w4, a8)
+    w4_quant_model = qm[-1]
+    a8_launches.append(phase_ptq_gpt(a8, *qm[:-1]))
+    del qm
+    torch.cuda.empty_cache()
+    a8_launches.append(phase_qat_gpt(a8, smi))
+    torch.cuda.empty_cache()
+    log("slice19_model_phases", total_s=f"{time.perf_counter() - t19:.1f}")
     phase_small_reference()
     slice5_err = phase_slice5_kernel_checks(LN, X)
     slice5_timing = phase_slice5_kernel_timing(X)
@@ -7345,11 +7921,13 @@ def main():
                         "launches": serve_launches[lay],
                         "max_abs_err": serve_err[lay], **serve_timing[lay],
                         **extra})
+    # the w4a16 serving run's launches and quantize_model's (4096 rows)
     kernels.append({"name": "w4_matmul", "route": "cuda",
                     "source": "paddle_tpu_torch/ops/csrc/w4_matmul.cu",
                     "replaces": "paddle_tpu/ops/w4_matmul.py:59",
-                    "launches": quant_launches["w4a16"]["w4_matmul"],
-                    "max_abs_err": w4_err, **w4_timing})
+                    "launches": quant_launches["w4a16"]["w4_matmul"]
+                    + w4_quant_model["quant_model_launches"],
+                    "max_abs_err": w4_err, **w4_timing, **w4_quant_model})
     gpt_rows, bert_rows = (f"{n}x{h}" for n, h in NORM_SHAPES)
     for name, (source, replaces) in TRAIN_KERNELS.items():
         timing = (norm_timing[f"{name}[{gpt_rows}]"] if name in NORM_KERNELS
@@ -7422,6 +8000,18 @@ def main():
                     "replaces": "paddle_tpu/serving/decoder.py:284",
                     "launches": lora_launches, "max_abs_err": lora_err,
                     **lora_timing})
+    # no Pallas kernel: the counterparts of the XLA-fused activation
+    # quantize and int8 dot of the JAX decoder's `_mm` / `_mm_heads` and
+    # `QuantizedLinearA8W8`; launches of [serve_a8w8], [ptq_gpt], [qat_gpt]
+    for i, name in enumerate(("a8w8_quantize_rows", "a8w8_gemm")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "paddle_tpu_torch/ops/csrc/a8w8_matmul.cu",
+                        "replaces": "paddle_tpu/serving/decoder.py:330",
+                        "also_replaces": "paddle_tpu/serving/decoder.py:307, "
+                        "paddle_tpu/quantization.py:118",
+                        "launches": sum(n[i] for n in a8_launches),
+                        "max_abs_err": a8_err[name], "ptxas": a8_ptxas,
+                        **a8_timing[name]})
     if any(k["route"] not in ("cuda", "triton") for k in kernels):
         raise AssertionError("a kernel's route is not cuda or triton")
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,8 @@ passes `device="cpu"`. Every TPU (Pallas) kernel on a ported path is a
 hand-written Hopper kernel here (`ops/csrc/`), built from the sources
 at first use (`ops/_build.py`).
 """
-from . import regularizer, vision
+from . import nn, quantization, regularizer, vision
 from .device import cuda_available, get_device
 
-__all__ = ["cuda_available", "get_device", "regularizer", "vision"]
+__all__ = ["cuda_available", "get_device", "nn", "quantization",
+           "regularizer", "vision"]

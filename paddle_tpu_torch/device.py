@@ -8,7 +8,7 @@ the tests do).
 """
 import torch
 
-__all__ = ["get_device", "cuda_available"]
+__all__ = ["get_device", "cuda_available", "div_const"]
 
 
 def cuda_available():
@@ -32,3 +32,14 @@ def get_device(device=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def div_const(x, c):
+    """x / c for a Python number c, rounded as a true division on every
+    device. PyTorch's CUDA kernels divide by a CPU scalar as a multiply by
+    its reciprocal, which can round one ulp away from x / c (what JAX and
+    the port's kernels compute, and what the CPU computes in f32); a 0-dim
+    tensor on x's device keeps the division true."""
+    if x.device.type == "cpu":
+        return x / c
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)

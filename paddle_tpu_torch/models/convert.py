@@ -12,6 +12,14 @@ weights compute the same thing in both packages: a port `GPT`, BERT,
 its parameter's or buffer's dtype (f32 or bf16, numpy's bfloat16
 exactly).
 
+A quantized JAX model carries across the same way: its `quantize_model`,
+`PTQ` or `QAT` buffers (`weight_q` int8 or packed int4 nibbles,
+`weight_scale`, `act_scale`, the fake-quant observers' int32 `seen` and
+f32 `scale`) keep their dtypes and 0-dim shapes, so the port's model,
+quantized the same way (`paddle_tpu_torch.quantization`), takes them with
+`load_state_dict` and computes what the JAX model computes;
+`QuantizedLinearA8W8` rebuilds its K-contiguous weight copy on load.
+
 `trainer_state_from_numpy` does the same for a JAX `Trainer.state()`
 (parameters, optimizer slots and step counts under the model's names),
 so a state saved by the JAX package resumes in the port's
@@ -40,9 +48,16 @@ def _tensor(arr, copy=True):
 
 def state_dict_from_numpy(np_state, device=None, dtype=None):
     """{name: array} -> {name: tensor} on `device`; `dtype` (a torch
-    dtype) casts every tensor, None keeps each array's own dtype."""
+    dtype) casts every floating-point tensor, None keeps each array's own
+    dtype. Integer arrays (int8 quantized weights, int32 observer counts)
+    keep theirs either way."""
     dev = get_device(device)
-    return {k: _tensor(v).to(dev, dtype) for k, v in np_state.items()}
+    out = {}
+    for k, v in np_state.items():
+        t = _tensor(v)
+        out[k] = t.to(dev, dtype if dtype is not None
+                      and t.is_floating_point() else t.dtype)
+    return out
 
 
 def trainer_state_from_numpy(jax_state, device=None):

@@ -1,7 +1,8 @@
 """Layers, functionals, initializers, layouts and gradient clipping of
-the GPT, BERT and ResNet training paths (counterpart of
+the GPT, BERT and ResNet training paths, and the fake-quant layers of
+quantization-aware training (`nn.quant`) (counterpart of
 `paddle_tpu/nn`)."""
-from . import functional, initializer, layout
+from . import functional, initializer, layout, quant
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    ClipGradForMOEByGlobalNorm)
 from .initializer import (Constant, KaimingUniform, Normal, Uniform,
@@ -13,7 +14,7 @@ from .layout import set_channels_last
 from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
 
-__all__ = ["functional", "initializer", "layout", "ClipGradByGlobalNorm",
+__all__ = ["functional", "initializer", "layout", "quant", "ClipGradByGlobalNorm",
            "ClipGradByNorm", "ClipGradByValue", "ClipGradForMOEByGlobalNorm",
            "Constant", "KaimingUniform", "Normal", "Uniform",
            "XavierUniform", "AdaptiveAvgPool2D", "BatchNorm2D", "Conv2D",

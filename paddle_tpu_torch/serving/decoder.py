@@ -13,12 +13,14 @@ fixed-size tensors — no `.item()`, no boolean-mask indexing, no branch
 on a device value — so a horizon enqueues without waiting for the card;
 the engine fetches results at block boundaries only.
 
-Every attention call goes through `ops.ragged_paged_attention`, and with
-`quant="w4a16"` every qkv/proj/fc1/fc2 product through `ops.w4_matmul`:
-the hand-written CUDA kernels on the card, their plain versions on the
-CPU. Ported: float32/bfloat16, int8 (`kv_quant="int8"`, per-token
-scales) and int4 (`kv_quant="int4"`, nibbles with per-group scales)
-pools, int4 weights (`quant="w4a16"`), greedy and sampled decoding
+Every attention call goes through `ops.ragged_paged_attention`; with
+`quant="w4a16"` every qkv/proj/fc1/fc2 product through `ops.w4_matmul`,
+with `quant="a8w8"` through `ops.a8w8_matmul` (the row quantize and the
+int8 GEMM): the hand-written CUDA kernels on the card, their plain
+versions on the CPU. Ported: float32/bfloat16, int8 (`kv_quant="int8"`,
+per-token scales) and int4 (`kv_quant="int4"`, nibbles with per-group
+scales) pools, int4 weights (`quant="w4a16"`), int8 weights with dynamic
+int8 activations (`quant="a8w8"`), greedy and sampled decoding
 (`temperature`, `top_k`, `top_p`, `seed`: the JAX `mask_logits` and a
 threefry draw bit-equal to `jax.random`, keyed by (seed, request id,
 position) on every path, so a request's tokens do not depend on the
@@ -50,11 +52,13 @@ import torch
 import torch.nn.functional as F
 
 from .. import random as prng
-from ..device import get_device
+from ..device import div_const, get_device
 from ..models.generation import mask_logits
+from ..ops import a8w8_matmul as a8
 from ..ops import lora_delta as lora
 from ..ops import ragged_paged_attention as rpa
 from ..ops import w4_matmul as w4
+from ..quantization import quantize_weight
 
 __all__ = ["PagedGPTDecoder", "MultiDecodeOut", "RaggedMultiOut",
            "pow2_at_least", "pool_token_bytes", "INT4_GROUP"]
@@ -83,9 +87,9 @@ _NO_LIMIT = np.iinfo(np.int32).max // 2
 def _not_ported(what):
     return NotImplementedError(
         f"{what} is not ported to paddle_tpu_torch yet (the port serves "
-        "float32/bfloat16/int8/int4 pools and W4A16 weights, greedy or "
-        "sampled, packed or dense, with LoRA adapters, on one device; later "
-        "slices add it)")
+        "float32/bfloat16/int8/int4 pools and W4A16 and A8W8 weights, "
+        "greedy or sampled, packed or dense, with LoRA adapters, on one "
+        "device; later slices add it)")
 
 
 def pow2_at_least(n):
@@ -111,11 +115,17 @@ def _at(v, l):
     return tuple(x[l] for x in v) if isinstance(v, tuple) else v[l]
 
 
-def _mm(x, w, b):
-    """x [..., in] @ w [in, out] + b, in x's dtype; a (packed, scale)
-    tuple w is an int4 weight (W4A16, `ops.w4_matmul`)."""
-    if isinstance(w, tuple):
+def _mm(x, w, b, quant=None):
+    """x [..., in] @ w [in, out] + b, in x's dtype. The decoder's weight
+    mode picks the product: under "w4a16" w is the int4 (packed, scale)
+    pair (`ops.w4_matmul`); under "a8w8" the int8 (q [out, in], f32
+    scale [out]) pair, run as dynamic per-row int8 activations times int8
+    weights with the JAX decoder's epilogue, (acc * sx) * sw + b in f32
+    with b from its stored dtype (`ops.a8w8_matmul`)."""
+    if quant == "w4a16":
         return w4.w4_matmul(x, w[0], w[1], x.shape[-1]) + b
+    if quant == "a8w8":
+        return a8.a8w8_linear(x, w[0], w[1], b, a8.DECODER)
     return x @ w + b
 
 
@@ -126,7 +136,7 @@ def _quantize_kv(val):
     (int8 [..., H, D], f32 scale [...])."""
     v32 = val.float()
     amax = v32.abs().amax(dim=(-2, -1))
-    scale = torch.clamp_min(amax / 127.0, 1e-8)
+    scale = torch.clamp_min(div_const(amax, 127.0), 1e-8)
     q = torch.clamp(torch.round(v32 / scale[..., None, None]), -127,
                     127).to(torch.int8)
     return q, scale
@@ -173,7 +183,7 @@ def _quantize_kv_int4(val, group=INT4_GROUP):
         flat = torch.cat([flat, flat.new_zeros(flat.shape[:-1] + (pad,))],
                          dim=-1)
     g = flat.reshape(flat.shape[:-1] + (n_groups, group))
-    scale = torch.clamp_min(g.abs().amax(-1) / 7.0, 1e-8)
+    scale = torch.clamp_min(div_const(g.abs().amax(-1), 7.0), 1e-8)
     q = torch.clamp(torch.round(g / scale[..., None]), -7, 7).to(
         torch.int8).reshape(flat.shape)
     if q.shape[-1] % 2:
@@ -282,17 +292,15 @@ class PagedGPTDecoder:
     of a JAX model). The last page of the pool (`num_pages - 1`) is the
     reserved scratch page that absorbs every write of a padded, frozen
     or inactive position. `kv_quant` ("int8" | "int4") quantizes the KV
-    pool; `quant="w4a16"` stores the qkv/proj/fc1/fc2 weights as int4
-    (`lm_head` stays unquantized, as in the JAX decoder)."""
+    pool; `quant="w4a16"` stores the qkv/proj/fc1/fc2 weights as int4,
+    `quant="a8w8"` as int8 with int8 activations (`lm_head` stays
+    unquantized, as in the JAX decoder)."""
 
     def __init__(self, cfg, state_dict, num_pages=128, page_size=16,
                  max_batch=8, max_pages_per_seq=None, quant=None,
                  kv_quant=None, dtype=None, temperature=0.0, top_k=0,
                  top_p=1.0, seed=0, mesh=None, packed=True, device=None):
-        if quant == "a8w8":
-            raise _not_ported("int8 weights with int8 activations "
-                              "(quant='a8w8')")
-        if quant not in (None, "w4a16"):
+        if quant not in (None, "a8w8", "w4a16"):
             raise ValueError(f"quant must be None, 'a8w8' or 'w4a16', got "
                              f"{quant!r}")
         if kv_quant not in (None, "int8", "int4"):
@@ -330,41 +338,52 @@ class PagedGPTDecoder:
         L, H, D = cfg.num_layers, cfg.num_heads, cfg.head_dim
         sd = state_dict
 
-        def stack(fmt, dtype):
-            return torch.stack([sd[fmt.format(i)] for i in range(L)]).to(
-                dev, dtype)
+        def stack(fmt, dtype=None):
+            """The L layers' tensors stacked on the device, in `dtype`
+            (None: their stored dtype)."""
+            v = torch.stack([sd[fmt.format(i)] for i in range(L)])
+            return v.to(dev, dtype or v.dtype)
 
         def linear(name):
             """Stacked [L, in, out] weight in the compute dtype (the JAX
-            decoder casts at each use: `x @ w.astype(x.dtype)`), or under
-            w4a16 the stacked (packed, scale) int4 pair, quantized once on
-            the device from the state dict's own values taken to f32 (what
-            the JAX `quantize_weight` sees; a compute-dtype copy would move
-            the scales)."""
-            if quant != "w4a16":
+            decoder casts at each use: `x @ w.astype(x.dtype)`); under
+            w4a16 the stacked (packed, scale) int4 pair, under a8w8 the
+            stacked (int8 [L, out, in], f32 scale [L, out]) pair, stored
+            transposed (K-contiguous) for the int8 kernel's B operand. Both
+            quantize once on the device from the state dict's own values
+            taken to f32 (what the JAX `quantize_weight` sees; a
+            compute-dtype copy would move the scales); the qkv weight's
+            [h, 3*H*D] is the JAX decoder's head-major flattening."""
+            if quant is None:
                 return stack(f"blocks.{{}}.{name}.weight", cd)
-            per_layer = [w4.quantize_w4(
-                sd[f"blocks.{i}.{name}.weight"].to(dev, torch.float32))
-                for i in range(L)]
+            w32 = (sd[f"blocks.{i}.{name}.weight"].to(dev, torch.float32)
+                   for i in range(L))
+            if quant == "w4a16":
+                per_layer = [w4.quantize_w4(w) for w in w32]
+            else:
+                per_layer = [(q.t().contiguous(), s.reshape(-1)) for q, s in
+                             (quantize_weight(w, axis=0) for w in w32)]
             return tuple(torch.stack(part) for part in zip(*per_layer))
 
-        # biases in the compute dtype; LayerNorm affine in f32, as `_ln`
-        # promotes it. The qkv weight keeps the JAX decoder's head-major
-        # column order: [L, h, 3*H*D] is the same memory as its
-        # [L, h, 3, H, D].
+        # biases in the compute dtype, or under a8w8 in their stored dtype
+        # (its epilogue adds them in f32, as the JAX decoder adds `b`
+        # uncast); LayerNorm affine in f32, as `_ln` promotes it. The qkv
+        # weight keeps the JAX decoder's head-major column order: [L, h,
+        # 3*H*D] is the same memory as its [L, h, 3, H, D].
+        bias_dtype = None if quant == "a8w8" else cd
         self.weights = {
             "ln1_w": stack("blocks.{}.ln1.weight", torch.float32),
             "ln1_b": stack("blocks.{}.ln1.bias", torch.float32),
             "qkv_w": linear("qkv"),
-            "qkv_b": stack("blocks.{}.qkv.bias", cd),
+            "qkv_b": stack("blocks.{}.qkv.bias", bias_dtype),
             "proj_w": linear("proj"),
-            "proj_b": stack("blocks.{}.proj.bias", cd),
+            "proj_b": stack("blocks.{}.proj.bias", bias_dtype),
             "ln2_w": stack("blocks.{}.ln2.weight", torch.float32),
             "ln2_b": stack("blocks.{}.ln2.bias", torch.float32),
             "fc1_w": linear("fc1"),
-            "fc1_b": stack("blocks.{}.fc1.bias", cd),
+            "fc1_b": stack("blocks.{}.fc1.bias", bias_dtype),
             "fc2_w": linear("fc2"),
-            "fc2_b": stack("blocks.{}.fc2.bias", cd),
+            "fc2_b": stack("blocks.{}.fc2.bias", bias_dtype),
         }
         # embeddings stay in their stored dtype: the JAX decoder adds
         # token and position rows there and casts the sum
@@ -433,7 +452,8 @@ class PagedGPTDecoder:
         H, D = self.cfg.num_heads, self.cfg.head_dim
         T = x.shape[0]
         y = _ln(x, w["ln1_w"], w["ln1_b"])
-        qkv = _mm(y, w["qkv_w"], w["qkv_b"])
+        quant = self.quant
+        qkv = _mm(y, w["qkv_w"], w["qkv_b"], quant)
         if aids is not None:
             lora.lora_delta_(qkv, y, self.lora["lora_A"][l],
                              self.lora["lora_B"][l], aids)
@@ -442,10 +462,11 @@ class PagedGPTDecoder:
         _kv_set(kp, pids, offs, qkv[:, 1])
         _kv_set(vp, pids, offs, qkv[:, 2])
         attn = attend(qkv[:, 0].contiguous(), kp, vp).to(x.dtype)
-        x = x + _mm(attn.reshape(T, H * D), w["proj_w"], w["proj_b"])
+        x = x + _mm(attn.reshape(T, H * D), w["proj_w"], w["proj_b"],
+                    quant)
         y = _ln(x, w["ln2_w"], w["ln2_b"])
-        h = F.gelu(_mm(y, w["fc1_w"], w["fc1_b"]), approximate="tanh")
-        return x + _mm(h, w["fc2_w"], w["fc2_b"])
+        h = F.gelu(_mm(y, w["fc1_w"], w["fc1_b"], quant), approximate="tanh")
+        return x + _mm(h, w["fc2_w"], w["fc2_b"], quant)
 
     def _logits(self, x):
         x = _ln(x, self.ln_f_w, self.ln_f_b)
@@ -1197,7 +1218,7 @@ class PagedGPTDecoder:
         cfg = self.cfg
 
         def probe(v):
-            if isinstance(v, tuple):             # int4 (packed, scale)
+            if isinstance(v, tuple):     # int4 or int8 (payload, scale)
                 return tuple(probe(x) for x in v)
             bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
                     8: torch.int64}[v.element_size()]
@@ -1257,7 +1278,8 @@ class PagedGPTDecoder:
 
     def step_hbm_bytes(self, avg_ctx=None, batch=None, kv_quant="pool"):
         """HBM bytes ONE decode tick moves: every weight byte (2 a
-        parameter; 0.5 for the int4 linears under w4a16) plus each slot's
+        parameter; 1 for the int8 linears under a8w8, 0.5 for the int4
+        linears under w4a16) plus each slot's
         KV prefix at `avg_ctx` (default: half the model's max sequence) —
         the numerator of the decode tick roofline the scheduler prices K
         and w from. `kv_quant` prices another pool layout for a what-if
@@ -1265,10 +1287,11 @@ class PagedGPTDecoder:
         pool's."""
         cfg = self.cfg
         n = cfg.num_params()
-        if self.quant == "w4a16":
+        per = {"a8w8": 1.0, "w4a16": 0.5}.get(self.quant)
+        if per is not None:
             h, f = cfg.hidden_size, cfg.ffn_hidden
             lin = cfg.num_layers * (4 * h * h + 2 * h * f)
-            w_bytes = lin * 0.5 + (n - lin) * 2
+            w_bytes = lin * per + (n - lin) * 2
         else:
             w_bytes = n * 2
         if avg_ctx is None:

@@ -39,6 +39,19 @@ from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.optimizer import optimizer as O
 from paddle_tpu_torch.testing import PerTensorAdamW
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while a test of this module runs: the suite
+    runs in several worker processes beside XLA's thread pools, and
+    PyTorch's default of a thread per core then oversubscribes the CPU
+    many times over. Results do not depend on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 HYPER = (1e-3, 0.9, 0.999, 1e-8, 0.1)           # lr, b1, b2, eps, wd
 STEP = 3
 F32, BF16 = torch.float32, torch.bfloat16

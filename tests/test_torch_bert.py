@@ -42,6 +42,19 @@ from paddle_tpu_torch.ops import attention as A
 from paddle_tpu_torch.ops import layer_norm as LN
 from paddle_tpu_torch.optimizer import AdamW
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while a test of this module runs: the suite
+    runs in several worker processes beside XLA's thread pools, and
+    PyTorch's default of a thread per core then oversubscribes the CPU
+    many times over. Results do not depend on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 V, LR, PARAM_TOL = 1024, 1e-3, 1e-4
 NO_DROP = dict(hidden_dropout=0.0, attention_dropout=0.0)
 FLASH = dict(hidden_size=128, num_heads=2)          # head_dim 64

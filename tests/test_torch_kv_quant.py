@@ -47,6 +47,19 @@ from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                       PagedGPTDecoder)
 from paddle_tpu_torch.serving import decoder as tdec
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while a test of this module runs: the suite
+    runs in several worker processes beside XLA's thread pools, and
+    PyTorch's default of a thread per core then oversubscribes the CPU
+    many times over. Results do not depend on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PROMPTS = [[3, 141, 59], [897, 11, 4, 18, 200, 7], [31],
            list(range(100, 140)), [5, 9, 2, 6, 5, 3, 5, 8, 9, 7, 9]]
 MAX_NEW = 6

@@ -40,6 +40,19 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.optimizer import SGD, Adam, AdamW, Momentum
 from paddle_tpu_torch.vision import models as TV
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while a test of this module runs: the suite
+    runs in several worker processes beside XLA's thread pools, and
+    PyTorch's default of a thread per core then oversubscribes the CPU
+    many times over. Results do not depend on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SHAPES = [(7, 5), (33,), (4, 3, 3, 2)]
 LR = 0.1
 

@@ -32,6 +32,19 @@ from paddle_tpu_torch.models import gpt_tiny, state_dict_from_numpy
 from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                       PagedGPTDecoder)
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while a test of this module runs: the suite
+    runs in several worker processes beside XLA's thread pools, and
+    PyTorch's default of a thread per core then oversubscribes the CPU
+    many times over. Results do not depend on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PROMPTS = [[3, 141, 59], [897, 11, 4, 18, 200, 7], [31],
            list(range(100, 140)), [5, 9, 2, 6, 5, 3, 5, 8, 9, 7, 9]]
 MAX_NEW = 6
@@ -144,8 +157,11 @@ def test_ragged_engine_equals_per_tick_engine(models):
 
 
 def test_unported_options_raise(models):
-    with pytest.raises(NotImplementedError):
-        _decoder(models, quant="a8w8")
+    # int8 weights with int8 activations are ported
+    # (test_torch_a8w8.py): the decoder stores the int8 pairs
+    dec = _decoder(models, quant="a8w8")
+    assert dec.quant == "a8w8" and dec.weights["fc1_w"][0].dtype == \
+        torch.int8
     # sampling is ported (test_torch_serving_sampled.py): it builds with
     # the JAX decoder's sampling tuple and seed
     dec = _decoder(models, temperature=0.7, top_k=5, seed=9)

@@ -46,6 +46,19 @@ from paddle_tpu_torch.ops import fused_ops as X
 from paddle_tpu_torch.ops import layer_norm as LN
 from paddle_tpu_torch.optimizer import Adam, AdamW
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while a test of this module runs: the suite
+    runs in several worker processes beside XLA's thread pools, and
+    PyTorch's default of a thread per core then oversubscribes the CPU
+    many times over. Results do not depend on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LR, PARAM_TOL = 1e-3, 1e-4
 CFG = dict(num_heads=2, max_seq_len=128, dtype="float32")
 
